@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py        # from the repository root
 
-It drives the port's main path — the default all-pairs CLI run, 100k
-bodies x 10 KDK steps in f32 with --energy — through the hand-written CUDA
-kernels, and checks it.  Phases (each raises on failure, so the script
-exits non-zero and prints no result):
+It drives the port's two paths through the hand-written CUDA kernels and
+checks them: the default all-pairs CLI run (100k bodies x 10 KDK steps in
+f32 with --energy) and the fused Barnes-Hut run (--algo auto at 1M
+bodies, 5 KDK steps, f32, --energy).  Phases (each raises on failure, so
+the script exits non-zero and prints no result):
 
 1. card and build: nvidia-smi's name and power limit, nvcc's version, the
    kernels built from nbody_tpu_torch/csrc/*.cu for sm_90a and the build
@@ -20,7 +21,19 @@ exits non-zero and prints no result):
 5. the same run with ``--backend torch`` (plain PyTorch on the card):
    final positions and energy drift must agree;
 6. kernel times beside the plain versions (CUDA events), and pairs/s of
-   both backends, each printed beside the card's name and power limit.
+   both backends, each printed beside the card's name and power limit;
+7. the fused Barnes-Hut kernel (K6) against its plain twin on the same
+   tables and groups, at 100k and at the main path's 1M: K1's bound, equal
+   stats, bit-identical reruns;
+8. the whole fused Barnes-Hut call against exact all-pairs forces (K1) on
+   the reference's 1M uniform cloud (seed 0);
+9. the Barnes-Hut main path: the 1M cloud written to CSV, then
+   ``--algo auto --energy --write-every 5`` over 5 steps in-process, with
+   the launch counters reset just before and read just after;
+10. the same run with ``--algo exhaustive`` (K1): final positions and
+    energy drift must agree;
+11. K6 and its twin at 100k and 1M, the 1M call split into sort+build, K6
+    and scatter, and s/step of both algorithms at 1M with --no-output.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
@@ -47,6 +60,10 @@ GOLDEN_10 = os.path.join(ROOT, "tests", "data", "golden_exh_10bodies_0_10_0.1.cs
 STEPS = 10
 MAIN_WINDOW = ["0", "0.001", "0.0001"]  # C-float step count: 10 steps
 ATOL_REL, RTOL = 2e-5, 2e-4  # f32 kernel bound (tests/test_pallas.py:25)
+BH_N = 1_000_000  # the reference's Barnes-Hut size (tools/bench_bh.py:4-6)
+BH_STEPS, BH_DT = 5, 0.0001
+BH_WINDOW = ["0", "0.0005", "0.0001"]  # C-float step count: 5 steps
+BH_BOUND = 0.02  # max |a - exact| / max |a| (tests/test_bh_fused.py:51)
 
 
 def check(ok: bool, what: str) -> None:
@@ -60,15 +77,6 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return r.stdout.strip().splitlines()[0]
-
-
-def random_cloud(n: int, seed: int) -> np.ndarray:
-    """Bodies like the reference fixtures: coords +-2, masses 0.04-1."""
-    rng = np.random.default_rng(seed)
-    return np.concatenate([
-        rng.uniform(-2.0, 2.0, (n, 3)), rng.uniform(-1.0, 1.0, (n, 3)),
-        rng.uniform(0.04, 1.0, (n, 1)),
-    ], axis=1)
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -116,11 +124,11 @@ def cli_number(text: str, label: str) -> float:
     return float(m.group(1))
 
 
-def load_frames(path: str, n: int) -> np.ndarray:
+def load_frames(path: str, n: int, frames: int = STEPS + 1) -> np.ndarray:
     rows = np.loadtxt(path, delimiter=",", dtype=np.float64, ndmin=2)
-    check(rows.shape == ((STEPS + 1) * n, 5), f"{path}: {rows.shape} rows")
+    check(rows.shape == (frames * n, 5), f"{path}: {rows.shape} rows")
     check(bool(np.isfinite(rows).all()), f"{path}: finite values")
-    frames = rows.reshape(STEPS + 1, n, 5)
+    frames = rows.reshape(frames, n, 5)
     check(bool((frames[:, :, 0] == np.arange(n)).all()), f"{path}: body ids")
     return frames
 
@@ -145,7 +153,8 @@ def main() -> int:
         potential_energy_reference,
     )
     from nbody_tpu_torch.io.csv import read_bodies
-    from nbody_tpu_torch.ops import _cuda
+    from nbody_tpu_torch.utils.fixtures import random_cloud, write_fixture
+    from nbody_tpu_torch.ops import _cuda, bh_fused
     from nbody_tpu_torch.ops.cuda_exhaustive import (
         cuda_accelerations,
         cuda_rect_accelerations,
@@ -305,6 +314,136 @@ def main() -> int:
             print(f"  --no-output --backend {label}: {sim:.4f} s -> "
                   f"{main_pairs / sim:.4e} pairs/s [{card}]")
 
+        # 7. fused Barnes-Hut kernel against its twin, at 100k and at the
+        # main path's 1M
+        print("[7] fused Barnes-Hut kernel (nbody_tpu_torch/csrc/bh_fused.cu)")
+        arr1m = random_cloud(BH_N, seed=0)
+        b1m = Bodies.from_numpy(arr1m, dtype=torch.float32, device=dev)
+        k6 = {}  # n -> (kernel arguments, keywords, max |err|)
+        for bodies in (b, b1m):
+            fi = bh_fused.prepare_fused(bodies.pos, bodies.mass)
+            kw = dict(theta=0.5, eps2=0.01, leaf_cap=64, ld=fi.ld,
+                      group_size=fi.group_size)
+            args = (fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq)
+            got_s, stats_k = bh_fused.fused_group_forces(*args, **kw)
+            want_s, stats_p = bh_fused.fused_group_forces_reference(*args, **kw)
+            torch.cuda.synchronize()
+            err = f32_close(torch, got_s, want_s, f"n={bodies.n}, ld {fi.ld}, "
+                            f"{fi.gstart.shape[0]} group slots, B {fi.group_size}")
+            k6[bodies.n] = (args, kw, err)
+            lanes = {name: int(stats_k[:, lane].long().sum())
+                     for name, lane in (("pops", bh_fused.S_POPS),
+                                        ("near_bodies", bh_fused.S_NEAR),
+                                        ("far_children", bh_fused.S_FAR))}
+            lanes["frontier_overflow"] = int(stats_k[:, bh_fused.S_OVF].max())
+            print(f"  stats {lanes}; equal to the twin's lane by lane: "
+                  f"{bool(torch.equal(stats_k, stats_p))}")
+            check(torch.equal(stats_k, stats_p), "K6 stats equal the twin's")
+            check(lanes["far_children"] > 0 and lanes["frontier_overflow"] == 0,
+                  "K6 accepted far cells without overflow")
+            again_s, again_stats = bh_fused.fused_group_forces(*args, **kw)
+            check(torch.equal(again_s, got_s) and torch.equal(again_stats, stats_k),
+                  "K6 reruns are bit-identical")
+            print("  two kernel runs bit-identical: True")
+        k6_err = k6[BH_N][2]
+
+        # 8. the whole fused call against exact forces at 1M
+        print(f"[8] barneshut_fused against exact all-pairs forces, {BH_N} "
+              "bodies (random_cloud seed 0)")
+        acc_bh = bh_fused.barneshut_fused(b1m.pos, b1m.mass)
+        exact = cuda_accelerations(b1m.pos, b1m.mass)
+        torch.cuda.synchronize()
+        dacc = (acc_bh - exact).norm(dim=1)
+        dmax = (acc_bh - exact).abs().max().item()
+        rel = dmax / exact.abs().max().item()
+        med = (dacc / exact.norm(dim=1)).median().item()
+        print(f"  max |a - exact| / max |a| = {rel:.4e} (bound {BH_BOUND}); "
+              f"median |a - exact| / |exact| = {med:.4e}; max |a - exact| "
+              f"{dmax:.4e}")
+        check(rel < BH_BOUND and bool(torch.isfinite(acc_bh).all()),
+              "Barnes-Hut within 0.02 of exact forces at 1M")
+
+        # 9. the Barnes-Hut main path
+        print(f"[9] Barnes-Hut main path: {BH_N} bodies x {BH_STEPS} KDK steps, "
+              "--algo auto, f32, --energy, --write-every 5")
+        csv1m = os.path.join(tmp, "bh_1m.csv")
+        t0 = time.perf_counter()
+        write_fixture(csv1m, arr1m)
+        print(f"  wrote {csv1m} in {time.perf_counter() - t0:.2f} s")
+        out_bh = os.path.join(tmp, "bh.csv")
+        bh_argv = [csv1m, *BH_WINDOW, out_bh, "--energy", "--write-every", "5"]
+        cuda_rect_accelerations.launches = 0
+        cuda_potential_energy.launches = 0
+        bh_fused.fused_group_forces.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text_bh = run_cli([*bh_argv, "--algo", "auto"])
+        torch.cuda.synchronize()
+        wall_bh = time.perf_counter() - t0
+        k6_launches = bh_fused.fused_group_forces.launches
+        k3_bh = cuda_potential_energy.launches
+        k1_bh = cuda_rect_accelerations.launches
+        print(f"  launches: fused Barnes-Hut {k6_launches} (want "
+              f"{BH_STEPS + 2}: probe + {BH_STEPS + 1} evaluations), potential "
+              f"{k3_bh} (want 2), all-pairs {k1_bh} (want 0); whole CLI call "
+              f"{wall_bh:.4f} s")
+        check("Algorithm: barnes-hut, backend: cuda/fused" in text_bh,
+              "--algo auto took the fused Barnes-Hut kernel")
+        check(k6_launches == BH_STEPS + 2, "fused Barnes-Hut launches")
+        check(k3_bh == 2 and k1_bh == 0, "potential / all-pairs launches")
+        frames_bh = load_frames(out_bh, BH_N, frames=2)
+
+        # 10. cross-check against the exhaustive run (K1)
+        print("[10] cross-check: the same run with --algo exhaustive")
+        out_ex = os.path.join(tmp, "ex.csv")
+        text_ex = run_cli([*bh_argv[:4], out_ex, *bh_argv[5:], "--algo",
+                           "exhaustive"])
+        frames_ex = load_frames(out_ex, BH_N, frames=2)
+        dpos_bh = float(np.abs(frames_bh[-1, :, 1:4] - frames_ex[-1, :, 1:4]).max())
+        drift_bh = cli_number(text_bh, "Relative energy drift:")
+        drift_ex = cli_number(text_ex, "Relative energy drift:")
+        # Over T = 5 dt a force difference da moves a body by 0.5 da T^2;
+        # allow twice that for [8]'s largest da (the difference grows as the
+        # states part) plus the 1e-6 %lf resolution of the two files.
+        t_bh = BH_STEPS * BH_DT
+        pos_bound = dmax * t_bh * t_bh + 2e-6
+        print(f"  final positions max |diff| {dpos_bh:.3e} (bound "
+              f"max|da| T^2 + 2e-6 = {pos_bound:.3e}); drift Barnes-Hut "
+              f"{drift_bh:.3e} vs exhaustive {drift_ex:.3e}, |diff| "
+              f"{abs(drift_bh - drift_ex):.3e} (bound 1e-3)")
+        check(dpos_bh < pos_bound, "final positions agree")
+        check(abs(drift_bh - drift_ex) < 1e-3, "energy drifts agree")
+
+        # 11. Barnes-Hut timing
+        print(f"[11] Barnes-Hut timing on {card}")
+        (args100k, kw100k, _), (args1m, kw1m, _) = k6[n], k6[BH_N]
+        k6_ms_100k = cuda_ms(torch, lambda: bh_fused.fused_group_forces(
+            *args100k, **kw100k), 10)
+        k6_plain_ms_100k = cuda_ms(torch, lambda: bh_fused.fused_group_forces_reference(
+            *args100k, **kw100k), 2)
+        k6_ms = cuda_ms(torch, lambda: bh_fused.fused_group_forces(*args1m, **kw1m), 10)
+        k6_plain_ms = cuda_ms(torch, lambda: bh_fused.fused_group_forces_reference(
+            *args1m, **kw1m), 1)
+        acc1m_s, _ = bh_fused.fused_group_forces(*args1m, **kw1m)
+        perm1m = bh_fused.prepare_fused(b1m.pos, b1m.mass).perm
+        prep_ms = cuda_ms(torch, lambda: bh_fused.prepare_fused(b1m.pos, b1m.mass), 10)
+        scatter_ms = cuda_ms(torch, lambda: bh_fused.scatter_back(acc1m_s, perm1m), 10)
+        whole_ms = cuda_ms(torch, lambda: bh_fused.barneshut_fused(b1m.pos, b1m.mass), 10)
+        print(f"  K6 at {n}: kernel {k6_ms_100k:.4f} ms, plain {k6_plain_ms_100k:.4f} ms "
+              f"[{card}]")
+        print(f"  K6 at {BH_N} (ld {kw1m['ld']}, {args1m[1].shape[0]} group slots): "
+              f"kernel {k6_ms:.4f} ms, plain {k6_plain_ms:.4f} ms (one run) [{card}]")
+        print(f"  barneshut_fused at {BH_N}: whole {whole_ms:.4f} ms = sort+build+"
+              f"groups {prep_ms:.4f} ms + K6 {k6_ms:.4f} ms + scatter "
+              f"{scatter_ms:.4f} ms (parts timed apart) [{card}]")
+        for algo in ("barnes-hut", "exhaustive", "barnes-hut"):
+            text = run_cli([csv1m, *BH_WINDOW, os.path.join(tmp, "x.csv"),
+                            "--no-output", "--algo", algo])
+            sim = cli_number(text, "Elapsed wall time:")
+            print(f"  {BH_N} --no-output --algo {algo}: simulate {sim:.4f} s "
+                  f"({BH_STEPS + 1} evaluations) -> {sim / BH_STEPS:.4f} s/step "
+                  f"[{card}]")
+
     print(json.dumps({"kernels": [
         {"name": "allpairs_f32", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/allpairs.cu",
@@ -316,6 +455,11 @@ def main() -> int:
          "replaces": "nbody_tpu/diag/energy.py:27",
          "launches": k3_launches, "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "bh_fused_f32", "route": "cuda",
+         "source": "nbody_tpu_torch/csrc/bh_fused.cu",
+         "replaces": "nbody_tpu/ops/bh_fused.py:130",
+         "launches": k6_launches, "max_abs_err": k6_err,
+         "ms": k6_ms, "plain_ms": k6_plain_ms},
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

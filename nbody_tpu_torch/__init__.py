@@ -8,7 +8,9 @@ counterpart in its docstring.
 
 Ported so far: the default all-pairs CLI run (``--algo exhaustive``), with
 the force kernel (``ops/cuda_exhaustive.py``) and the potential-energy
-kernel (``diag/energy.py``).
+kernel (``diag/energy.py``); and the fused Barnes-Hut run (``--algo
+barnes-hut``, or ``auto`` above 32,768 bodies, f32 on the card), with the
+traverse-and-evaluate kernel (``ops/bh_fused.py``).
 
 The names below are re-exported lazily: importing the package imports
 neither jax nor triton and builds no kernel.
@@ -25,6 +27,7 @@ _EXPORTS = {
     "write_frames": "nbody_tpu_torch.io.csv",
     "exhaustive_accelerations": "nbody_tpu_torch.ops.exhaustive",
     "cuda_accelerations": "nbody_tpu_torch.ops.cuda_exhaustive",
+    "barneshut_fused": "nbody_tpu_torch.ops.bh_fused",
     "leapfrog_steps": "nbody_tpu_torch.integrate.leapfrog",
     "simulate": "nbody_tpu_torch.integrate.leapfrog",
     "get_energy": "nbody_tpu_torch.diag.energy",

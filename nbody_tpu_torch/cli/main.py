@@ -1,5 +1,5 @@
 """Command-line interface — counterpart of ``nbody_tpu/cli/main.py``, the
-subset of the default all-pairs run.
+subset of the all-pairs run and the fused Barnes-Hut run.
 
 Keeps the reference's positional contract
 ``input start_time end_time delta_time output`` (serial/exhaustive.c:33-38),
@@ -8,14 +8,25 @@ JAX CLI's ``Pair interactions/sec`` line.
 
 Routing:
 
-* ``--algo exhaustive`` only; other algorithms are refused as not ported.
-* ``--backend cuda`` is the hand-written f32 kernel
-  (``ops/cuda_exhaustive.py``), ``--backend torch`` the plain PyTorch path
-  (``ops/exhaustive.py``) — the counterparts of ``pallas`` and ``jnp``.
-  ``auto`` takes ``cuda`` on the card in f32 and ``torch`` on the CPU.
-  ``--dtype f64`` on the card needs the fp64 all-pairs kernel, which is
-  not ported yet: ``auto`` and ``cuda`` refuse it, ``--backend torch`` runs
-  the plain fp64 path.
+* ``--algo exhaustive`` is all-pairs; ``--algo barnes-hut`` the fused
+  Barnes-Hut traversal (``ops/bh_fused.py``); ``--algo auto`` takes
+  Barnes-Hut above 32,768 bodies and exhaustive otherwise
+  (cli/main.py:356-357).
+* ``--backend cuda`` is the hand-written f32 kernel — K1
+  (``ops/cuda_exhaustive.py``) or K6 (``ops/bh_fused.py``) — and
+  ``--backend torch`` the plain PyTorch path: the counterparts of
+  ``pallas`` and ``jnp``.  ``auto`` takes ``cuda`` on the card in f32 and
+  ``torch`` on the CPU.  ``--dtype f64`` on the card needs the fp64 kernels
+  (K4, K6's df mode), which are not ported yet: ``auto`` and ``cuda``
+  refuse it, ``--backend torch`` runs the plain fp64 path.
+* Barnes-Hut options that are not ported exit 2 and name what is missing:
+  ``--bh-traversal flat|padded`` (K7), ``--bh-robust`` when it is on or
+  ``auto`` resolves to on (the robust hybrid), ``--resort-every`` (the
+  persistent layout) and ``--timers``.  None runs another computation in
+  its place.
+* Barnes-Hut runs a startup capacity probe (one extra force evaluation,
+  ``check_fused``) unless ``--no-capacity-check``; an overflow exits 3
+  with the flag value that fits.
 * ``--energy`` with the ``cuda`` backend at n >= 50,000 takes PE from the
   potential-energy kernel and KE from a torch sum (the JAX CLI's large-N
   path); otherwise it takes ``get_energy``.
@@ -37,6 +48,8 @@ from nbody_tpu_torch.core.types import SimConfig
 
 # --energy takes the PE kernel from this many bodies up (cli/main.py:854).
 PE_KERNEL_MIN_N = 50_000
+# --algo auto takes Barnes-Hut above this many bodies (cli/main.py:356-357).
+BH_AUTO_MIN_N = 32_768
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--algo",
         choices=["exhaustive", "barnes-hut", "auto"],
         default="exhaustive",
-        help="force algorithm (only exhaustive is ported so far)",
+        help="force algorithm (auto: barnes-hut above 32k bodies)",
     )
     p.add_argument(
         "--backend",
@@ -73,6 +86,7 @@ def build_parser() -> argparse.ArgumentParser:
         "symplectic (3 force evals/step)",
     )
     p.add_argument("--G", type=float, default=constants.BIG_G)
+    p.add_argument("--theta", type=float, default=constants.THETA)
     p.add_argument("--softening2", type=float, default=constants.SOFTENING_SQ)
     p.add_argument(
         "--no-output",
@@ -92,10 +106,65 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--chunk-steps", type=int, default=64,
                    help="steps per host-side output flush")
+    p.add_argument(
+        "--bh-traversal",
+        choices=["auto", "fused", "flat", "padded"],
+        default="auto",
+        help="Barnes-Hut traversal engine (auto = fused; flat and padded "
+        "need the list-based evaluator, not ported yet)",
+    )
+    p.add_argument(
+        "--bh-robust",
+        choices=["auto", "on", "off"],
+        default="auto",
+        help="exact outlier hybrid for the fused Barnes-Hut path (not "
+        "ported yet: a run where it is on, or where auto finds a "
+        "full/robust border ratio above 4, exits 2)",
+    )
+    p.add_argument("--bh-group-size", type=int, default=0,
+                   help="Barnes-Hut bodies per traversal group (0 = auto, "
+                   "1024, the most the card's kernel takes)")
+    p.add_argument("--bh-leaf-cap", type=int, default=0,
+                   help="Barnes-Hut near-field leaf capacity (0 = auto, 64)")
+    p.add_argument(
+        "--bh-ld", type=int, default=0,
+        help="Barnes-Hut dense-grid terminal level (0 = auto: ~16 "
+        "bodies/cell capped at 6; at most 8)")
+    p.add_argument(
+        "--bh-keep-groups", type=int, default=0,
+        help="fused Barnes-Hut group slot capacity (0 = device-memory "
+        "auto, core/capacity.py; capacity errors prescribe the value that "
+        "fits)")
+    p.add_argument(
+        "--bh-frontier-cap", type=int, default=0,
+        help="fused Barnes-Hut BFS frontier cells per level (0 = auto; "
+        "overflow errors prescribe the measured value needed)")
+    p.add_argument(
+        "--no-capacity-check",
+        action="store_true",
+        help="skip the Barnes-Hut startup capacity probe (one extra force "
+        "evaluation)",
+    )
+    p.add_argument(
+        "--resort-every", type=int, default=0, metavar="K",
+        help="persistent Morton order (not ported yet: K > 0 exits 2)",
+    )
+    p.add_argument(
+        "--timers", action="store_true",
+        help="per-phase Barnes-Hut timing breakdown (not ported yet: exits 2)",
+    )
     return p
 
 
-def resolve_backend(backend: str, device: str, dtype: str) -> str:
+def resolve_algo(algo: str, n: int) -> str:
+    """``auto``: Barnes-Hut above BH_AUTO_MIN_N bodies, else exhaustive."""
+    if algo == "auto":
+        return "barnes-hut" if n > BH_AUTO_MIN_N else "exhaustive"
+    return algo
+
+
+def resolve_backend(backend: str, device: str, dtype: str,
+                    algo: str = "exhaustive") -> str:
     """The force backend a run takes; raises ValueError for combinations
     that have no path."""
     if backend == "auto":
@@ -103,6 +172,12 @@ def resolve_backend(backend: str, device: str, dtype: str) -> str:
     if backend == "cuda" and device != "cuda":
         raise ValueError("--backend cuda needs --device cuda")
     if backend == "cuda" and dtype == "f64":
+        if algo == "barnes-hut":
+            raise ValueError(
+                "--dtype f64 on the card needs the fused Barnes-Hut kernel's "
+                "df mode (K6 df, nbody_tpu/ops/bh_fused_df.py), which is not "
+                "ported yet; --backend torch runs the plain fp64 path"
+            )
         raise ValueError(
             "--dtype f64 on the card needs the fp64 all-pairs kernel (K4, "
             "nbody_tpu/ops/pallas_df.py), which is not ported yet; "
@@ -111,7 +186,65 @@ def resolve_backend(backend: str, device: str, dtype: str) -> str:
     return backend
 
 
-def build_force_fn(backend: str, G: float, softening_sq: float):
+def unported_bh_option(args, backend: str) -> str | None:
+    """Why a Barnes-Hut run cannot go ahead as asked, or None."""
+    from nbody_tpu_torch.ops.bh_fused import MAX_GROUP_SIZE as max_b
+    from nbody_tpu_torch.ops.bh_fused import MAX_LD as max_ld
+
+    if args.bh_traversal in ("flat", "padded"):
+        return (f"--bh-traversal {args.bh_traversal} needs the list-based "
+                "Barnes-Hut evaluator (K7, nbody_tpu/ops/barneshut.py:52), "
+                "which is not ported yet; --bh-traversal fused runs the "
+                "fused kernel")
+    if args.resort_every > 0:
+        return ("--resort-every needs the persistent Morton layout "
+                "(nbody_tpu/ops/bh_persistent.py), which is not ported yet")
+    if args.timers:
+        return ("--timers needs the per-phase Barnes-Hut breakdown "
+                "(nbody_tpu/diag/bh_phases.py), which is not ported yet")
+    if not 0 <= args.bh_ld <= max_ld:
+        return f"--bh-ld must be in [0, {max_ld}], got {args.bh_ld}"
+    if args.bh_group_size < 0 or (backend == "cuda" and args.bh_group_size > max_b):
+        return (f"--bh-group-size must be in [0, {max_b}] with the cuda "
+                f"backend (one thread per body), got {args.bh_group_size}")
+    return None
+
+
+def robust_ratio(pos: np.ndarray) -> float:
+    """Full/robust border ratio of cli/main.py:648-655: the root cube's
+    half-width over the distance from the median that all but the
+    max(128, n // 512) farthest bodies stay within (0 when n <= k)."""
+    n = pos.shape[0]
+    k = max(128, n // 512)
+    if n <= k:
+        return 0.0
+    d = np.abs(pos - np.median(pos, axis=0)).max(axis=1)
+    d_k = np.partition(d, n - k - 1)[n - k - 1]
+    return float(np.abs(pos).max() / max(d_k, 1e-30))
+
+
+def fused_kwargs(args) -> dict:
+    """Knobs of the fused traversal from flags (0 = auto, omitted)."""
+    flags = {"group_size": args.bh_group_size, "leaf_cap": args.bh_leaf_cap,
+             "keep_groups": args.bh_keep_groups,
+             "frontier_cap": args.bh_frontier_cap, "ld": args.bh_ld}
+    return {k: v for k, v in flags.items() if v}
+
+
+def build_force_fn(backend: str, G: float, softening_sq: float,
+                   algo: str = "exhaustive", theta: float = constants.THETA,
+                   bh_kw: dict | None = None):
+    if algo == "barnes-hut":
+        from nbody_tpu_torch.ops.bh_fused import (
+            barneshut_fused,
+            fused_group_forces,
+            fused_group_forces_reference,
+        )
+
+        group_forces = (fused_group_forces if backend == "cuda"
+                        else fused_group_forces_reference)
+        return partial(barneshut_fused, G=G, softening_sq=softening_sq,
+                       theta=theta, group_forces=group_forces, **(bh_kw or {}))
     if backend == "cuda":
         from nbody_tpu_torch.ops.cuda_exhaustive import cuda_accelerations
 
@@ -135,24 +268,12 @@ def main(argv=None) -> int:
     from nbody_tpu_torch.integrate.leapfrog import simulate
     from nbody_tpu_torch.io.csv import read_bodies, write_frames
 
-    if args.algo != "exhaustive":
-        print(
-            f"error: --algo {args.algo} is not ported yet (the PyTorch port "
-            "runs --algo exhaustive)",
-            file=sys.stderr,
-        )
-        return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print(
             "error: --device cuda but no CUDA device is available "
             "(use --device cpu for the plain CPU path)",
             file=sys.stderr,
         )
-        return 2
-    try:
-        backend = resolve_backend(args.backend, args.device, args.dtype)
-    except ValueError as e:
-        print(f"error: {e}", file=sys.stderr)
         return 2
     if args.delta_time == 0:
         print("error: delta_time must be nonzero", file=sys.stderr)
@@ -163,6 +284,27 @@ def main(argv=None) -> int:
     except (ValueError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    algo = resolve_algo(args.algo, arr.shape[0])
+    try:
+        backend = resolve_backend(args.backend, args.device, args.dtype, algo)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if algo == "barnes-hut":
+        why = unported_bh_option(args, backend)
+        if why is None and args.bh_robust != "off":
+            # --bh-robust auto resolves as cli/main.py:642-666
+            ratio = robust_ratio(arr[:, 0:3])
+            if args.bh_robust == "on" or ratio > 4.0:
+                why = ("the robust Barnes-Hut hybrid (barneshut_fused_robust, "
+                       "ROADMAP queue 1 item 5) is not ported yet, and "
+                       + ("--bh-robust on asks for it" if args.bh_robust == "on"
+                          else f"--bh-robust auto resolves to on for this input "
+                          f"(full/robust border ratio {ratio:.0f} > 4)")
+                       + "; --bh-robust off runs the plain fused path")
+        if why is not None:
+            print(f"error: {why}", file=sys.stderr)
+            return 2
     dtype = torch.float64 if args.dtype == "f64" else torch.float32
     device = torch.device(args.device)
     bodies = Bodies.from_numpy(arr, dtype=dtype, device=device)
@@ -172,7 +314,21 @@ def main(argv=None) -> int:
     t0 = args.start_time
     dt = SimConfig.c_float(args.delta_time)
     n_steps = max(0, SimConfig.n_steps(t0, args.end_time, args.delta_time))
-    force = build_force_fn(backend, args.G, args.softening2)
+    bh_kw = fused_kwargs(args)
+    force = build_force_fn(backend, args.G, args.softening2, algo, args.theta, bh_kw)
+    backend_label = backend
+    if algo == "barnes-hut":
+        backend_label = f"{backend}/fused"
+        if not args.no_capacity_check:
+            # startup capacity probe, one force evaluation (cli/main.py:728-770)
+            from nbody_tpu_torch.ops.barneshut import CapacityError
+            from nbody_tpu_torch.ops.bh_fused import check_fused
+
+            try:
+                check_fused(bodies.pos, bodies.mass, **force.keywords)
+            except CapacityError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 3
 
     # Reference banner (serial/exhaustive.c:55-57), extended with our config.
     print(
@@ -180,7 +336,7 @@ def main(argv=None) -> int:
         f"{dt:f}, time steps: {n_steps}, ents: {bodies.n}, G: {args.G:g}"
     )
     print(
-        f"Algorithm: exhaustive, backend: {backend}, dtype: {args.dtype}, "
+        f"Algorithm: {algo}, backend: {backend_label}, dtype: {args.dtype}, "
         f"device: {device}"
     )
 
@@ -223,7 +379,7 @@ def main(argv=None) -> int:
     print(f"Completed. Output file: {args.output}")
     print(f"Elapsed wall time: {elapsed:f} s")
     pairs = float(n_steps + 1) * float(bodies.n) ** 2
-    if elapsed > 0 and n_steps > 0:
+    if algo == "exhaustive" and elapsed > 0 and n_steps > 0:
         print(f"Pair interactions/sec: {pairs / elapsed:.3e}")
 
     if args.energy:

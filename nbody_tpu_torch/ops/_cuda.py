@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels (nvcc + ctypes).
 
-Every ``nbody_tpu_torch/csrc/*.cu`` file is compiled in one ``nvcc`` call
-for ``sm_90a`` into one shared library with a plain C interface, written
-to ``nbody_tpu_torch/_build/`` under a name keyed by a hash of the sources
+Every ``nbody_tpu_torch/csrc/*.cu`` file is compiled for ``sm_90a`` by
+its own ``nvcc`` process, all started together, and the objects are linked
+into one shared library with a plain C interface, written to
+``nbody_tpu_torch/_build/`` under a name keyed by a hash of the sources
 and flags, at first use (never at import).  The library is loaded with
 ctypes: every pointer and the stream are ``c_void_p``, ints are ``c_int``.
 
@@ -26,8 +27,9 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _LOCK = threading.Lock()
 _LIB: "Kernels | None" = None
@@ -56,6 +58,28 @@ def find_nvcc() -> str:
     )
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of the kernel library's entry points."""
+    lib.nbody_allpairs_f32.restype = _I
+    lib.nbody_allpairs_f32.argtypes = [
+        _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _P, _P,
+    ]
+    lib.nbody_potential_partials.restype = _I
+    lib.nbody_potential_partials.argtypes = [_I]
+    lib.nbody_potential_f32.restype = _I
+    lib.nbody_potential_f32.argtypes = [_P, _P, _I, _P, _P, _P]
+    lib.nbody_bh_fused_smem_bytes.restype = _I
+    lib.nbody_bh_fused_smem_bytes.argtypes = [_I, _I]
+    lib.nbody_bh_fused_f32.restype = _I
+    lib.nbody_bh_fused_f32.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+        ctypes.c_float, ctypes.c_float, _I, _I, _I, _I, _P, _P, _P,
+    ]
+    lib.nbody_cuda_error_string.restype = ctypes.c_char_p
+    lib.nbody_cuda_error_string.argtypes = [_I]
+    return lib
+
+
 class Kernels:
     """The loaded kernel library and how it was obtained."""
 
@@ -67,16 +91,7 @@ class Kernels:
             lib = ctypes.CDLL(path)
         except OSError as e:
             raise CudaKernelError(f"cannot load {path}: {e}") from e
-        lib.nbody_allpairs_f32.restype = _I
-        lib.nbody_allpairs_f32.argtypes = [
-            _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _P, _P,
-        ]
-        lib.nbody_potential_partials.restype = _I
-        lib.nbody_potential_partials.argtypes = [_I]
-        lib.nbody_potential_f32.restype = _I
-        lib.nbody_potential_f32.argtypes = [_P, _P, _I, _P, _P, _P]
-        lib.nbody_cuda_error_string.restype = ctypes.c_char_p
-        lib.nbody_cuda_error_string.argtypes = [_I]
+        bind(lib)
         self.lib = lib
 
     def check(self, err: int, what: str) -> None:
@@ -88,7 +103,7 @@ class Kernels:
 
 def _build() -> Kernels:
     srcs = sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in srcs:
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
@@ -98,19 +113,40 @@ def _build() -> Kernels:
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so_path}.tmp{os.getpid()}"
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
-        capture_output=True, text=True, timeout=900,
-    )
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise CudaKernelError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-    os.replace(tmp, so_path)
-    return Kernels(so_path, seconds, log)
+    procs: list[subprocess.Popen] = []
+    try:
+        procs += [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for src, obj in zip(srcs, objs)
+        ]
+        logs, failed = [], []
+        for src, proc in zip(srcs, procs):
+            out, _ = proc.communicate(timeout=900)
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} (exit {proc.returncode})")
+        log = "".join(logs)
+        if failed:
+            raise CudaKernelError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs],
+                              capture_output=True, text=True, timeout=900)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise CudaKernelError(f"nvcc link failed (exit {link.returncode}):\n{log}")
+        os.replace(tmp, so_path)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in (tmp, *objs):
+            if os.path.exists(path):
+                os.remove(path)
+    return Kernels(so_path, time.perf_counter() - t0, log)
 
 
 def library() -> Kernels:

@@ -1,0 +1,461 @@
+"""Fused Barnes-Hut traverse + evaluate — counterpart of
+``nbody_tpu/ops/bh_fused.py`` (f32 mode).
+
+``fused_group_forces`` wraps kernel K6, ``nbody_tpu_torch/csrc/bh_fused.cu``
+(which replaces the Pallas ``_fused_kernel``): per Morton group it walks
+the dense grid of ``ops/bh_grid.py`` level by level, accepts far cells as
+centre-of-mass sources, ships near cells' bodies exactly, and evaluates
+every body of the group against those sources.  A CPU tensor goes to the
+plain PyTorch version, ``fused_group_forces_reference``, which makes the
+same decisions in the same f32 arithmetic; a CUDA tensor launches the
+kernel or raises.  Nothing falls back.  ``fused_group_forces.launches``
+counts kernel launches.
+
+The contract is the JAX package's; the TPU mechanics (128-lane octet
+packing of the tables, planar (G, 4, B) group blocks, burst rows,
+groups per program, interpret mode, the far-vector staging switch) are
+not carried over: the kernel reads the ``GridTree`` arrays directly, and
+a group's bodies are the contiguous sorted range
+[gstart, gstart + gcount).
+
+Stats lanes per group (int32): pops (frontier cells classified),
+staged sources (far children + near bodies: actual sources, where the
+JAX package counts its 128-lane filler), near bodies, frontier overflow
+(the largest needed frontier when it reached the cap, else 0) and far
+children.  The JAX package's ``eval_rows`` lane counts TPU rows and is
+dropped.
+
+The kernel is f32 only (its df mode, ``nbody_tpu/ops/bh_fused_df.py``, is
+not ported).  The plain version also runs in f64, with f64 tables and
+MAC: ``barneshut_fused`` computes in f64 when given f64 bodies on the CPU
+or through ``--backend torch``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from nbody_tpu_torch.core import capacity, constants
+from nbody_tpu_torch.ops.barneshut import (
+    CapacityError,
+    compact_groups,
+    group_capacity,
+    group_ranges,
+)
+from nbody_tpu_torch.ops.bh_grid import GridTree, build_grid, grid_offsets
+from nbody_tpu_torch.ops.cuda_exhaustive import check_f32
+from nbody_tpu_torch.ops.morton import morton_sort
+
+FRONTIER_CAP = 2048  # cells per level per group (runtime overflow-checked)
+MAX_LD = 8  # deepest dense grid the kernel takes (robust mode's depth)
+MAX_GROUP_SIZE = 1024  # the kernel runs one thread per body, one block per group
+MORTON_DEPTH = 10
+
+# stats lanes (per group)
+S_POPS, S_SRC, S_NEAR, S_OVF, S_FAR = 0, 1, 2, 3, 4
+N_STATS = 5
+
+# (bodies x sources) pairs the plain version evaluates at once
+_PAIR_BLOCK = 1 << 22
+
+
+def auto_split_level(n: int, b: int) -> int:
+    """Coarse-cell level for group chunking: cells hold ~2B bodies, so
+    B-body chunks inside a cell stay mostly full.  Rounded to the nearest
+    level (rounding up can put the cell count far above n/2B)."""
+    return max(0, round(math.log(max(n / (2.0 * b), 1.0), 8)))
+
+
+def auto_ld(n: int) -> int:
+    """Dense-grid terminal level: ~16 bodies per terminal cell, clamped to
+    [2, 6]."""
+    return min(6, max(2, math.ceil(math.log(max(n / 16.0, 1.0), 8))))
+
+
+def _round_cap(frontier_cap: int) -> int:
+    """The frontier cap the traversal uses: a multiple of 128, as in JAX."""
+    return -(-int(frontier_cap) // 128) * 128
+
+
+def _theta_sq(theta: float, dtype: torch.dtype) -> float:
+    """θ² as the value the MAC multiplies by: JAX squares in Python and its
+    f32 multiply rounds that to f32."""
+    sq = float(theta) * float(theta)
+    return float(np.float32(sq)) if dtype == torch.float32 else sq
+
+
+def _check_kernel_inputs(tree: GridTree, gstart, gcount, src, bsq, ld: int):
+    device = src.device
+    n = src.shape[0]
+    check_f32("src", src, (n, 4), device)
+    t = grid_offsets(ld)[ld + 1]
+    for name in ("cx", "cy", "cz", "gm"):
+        check_f32(f"tree.{name}", getattr(tree, name), (t,), device)
+    for name, a, size in (("tree.cnt", tree.cnt, t), ("tree.start", tree.start, t),
+                          ("gstart", gstart, -1), ("gcount", gcount, gstart.shape[0])):
+        if a.dtype != torch.int32 or a.device != device or not a.is_contiguous():
+            raise TypeError(f"{name}: expected contiguous int32 on {device}, "
+                            f"got {a.dtype} on {a.device}")
+        if a.dim() != 1 or size not in (-1, a.shape[0]):
+            raise ValueError(f"{name}: shape {tuple(a.shape)}, expected ({size},)")
+    check_f32("bsq", bsq, (-1,), device)
+    if bsq.shape[0] < ld + 1:
+        raise ValueError(f"bsq: {bsq.shape[0]} levels, need ld + 1 = {ld + 1}")
+    if src.data_ptr() % 16:
+        raise ValueError("src: the kernel reads float4 rows, so it must be "
+                         "16-byte aligned")
+
+
+def launch(lib, tree: GridTree, gstart, gcount, src, bsq, stream, *, theta: float,
+           eps2: float, leaf_cap: int, ld: int, group_size: int, frontier_cap: int):
+    """Call K6's launcher in `lib` on checked tensors; returns (cudaError_t,
+    accelerations (n, 3), stats (G, N_STATS)).  The tensors' pointers are
+    handed to the kernel as they are, so the CPU emulation of the kernel
+    source takes the same call."""
+    n, n_groups = src.shape[0], gstart.shape[0]
+    out = torch.zeros((n, 3), dtype=torch.float32, device=src.device)
+    stats = torch.empty((n_groups, N_STATS), dtype=torch.int32, device=src.device)
+    err = lib.nbody_bh_fused_f32(
+        tree.cx.data_ptr(), tree.cy.data_ptr(), tree.cz.data_ptr(),
+        tree.gm.data_ptr(), tree.cnt.data_ptr(), tree.start.data_ptr(),
+        gstart.data_ptr(), gcount.data_ptr(), n_groups, src.data_ptr(),
+        bsq.data_ptr(), _theta_sq(theta, torch.float32), float(eps2),
+        int(leaf_cap), int(ld), _round_cap(frontier_cap), int(group_size),
+        out.data_ptr(), stats.data_ptr(), stream,
+    )
+    return err, out, stats
+
+
+def fused_group_forces(
+    tree: GridTree,
+    gstart: torch.Tensor,
+    gcount: torch.Tensor,
+    src: torch.Tensor,
+    bsq: torch.Tensor,
+    *,
+    theta: float,
+    eps2: float,
+    leaf_cap: int,
+    ld: int,
+    group_size: int,
+    frontier_cap: int = FRONTIER_CAP,
+):
+    """Accelerations (n, 3) in sorted order and stats (G, N_STATS) int32
+    for the groups (gstart, gcount) of the sorted sources `src` (n, 4)
+    [x y z G·m] against the dense grid `tree` of depth `ld`, with
+    bsq[l] = (border / 2^l)^2.  Groups hold at most `group_size` bodies.
+    Bodies of no group (trimmed groups) get zero acceleration."""
+    if not 1 <= ld <= MAX_LD:
+        raise ValueError(f"ld must be in [1, {MAX_LD}], got {ld}")
+    kw = dict(theta=theta, eps2=eps2, leaf_cap=leaf_cap, ld=ld,
+              group_size=group_size, frontier_cap=frontier_cap)
+    device = src.device
+    if device.type == "cpu":
+        return fused_group_forces_reference(tree, gstart, gcount, src, bsq, **kw)
+    if device.type != "cuda":
+        raise ValueError(f"no fused Barnes-Hut kernel for device {device}")
+    if not 1 <= group_size <= MAX_GROUP_SIZE:
+        raise ValueError(f"group_size must be in [1, {MAX_GROUP_SIZE}] (the kernel "
+                         f"runs one thread per body), got {group_size}")
+    _check_kernel_inputs(tree, gstart, gcount, src, bsq, ld)
+
+    from nbody_tpu_torch.ops import _cuda
+
+    kernels = _cuda.library()
+    with torch.cuda.device(device):
+        err, out, stats = launch(
+            kernels.lib, tree, gstart, gcount, src, bsq, _cuda.stream_handle(device),
+            **kw,
+        )
+    if err != 0:
+        fcap = _round_cap(frontier_cap)
+        smem = kernels.lib.nbody_bh_fused_smem_bytes(int(group_size), fcap)
+        kernels.check(err, f"bh_fused kernel (group_size {group_size}, frontier "
+                           f"cap {fcap}: {smem} bytes of shared memory per block)")
+    fused_group_forces.launches += 1
+    return out, stats
+
+
+fused_group_forces.launches = 0
+
+
+def fused_group_forces_reference(
+    tree: GridTree,
+    gstart: torch.Tensor,
+    gcount: torch.Tensor,
+    src: torch.Tensor,
+    bsq: torch.Tensor,
+    *,
+    theta: float,
+    eps2: float,
+    leaf_cap: int,
+    ld: int,
+    group_size: int = MAX_GROUP_SIZE,
+    frontier_cap: int = FRONTIER_CAP,
+):
+    """The plain PyTorch version of K6: the same decisions in the same
+    arithmetic (each MAC operation rounded on its own, in src's dtype), the
+    same stats.  It walks all groups at once over a tensor of
+    (group, cell) frontier pairs, level by level, then evaluates each
+    group's sources in blocks so that memory stays bounded.  `group_size`
+    is taken for the kernel's signature; the groups' own counts rule."""
+    del group_size
+    device, dtype = src.device, src.dtype
+    n, n_groups = src.shape[0], gstart.shape[0]
+    fcap = _round_cap(frontier_cap)
+    theta_sq = torch.tensor(_theta_sq(theta, dtype), dtype=dtype, device=device)
+    off = grid_offsets(ld)
+    stats = torch.zeros((n_groups, N_STATS), dtype=torch.int64, device=device)
+    out = torch.zeros((n, 3), dtype=dtype, device=device)
+    live = torch.nonzero(gcount > 0).flatten()
+    n_live = live.shape[0]
+    if n_live == 0:
+        return out, stats.to(torch.int32)
+    gs = gstart[live].long()
+    gc = gcount[live].long()
+
+    # group bounding boxes over the live bodies
+    slots = torch.arange(int(gc.max()), device=device)
+    valid = slots[None, :] < gc[:, None]
+    body = src[(gs[:, None] + slots).clamp(max=n - 1), :3]  # (L, B, 3)
+    inf = torch.tensor(float("inf"), dtype=dtype, device=device)
+    lo = torch.where(valid[..., None], body, inf).amin(dim=1)
+    hi = torch.where(valid[..., None], body, -inf).amax(dim=1)
+
+    fl = torch.arange(n_live, device=device)  # frontier: live-group index
+    fc = torch.zeros(n_live, dtype=torch.int64, device=device)  # cell at level d
+    far_parts, near_parts = [], []
+    ovf = torch.zeros(n_live, dtype=torch.int64, device=device)
+    pops = torch.zeros(n_live, dtype=torch.int64, device=device)
+    j8 = torch.arange(8, device=device)
+    for d in range(ld):
+        terminal = d + 1 >= ld
+        pops += torch.bincount(fl, minlength=n_live)
+        child = fc[:, None] * 8 + j8  # (P, 8), ascending child order
+        c = off[d + 1] + child
+        cnt = tree.cnt[c].long()
+        com = torch.stack([tree.cx[c], tree.cy[c], tree.cz[c]], dim=-1)  # (P, 8, 3)
+        dd = com - torch.minimum(torch.maximum(com, lo[fl][:, None]), hi[fl][:, None])
+        sq = dd * dd
+        d2 = sq[..., 0] + sq[..., 1] + sq[..., 2]
+        exists = cnt > 0
+        far = exists & (theta_sq * d2 > bsq[d + 1])
+        near = exists & ~far & ((cnt <= leaf_cap) | terminal)
+        opn = exists & ~far & ~near
+        g8 = fl[:, None].expand_as(child)
+        far_parts.append((g8[far], torch.cat([com[far], tree.gm[c][far][:, None]], 1)))
+        near_parts.append((g8[near], tree.start[c][near].long(), cnt[near]))
+        # next frontier in (group, Morton) order, cut to the first fcap
+        nfl, nfc = g8[opn], child[opn]
+        per = torch.bincount(nfl, minlength=n_live)
+        ovf = torch.where(per >= fcap, torch.maximum(ovf, per), ovf)
+        rank = torch.arange(nfl.shape[0], device=device) - (torch.cumsum(per, 0) - per)[nfl]
+        keep = rank < fcap
+        fl, fc = nfl[keep], nfc[keep]
+
+    far_g = torch.cat([p[0] for p in far_parts])
+    far_src = torch.cat([p[1] for p in far_parts])
+    near_g = torch.cat([p[0] for p in near_parts])
+    near_start = torch.cat([p[1] for p in near_parts])
+    near_cnt = torch.cat([p[2] for p in near_parts])
+    n_far = torch.bincount(far_g, minlength=n_live)
+    n_near = torch.zeros(n_live, dtype=torch.int64, device=device)
+    n_near.index_add_(0, near_g, near_cnt)
+    stats[live] = torch.stack([pops, n_far + n_near, n_near, ovf, n_far], dim=1)
+
+    # every source row of every group: far COMs, then near bodies, grouped
+    nb_g = torch.repeat_interleave(near_g, near_cnt)
+    first = torch.cumsum(near_cnt, 0) - near_cnt
+    nb_idx = (torch.repeat_interleave(near_start - first, near_cnt)
+              + torch.arange(nb_g.shape[0], device=device))
+    rows = torch.cat([far_src, src[nb_idx]])
+    rows = rows[torch.argsort(torch.cat([far_g, nb_g]), stable=True)]
+    bounds = [0] + torch.cumsum(n_far + n_near, 0).tolist()
+    acc = torch.stack([
+        _eval_block(body[li], rows[bounds[li]:bounds[li + 1]], eps2)
+        for li in range(n_live)
+    ])
+    out[(gs[:, None] + slots)[valid]] = acc[valid]
+    return out, stats.to(torch.int32)
+
+
+def _eval_block(targets: torch.Tensor, sources: torch.Tensor, eps2: float) -> torch.Tensor:
+    """(B, 3) accelerations of `targets` from `sources` (S, 4) [x y z G·m]
+    with K1's formula, in source blocks of bounded size."""
+    acc = torch.zeros_like(targets)
+    step = max(1, _PAIR_BLOCK // max(1, targets.shape[0]))
+    for s0 in range(0, sources.shape[0], step):
+        s = sources[s0:s0 + step]
+        d = s[None, :, :3] - targets[:, None, :]  # (B, S, 3)
+        r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2] + eps2
+        inv = torch.rsqrt(r2)
+        w = s[None, :, 3] * (inv * inv * inv)
+        acc += (w[..., None] * d).sum(dim=1)
+    return acc
+
+
+class FusedInputs(NamedTuple):
+    """What K6 and its plain version take for one force evaluation, and the
+    permutation back to the input order."""
+
+    perm: torch.Tensor  # (n,) sorted slot -> input index
+    tree: GridTree
+    gstart: torch.Tensor  # (keep,) int32
+    gcount: torch.Tensor  # (keep,) int32
+    src: torch.Tensor  # (n, 4) sorted [x y z G·m]
+    bsq: torch.Tensor  # (ld + 2,) (border / 2^l)^2
+    ld: int
+    group_size: int
+    trimmed: torch.Tensor  # 0-dim: occupied groups cut by `keep`
+
+
+def prepare_fused(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    *,
+    G: float = constants.BIG_G,
+    ld: int = 0,
+    group_size: int = 1024,
+    keep_groups: int = 0,
+    border: torch.Tensor | None = None,
+) -> FusedInputs:
+    """Morton sort, dense grid and Morton groups for `pos`/`mass`
+    (``nbody_tpu/ops/bh_fused.py:1272-1327``), in f32, or in f64 for f64
+    bodies.  Checks the predicted device residency against the budget.  No
+    host sync."""
+    n = pos.shape[0]
+    device = pos.device
+    cdt = torch.float64 if pos.dtype == torch.float64 else torch.float32
+    ld = ld or auto_ld(n)
+    b = group_size
+    sl = auto_split_level(n, b)
+
+    perm, keys, border = morton_sort(pos, MORTON_DEPTH, border=border)
+    pos_s = pos[perm].to(cdt)
+    # G rounded to the compute dtype times the masses, as JAX's f32 G * mass
+    # (a Python scalar enters the multiply in the tensor's dtype, with no
+    # host-to-device copy)
+    gm_s = mass[perm].to(cdt) * G
+    keys_s = keys[perm]
+    tree = build_grid(pos_s, gm_s, keys_s, MORTON_DEPTH, ld)
+    gstart, gcount = group_ranges(keys_s, n, MORTON_DEPTH, b, sl)
+
+    g_max = group_capacity(n, b, sl, MORTON_DEPTH)
+    budget = capacity.budget_bytes(device)
+    keep = min(keep_groups or capacity.auto_keep(n, b, g_max, budget), g_max)
+    capacity.ensure_fits(capacity.estimate_fused_bytes(n, b, keep, ld),
+                         f"fused Barnes-Hut at n={n}", budget=budget)
+    gstart, gcount, _, _, trimmed = compact_groups(gstart, gcount, None, None, keep)
+
+    src = torch.cat([pos_s, gm_s[:, None]], dim=1)
+    lev = torch.arange(ld + 2, dtype=cdt, device=device)
+    bsq = (border.to(cdt) / torch.exp2(lev)) ** 2
+    return FusedInputs(perm, tree, gstart, gcount, src, bsq, ld, b, trimmed)
+
+
+def barneshut_fused(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    *,
+    G: float = constants.BIG_G,
+    softening_sq: float = constants.SOFTENING_SQ,
+    theta: float = constants.THETA,
+    ld: int = 0,
+    leaf_cap: int = 64,
+    group_size: int = 1024,
+    keep_groups: int = 0,
+    frontier_cap: int = 0,
+    return_stats: bool = False,
+    border: torch.Tensor | None = None,
+    group_forces=fused_group_forces,
+):
+    """Barnes-Hut accelerations through the fused traversal (ForceFn
+    signature), returned in pos's dtype.  Exact (not COM-merged) forces for
+    clusters denser than the grid's terminal cells.
+
+    Computes in f32, or in f64 for f64 bodies (which the kernel refuses:
+    f64 needs ``group_forces=fused_group_forces_reference``).  `border`
+    overrides the root-cube size.  `group_forces` is the group evaluator:
+    the K6 wrapper (default) or ``fused_group_forces_reference``
+    (``--backend torch``, which must not launch the kernel on the card).
+    No host sync on the kernel path unless `return_stats`."""
+    fi = prepare_fused(pos, mass, G=G, ld=ld, group_size=group_size,
+                       keep_groups=keep_groups, border=border)
+    acc_s, stats = group_forces(
+        fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq, theta=theta,
+        eps2=softening_sq, leaf_cap=leaf_cap, ld=fi.ld, group_size=fi.group_size,
+        frontier_cap=frontier_cap or FRONTIER_CAP,
+    )
+    acc = scatter_back(acc_s, fi.perm).to(pos.dtype)
+    if return_stats:
+        return acc, summarize_stats(stats, fi.trimmed)
+    return acc
+
+
+def scatter_back(acc_s: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Sorted-order accelerations back to the input order: one indexed copy
+    (perm is a bijection, so the writes are disjoint)."""
+    acc = torch.empty_like(acc_s)
+    acc[perm] = acc_s
+    return acc
+
+
+def summarize_stats(stats: torch.Tensor, trimmed: torch.Tensor) -> dict:
+    """The JAX package's stats dict from the per-group lanes, as 0-dim
+    int64 tensors (no host sync)."""
+    s = stats.long()
+    return {
+        "pops": s[:, S_POPS].sum(),
+        "staged_sources": s[:, S_SRC].sum(),
+        "near_bodies": s[:, S_NEAR].sum(),
+        "frontier_overflow": s[:, S_OVF].max(),
+        "trimmed_groups": trimmed,
+        "far_children": s[:, S_FAR].sum(),
+    }
+
+
+def check_fused(pos, mass, **kw):
+    """Fail-fast probe for the fused path: one force evaluation, raising
+    CapacityError if the frontier overflowed or occupied groups were
+    trimmed — the only two capacities the path has.  The message
+    prescribes the flag value that fits.  Returns the stats dict."""
+    _, stats = barneshut_fused(pos, mass, return_stats=True, **kw)
+    fovf = int(stats["frontier_overflow"])
+    trimmed = int(stats["trimmed_groups"])
+    fixes = []
+    if fovf > 0:
+        need = _round_cap(max(fovf + 1, FRONTIER_CAP))
+        fixes.append(
+            f"frontier overflow (a level needed >= {fovf} octets): pass "
+            f"--bh-frontier-cap {need}"
+        )
+    if trimmed > 0:
+        b = kw.get("group_size", 1024)
+        keep = kw.get("keep_groups", 0) or capacity.auto_keep(
+            pos.shape[0], b, 10**9, capacity.budget_bytes(pos.device)
+        )
+        fixes.append(
+            f"{trimmed} occupied groups trimmed: pass "
+            f"--bh-keep-groups {keep + trimmed}"
+        )
+    if fixes:
+        raise CapacityError("fused Barnes-Hut capacity overflow: " + "; ".join(fixes))
+    return stats
+
+
+def state_from_numpy(tree_fields, gstart, gcount, device=None):
+    """(GridTree, gstart, gcount) as the port's tensors, from numpy arrays
+    such as the JAX package's ``GridTree`` fields (a mapping or a
+    NamedTuple) and its ``group_bodies``/``compact_groups`` outputs."""
+    if hasattr(tree_fields, "_asdict"):
+        tree_fields = tree_fields._asdict()
+    tree = GridTree.from_numpy(device=device, **{k: tree_fields[k] for k in GridTree._fields})
+
+    def i32(a):
+        return torch.as_tensor(np.array(a), device=device).to(torch.int32).contiguous()
+
+    return tree, i32(gstart), i32(gcount)

@@ -1,0 +1,217 @@
+"""The port's fused Barnes-Hut path (nbody_tpu_torch/ops/bh_fused.py) on the
+CPU, where K6's wrapper takes its plain version, held against
+tests/oracle.py and against the JAX package's fused kernel.
+
+The JAX kernel runs once, in Pallas interpret mode, in a module-scoped
+fixture: every interpret-mode call costs ~30 s on this host.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nbody_tpu.core import capacity as jcap
+from nbody_tpu.ops import barneshut as jb
+from nbody_tpu.ops import bh_fused as jf
+from nbody_tpu.ops import bh_grid as jg
+from nbody_tpu.ops import morton as jm
+from nbody_tpu_torch.core import capacity
+from nbody_tpu_torch.ops import bh_fused as tf
+from nbody_tpu_torch.ops.barneshut import CapacityError
+from nbody_tpu_torch.utils.fixtures import plummer_cloud
+from tests.oracle import accel_exhaustive_f64
+
+EPS2, G, THETA = 0.01, 1.0, 0.5
+K1_ATOL, K1_RTOL = 2e-5, 2e-4  # the f32 kernel bound (test_pallas.py:25)
+
+
+def _t(a, dtype=torch.float32):
+    return torch.as_tensor(np.array(a), dtype=dtype)
+
+
+def _jax_fixture(name):
+    """The four fixtures of tests/test_bh_fused.py: (pos, mass, group_size)."""
+    if name == "uniform_parity":
+        rng = np.random.default_rng(3)
+        return rng.uniform(-1, 1, (384, 3)), rng.uniform(0.1, 1.0, 384), 128
+    if name == "clustered_exact":
+        rng = np.random.default_rng(7)
+        core = rng.normal(0, 1e-4, (300, 3))
+        outliers = rng.uniform(-1, 1, (20, 3)) * 50.0
+        return np.vstack([core, outliers]), rng.uniform(0.1, 1.0, 320), 128
+    if name == "plummer":
+        arr = plummer_cloud(700, seed=9)
+        return arr[:, :3], arr[:, 6], 128
+    # two_groups_and_padding: partial groups and pad slots, the case the JAX
+    # test can no longer reach (its burst_rows=4 trips bh_fused.py:858)
+    rng = np.random.default_rng(11)
+    return rng.uniform(-1, 1, (300, 3)), rng.uniform(0.1, 1.0, 300), 128
+
+
+@pytest.mark.parametrize("name", ["uniform_parity", "clustered_exact", "plummer",
+                                  "two_groups_and_padding"])
+def test_fused_plain_within_oracle_bound(name):
+    """(a) The port's whole pipeline, plain version, within the JAX tests'
+    0.02 of fp64 direct summation (test_bh_fused.py:51)."""
+    pos, mass, b = _jax_fixture(name)
+    before = tf.fused_group_forces.launches
+    acc, stats = tf.barneshut_fused(_t(pos), _t(mass), G=G, softening_sq=EPS2,
+                                    theta=THETA, group_size=b, return_stats=True)
+    assert tf.fused_group_forces.launches == before  # CPU: no kernel launch
+    assert int(stats["frontier_overflow"]) == 0
+    assert int(stats["trimmed_groups"]) == 0
+    assert acc.dtype == torch.float32 and acc.shape == (len(pos), 3)
+    want = accel_exhaustive_f64(np.float32(pos), np.float32(mass), G=G)
+    err = np.abs(acc.numpy() - want).max() / np.abs(want).max()
+    assert err < 0.02, err
+    assert int(stats["near_bodies"]) > 0
+    assert int(stats["staged_sources"]) == int(stats["near_bodies"]) + int(
+        stats["far_children"])
+    if name == "two_groups_and_padding":
+        fi = tf.prepare_fused(_t(pos), _t(mass), group_size=b)
+        live = fi.gcount[fi.gcount > 0]
+        assert len(live) >= 3 and int((live < b).sum()) >= 1  # a partial group
+        assert int((fi.gcount == 0).sum()) > 0  # and empty slots
+
+
+def test_fused_plain_f64():
+    """f64 bodies take f64 tables and MAC: the plain path on its own."""
+    pos, mass, b = _jax_fixture("uniform_parity")
+    acc = tf.barneshut_fused(_t(pos, torch.float64), _t(mass, torch.float64),
+                             G=G, softening_sq=EPS2, theta=THETA, group_size=b,
+                             group_forces=tf.fused_group_forces_reference)
+    assert acc.dtype == torch.float64
+    want = accel_exhaustive_f64(pos, mass, G=G)
+    assert np.abs(acc.numpy() - want).max() / np.abs(want).max() < 0.02
+
+
+# (b) one fixture that accepts far cells: n=1000 uniform in +-2, B=64,
+# ld=3, leaf_cap=8 (far_children ~3.8k, pops ~1k)
+N_B, B_B, LD_B, LC_B = 1000, 64, 3, 8
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """One JAX interpret-mode fused call, plus the JAX-built tables and
+    groups it used (rebuilt with the same plain XLA steps as
+    nbody_tpu/ops/bh_fused.py:1272-1327)."""
+    rng = np.random.default_rng(5)
+    pos = rng.uniform(-2, 2, (N_B, 3)).astype(np.float32)
+    mass = rng.uniform(0.1, 1, N_B).astype(np.float32)
+    kw = dict(G=G, softening_sq=EPS2, theta=THETA, group_size=B_B, ld=LD_B,
+              leaf_cap=LC_B)
+    acc, stats = jf.barneshut_fused(jnp.asarray(pos), jnp.asarray(mass),
+                                    interpret=True, return_stats=True, **kw)
+
+    perm, keys, border = jm.morton_sort(jnp.asarray(pos), 10)
+    pos_s = jnp.asarray(pos)[perm]
+    gm_s = (jnp.asarray(G, jnp.float32) * jnp.asarray(mass)[perm]).astype(jnp.float32)
+    keys_s = keys[perm]
+    tree = jg.build_grid(pos_s, gm_s, keys_s, 10, LD_B)
+    groups = jb.group_bodies(keys_s, N_B, 10, B_B, jf.auto_split_level(N_B, B_B))
+    keep = jcap.auto_keep(N_B, B_B, groups[0].shape[0], jcap.budget_bytes())
+    gstart, gcount, _, _, trimmed = jb.compact_groups(*groups, keep)
+    bsq = (border.astype(jnp.float32) / jnp.exp2(jnp.arange(16, dtype=jnp.float32))) ** 2
+    return dict(
+        pos=pos, mass=mass, kw=kw, acc=np.asarray(acc),
+        stats={k: float(v) for k, v in stats.items()},
+        perm=np.asarray(perm), pos_s=np.asarray(pos_s), gm_s=np.asarray(gm_s),
+        tree={k: np.asarray(v) for k, v in tree._asdict().items()},
+        gstart=np.asarray(gstart), gcount=np.asarray(gcount),
+        trimmed=int(trimmed), bsq=np.asarray(bsq),
+    )
+
+
+STAT_KEYS = ("pops", "near_bodies", "far_children", "frontier_overflow")
+
+
+def _assert_k1_bound(got, want):
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, atol=K1_ATOL * scale, rtol=K1_RTOL)
+
+
+def test_plain_traversal_on_jax_tables(jax_run):
+    """(b1) The JAX-built tables and groups, carried across, through the
+    port's plain traversal: the same stats, forces within K1's bound."""
+    r = jax_run
+    assert r["stats"]["far_children"] > 0 and r["trimmed"] == 0
+    tree, gstart, gcount = tf.state_from_numpy(r["tree"], r["gstart"], r["gcount"])
+    src = torch.cat([_t(r["pos_s"]), _t(r["gm_s"])[:, None]], dim=1)
+    acc_s, stats = tf.fused_group_forces_reference(
+        tree, gstart, gcount, src, _t(r["bsq"]), theta=THETA, eps2=EPS2,
+        leaf_cap=LC_B, ld=LD_B, group_size=B_B)
+    got = tf.summarize_stats(stats, torch.tensor(r["trimmed"]))
+    for k in STAT_KEYS:
+        assert float(got[k]) == r["stats"][k], k
+    acc = tf.scatter_back(acc_s, torch.as_tensor(np.array(r["perm"])).long())
+    _assert_k1_bound(acc.numpy(), r["acc"])
+
+
+def test_whole_pipeline_against_jax(jax_run):
+    """(b2) The port's whole pipeline on the same bodies.  Keys and
+    permutation are equal and the tables agree to f32 rounding, so no MAC
+    decision sits within rounding of its threshold here: the stats are
+    equal, and the forces within K1's bound (the same sources, summed in
+    another order)."""
+    r = jax_run
+    acc, stats = tf.barneshut_fused(_t(r["pos"]), _t(r["mass"]),
+                                    return_stats=True, **r["kw"])
+    for k in STAT_KEYS:
+        assert float(stats[k]) == r["stats"][k], k
+    assert int(stats["trimmed_groups"]) == 0
+    _assert_k1_bound(acc.numpy(), r["acc"])
+    want = accel_exhaustive_f64(r["pos"], r["mass"], G=G)
+    assert np.abs(acc.numpy() - want).max() / np.abs(want).max() < 0.02
+
+
+def test_state_from_numpy_types(jax_run):
+    tree, gstart, gcount = tf.state_from_numpy(jax_run["tree"], jax_run["gstart"],
+                                               jax_run["gcount"])
+    assert tree.total == tf.grid_offsets(LD_B)[LD_B + 1]
+    assert tree.cx.dtype == torch.float32 and tree.cnt.dtype == torch.int32
+    assert gstart.dtype == gcount.dtype == torch.int32
+    assert int(gcount.sum()) == N_B
+
+
+def _overflow_bodies():
+    rng = np.random.default_rng(21)
+    return _t(rng.uniform(-2, 2, (2000, 3))), _t(rng.uniform(0.1, 1, 2000))
+
+
+def test_check_fused_frontier_overflow_prescribes_cap():
+    """(c) A frontier wider than the cap raises with the cap that fits."""
+    pos, mass = _overflow_bodies()
+    kw = dict(G=G, softening_sq=EPS2, theta=THETA, group_size=64, ld=4, leaf_cap=1)
+    with pytest.raises(CapacityError, match="--bh-frontier-cap") as e:
+        tf.check_fused(pos, mass, frontier_cap=128, **kw)
+    need = int(str(e.value).split("--bh-frontier-cap ")[1].split()[0].rstrip(";"))
+    assert need % 128 == 0 and need >= tf.FRONTIER_CAP
+    stats = tf.check_fused(pos, mass, frontier_cap=need, **kw)
+    assert int(stats["frontier_overflow"]) == 0
+
+
+def test_check_fused_trimmed_groups_prescribes_keep():
+    """(c) Too few group slots: occupied groups are trimmed and the message
+    names the --bh-keep-groups value that fits."""
+    pos, mass = _overflow_bodies()
+    kw = dict(G=G, softening_sq=EPS2, theta=THETA, group_size=64)
+    with pytest.raises(CapacityError, match="occupied groups trimmed") as e:
+        tf.check_fused(pos, mass, keep_groups=4, **kw)
+    keep = int(str(e.value).split("--bh-keep-groups ")[1].split()[0])
+    assert int(tf.check_fused(pos, mass, keep_groups=keep, **kw)["trimmed_groups"]) == 0
+
+
+def test_capacity_budget(monkeypatch):
+    monkeypatch.delenv("NBODY_HBM_BYTES", raising=False)
+    assert capacity.budget_bytes(torch.device("cpu")) is None
+    capacity.ensure_fits({"total": 10**15}, "x", budget=None)  # CPU: no-op
+    monkeypatch.setenv("NBODY_HBM_BYTES", str(2**30))
+    assert capacity.budget_bytes() == int(2**30 * capacity.BUDGET_FRAC)
+    est = capacity.estimate_fused_bytes(10_000_000, 1024, 20_000, 6)
+    with pytest.raises(CapacityError, match="NBODY_HBM_BYTES"):
+        capacity.ensure_fits(est, "fused Barnes-Hut at n=10000000")
+    # a tight budget clamps the slot margin toward its floor, never below
+    n, b = 1_000_000, 1024
+    assert capacity.auto_keep(n, b, 10**9, None) == 3 * (n // b) + 256
+    assert capacity.auto_keep(n, b, 10**9, 1000) == capacity.occupied_groups_floor(n, b)

@@ -8,10 +8,18 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import DATA_DIR
+from conftest import DATA_DIR, random_cloud
 from nbody_tpu.cli.main import main as jax_main
-from nbody_tpu_torch.cli.main import main, resolve_backend
-from nbody_tpu_torch.io.csv import read_trajectory
+from nbody_tpu_torch.cli.main import (
+    BH_AUTO_MIN_N,
+    main,
+    resolve_algo,
+    resolve_backend,
+)
+from nbody_tpu_torch.core.types import Bodies
+from nbody_tpu_torch.io.csv import read_bodies, read_trajectory
+from nbody_tpu_torch.ops.bh_fused import barneshut_fused
+from nbody_tpu_torch.utils.fixtures import write_fixture
 
 TEN = os.path.join(DATA_DIR, "10_bodies.csv")
 GOLDEN = os.path.join(DATA_DIR, "golden_exh_10bodies_0_10_0.1.csv")
@@ -92,9 +100,137 @@ def test_cli_end_before_start_runs_zero_steps(tmp_path):
 
 @pytest.mark.parametrize("algo", ["barnes-hut", "auto"])
 def test_cli_refuses_unported_algo(tmp_path, capsys, algo):
-    assert main([TEN, "0", "1", "0.1", str(tmp_path / "o.csv"),
-                 "--device", "cpu", "--algo", algo]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    """A Barnes-Hut run that needs a part not ported yet exits 2 and names
+    it: the list-based traversal (K7), and the robust hybrid, here on the
+    Barnes-Hut side of --algo auto (> 32,768 bodies)."""
+    if algo == "barnes-hut":
+        src, flags, missing = TEN, ["--bh-traversal", "flat"], "K7"
+    else:
+        src = tmp_path / "big.csv"
+        write_fixture(src, random_cloud(BH_AUTO_MIN_N + 1, seed=1))
+        flags, missing = ["--bh-robust", "on"], "robust Barnes-Hut hybrid"
+    out = tmp_path / "o.csv"
+    assert main([str(src), "0", "1", "0.1", str(out), "--device", "cpu",
+                 "--algo", algo, *flags]) == 2
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and missing in err
+    assert not out.exists()
+
+
+def test_cli_auto_runs_exhaustive_at_10_bodies(tmp_path, capsys):
+    """--algo auto at n <= 32,768 is exhaustive (cli/main.py:356-357)."""
+    out = tmp_path / "o.csv"
+    assert main([TEN, "0", "10", "0.1", str(out), *CPU64, "--algo", "auto"]) == 0
+    assert "Algorithm: exhaustive, backend: torch, dtype: f64" in capsys.readouterr().out
+    golden = np.loadtxt(GOLDEN, delimiter=",")
+    np.testing.assert_allclose(np.loadtxt(out, delimiter=","), golden,
+                               atol=1.1e-5, rtol=0)
+
+
+def test_cli_barnes_hut_at_10_bodies(tmp_path, capsys):
+    """At 10 bodies every cell is near (ld 2, and the group box covers every
+    centre of mass), so the fused path is exact: it matches the all-pairs
+    golden trajectory within its %lf resolution."""
+    out = tmp_path / "o.csv"
+    assert main([TEN, "0", "10", "0.1", str(out), *CPU64,
+                 "--algo", "barnes-hut", "--energy"]) == 0
+    text = capsys.readouterr().out
+    assert "Algorithm: barnes-hut, backend: torch/fused, dtype: f64" in text
+    assert "Pair interactions/sec" not in text  # exhaustive only (:1196)
+    assert "Relative energy drift:" in text
+    golden = np.loadtxt(GOLDEN, delimiter=",")
+    np.testing.assert_allclose(np.loadtxt(out, delimiter=","), golden,
+                               atol=1.1e-5, rtol=0)
+
+
+def test_cli_barnes_hut_f32_matches_plain_call(tmp_path):
+    """The CLI's Barnes-Hut force is barneshut_fused with the flags' knobs:
+    one step of a 2,000-body cloud against the same KDK step by hand."""
+    arr = random_cloud(2000, seed=4)
+    src, out = tmp_path / "in.csv", tmp_path / "o.csv"
+    write_fixture(src, arr)
+    assert main([str(src), "0", "0.01", "0.01", str(out), "--device", "cpu",
+                 "--algo", "barnes-hut", "--bh-group-size", "64",
+                 "--bh-leaf-cap", "8", "--bh-ld", "3", "--theta", "0.6"]) == 0
+    b = Bodies.from_numpy(read_bodies(str(src)), dtype=torch.float32)
+    kw = dict(theta=0.6, group_size=64, leaf_cap=8, ld=3)
+    acc = barneshut_fused(b.pos, b.mass, **kw)
+    dt = np.float32(0.01)
+    vel = b.vel + acc * (dt * 0.5)
+    pos = b.pos + vel * dt
+    rows, n = read_trajectory(out)
+    np.testing.assert_allclose(rows.reshape(2, n, 5)[1, :, 1:4], pos.numpy(),
+                               atol=1.1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("flags,missing", [
+    (["--bh-traversal", "padded"], "K7"),
+    (["--resort-every", "4"], "persistent Morton layout"),
+    (["--timers"], "per-phase"),
+    (["--bh-ld", "9"], "--bh-ld must be in [0, 8]"),
+])
+def test_cli_barnes_hut_unported_options(tmp_path, capsys, flags, missing):
+    assert main([TEN, "0", "1", "0.1", str(tmp_path / "o.csv"), *CPU64,
+                 "--algo", "barnes-hut", *flags]) == 2
+    assert missing in capsys.readouterr().err
+
+
+def test_cli_robust_auto_resolves_on_and_refuses(tmp_path, capsys):
+    """--bh-robust auto on an outlier-dominated cloud resolves to on
+    (cli/main.py:642-666), which is not ported: exit 2, never the plain
+    path in its place; --bh-robust off runs."""
+    rng = np.random.default_rng(2)
+    arr = random_cloud(400, seed=2)
+    arr[:5, :3] = rng.uniform(-1, 1, (5, 3)) * 1000.0
+    src = tmp_path / "outliers.csv"
+    write_fixture(src, arr)
+    argv = [str(src), "0", "0.1", "0.1", str(tmp_path / "o.csv"), "--device",
+            "cpu", "--algo", "barnes-hut"]
+    assert main(argv) == 2
+    err = capsys.readouterr().err
+    assert "robust" in err and "resolves to on" in err
+    assert main([*argv, "--bh-robust", "off"]) == 0
+
+
+@pytest.mark.parametrize("flags,fix", [
+    (["--bh-frontier-cap", "128", "--bh-ld", "4", "--bh-leaf-cap", "1"],
+     "--bh-frontier-cap"),
+    (["--bh-keep-groups", "4"], "--bh-keep-groups"),
+])
+def test_cli_capacity_probe_exits_3(tmp_path, capsys, flags, fix):
+    src = tmp_path / "in.csv"
+    write_fixture(src, random_cloud(2000, seed=21))
+    assert main([str(src), "0", "0.1", "0.1", str(tmp_path / "o.csv"), "--device",
+                 "cpu", "--algo", "barnes-hut", "--bh-group-size", "64",
+                 *flags]) == 3
+    err = capsys.readouterr().err
+    assert "capacity overflow" in err and fix in err
+    # without the probe the run goes ahead
+    assert main([str(src), "0", "0.1", "0.1", str(tmp_path / "o.csv"), "--device",
+                 "cpu", "--algo", "barnes-hut", "--bh-group-size", "64",
+                 *flags, "--no-capacity-check"]) == 0
+
+
+@pytest.mark.parametrize("backend,device,dtype,want", [
+    ("auto", "cuda", "f32", "cuda"),
+    ("torch", "cuda", "f64", "torch"),
+    ("auto", "cpu", "f64", "torch"),
+    ("auto", "cuda", "f64", "K6 df"),
+    ("cuda", "cuda", "f64", "bh_fused_df.py"),
+])
+def test_backend_routing_barnes_hut(backend, device, dtype, want):
+    if want in ("cuda", "torch"):
+        assert resolve_backend(backend, device, dtype, "barnes-hut") == want
+    else:
+        with pytest.raises(ValueError, match=want):
+            resolve_backend(backend, device, dtype, "barnes-hut")
+
+
+@pytest.mark.parametrize("n,want", [(10, "exhaustive"), (32_768, "exhaustive"),
+                                    (32_769, "barnes-hut")])
+def test_resolve_algo_auto(n, want):
+    assert resolve_algo("auto", n) == want
+    assert resolve_algo("exhaustive", n) == "exhaustive"
 
 
 def test_cli_cuda_backend_on_cpu_refused(tmp_path, capsys):

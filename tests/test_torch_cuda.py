@@ -15,6 +15,7 @@ from nbody_tpu_torch.diag.energy import (
     get_energy,
     potential_energy_reference,
 )
+from nbody_tpu_torch.ops import bh_fused
 from nbody_tpu_torch.ops.cuda_exhaustive import (
     cuda_accelerations,
     cuda_rect_accelerations,
@@ -89,3 +90,49 @@ def test_kernels_refuse_f64_on_the_card(dev):
         cuda_accelerations(pos, mass)
     with pytest.raises(TypeError):
         cuda_potential_energy(pos, mass)
+
+
+@pytest.mark.parametrize("n,b,ld,leaf_cap", [(20_000, 1024, 0, 64),
+                                             (3001, 64, 3, 8),
+                                             (5000, 256, 4, 16),
+                                             (4000, 128, 8, 1)])
+def test_bh_fused_kernel_matches_twin(dev, n, b, ld, leaf_cap):
+    """K6 against its plain version on the same tables and groups: equal
+    stats, K1's bound, bit-identical reruns, one launch counted."""
+    pos, mass = _cloud(n, dev, seed=n)
+    fi = bh_fused.prepare_fused(pos, mass, ld=ld, group_size=b)
+    kw = dict(theta=0.5, eps2=0.01, leaf_cap=leaf_cap, ld=fi.ld, group_size=b)
+    args = (fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq)
+    before = bh_fused.fused_group_forces.launches
+    got, stats = bh_fused.fused_group_forces(*args, **kw)
+    torch.cuda.synchronize()
+    assert bh_fused.fused_group_forces.launches == before + 1
+    want, want_stats = bh_fused.fused_group_forces_reference(*args, **kw)
+    assert torch.equal(stats, want_stats)
+    assert int(stats[:, bh_fused.S_FAR].sum()) > 0
+    _assert_f32_close(got, want)
+    again, _ = bh_fused.fused_group_forces(*args, **kw)
+    assert torch.equal(got, again)
+
+
+def test_bh_fused_against_exact_forces(dev):
+    pos, mass = _cloud(50_000, dev, seed=5)
+    acc = bh_fused.barneshut_fused(pos, mass)
+    exact = cuda_accelerations(pos, mass)
+    err = ((acc - exact).abs().max() / exact.abs().max()).item()
+    assert err < 0.02, err  # tests/test_bh_fused.py:51
+
+
+def test_bh_fused_frontier_overflow_on_the_card(dev):
+    pos, mass = _cloud(2000, dev, seed=21)
+    with pytest.raises(bh_fused.CapacityError, match="--bh-frontier-cap"):
+        bh_fused.check_fused(pos, mass, group_size=64, ld=4, leaf_cap=1,
+                             frontier_cap=128)
+
+
+def test_bh_fused_kernel_refuses_what_it_cannot_take(dev):
+    pos, mass = _cloud(3000, dev, seed=1)
+    with pytest.raises(ValueError, match="group_size"):
+        bh_fused.barneshut_fused(pos, mass, group_size=2048)
+    with pytest.raises(TypeError):
+        bh_fused.barneshut_fused(pos.double(), mass.double())

@@ -20,13 +20,14 @@ import torch
 
 from conftest import random_cloud
 from nbody_tpu_torch.diag.energy import potential_energy_reference
-from nbody_tpu_torch.ops import _cuda
+from nbody_tpu_torch.ops import _cuda, bh_fused
 from nbody_tpu_torch.ops.cuda_exhaustive import rect_accelerations_reference
 
 # Stands in for <cuda_runtime.h> when the .cu sources are built with g++.
 EMU_HEADER = r"""// CPU emulation of the CUDA features the port's kernels use.  Each CUDA
 // thread is a std::thread; the blocks of a grid run one after another, so
-// `static` stands in for __shared__; __syncthreads is a barrier over the block.
+// `static` stands in for __shared__ and one buffer per launch for `extern
+// __shared__`; __syncthreads is a barrier over the block.
 // It checks the kernels' indexing, masking and reductions, not the card's
 // arithmetic: rsqrtf here is 1/sqrt, and nothing is timed.
 #pragma once
@@ -34,15 +35,19 @@ EMU_HEADER = r"""// CPU emulation of the CUDA features the port's kernels use.  
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <thread>
 #include <vector>
 
 #define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
 #define __shared__ static
 #define __launch_bounds__(x)
 
 struct uint3_ { unsigned x = 0, y = 0, z = 0; };
-inline thread_local uint3_ threadIdx, blockIdx;
+inline thread_local uint3_ threadIdx, blockIdx, blockDim;
 
 struct dim3 {
   unsigned x, y, z;
@@ -51,19 +56,33 @@ struct dim3 {
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, sizeof f); return f; }
+// round-to-nearest single operations: plain operators (g++ does not contract
+// them into FMAs for the x86-64 baseline)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+using std::max;
 using std::min;
 
 inline std::barrier<>* emu_block_barrier = nullptr;
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+// `extern __shared__` dynamic shared memory of the running block
+inline unsigned char* emu_dynamic_smem = nullptr;
 
 typedef struct CUstream_st* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class K>
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
 
 // Stands in for `kernel<<<grid, block, ...>>>(args)`.
 template <class F>
-void emu_launch(dim3 grid, int block, F body) {
+void emu_launch(dim3 grid, int block, size_t smem_bytes, F body) {
+  std::vector<double> smem(smem_bytes / sizeof(double) + 1);
+  emu_dynamic_smem = reinterpret_cast<unsigned char*>(smem.data());
   for (unsigned b = 0; b < grid.x; ++b) {
     std::barrier<> bar(block);
     emu_block_barrier = &bar;
@@ -72,6 +91,7 @@ void emu_launch(dim3 grid, int block, F body) {
       threads.emplace_back([&, t, b] {
         threadIdx.x = t;
         blockIdx.x = b;
+        blockDim.x = block;
         body();
       });
     }
@@ -79,20 +99,27 @@ void emu_launch(dim3 grid, int block, F body) {
   }
 }
 """
-_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<([^,]+),\s*([^,]+),[^>]*>>>\((.*?)\);",
-                     re.S)
+_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);", re.S)
+_DYNAMIC_SMEM = re.compile(
+    r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?([\w ]+?)\s+(\w+)\[\];")
 
 
 def _host_source(path: str) -> str:
-    """The .cu source with each `k<<<grid, block, ...>>>(args);` launch
-    rewritten as an emulated launch."""
+    """The .cu source with each `k<<<grid, block, smem, stream>>>(args);`
+    launch rewritten as an emulated launch, and each `extern __shared__`
+    array bound to the block's dynamic shared memory."""
     with open(path) as f:
         src = f.read()
-    return _LAUNCH.sub(
-        lambda m: f"emu_launch(dim3({m.group(2)}), {m.group(3)}, "
-        f"[&] {{ {m.group(1)}({m.group(4)}); }});",
-        src,
-    )
+
+    def launch(m):
+        grid, block, smem = (a.strip() for a in m.group(2).split(",")[:3])
+        return (f"emu_launch(dim3({grid}), {block}, {smem}, "
+                f"[&] {{ {m.group(1)}({m.group(3)}); }});")
+
+    src = _DYNAMIC_SMEM.sub(
+        lambda m: f"{m.group(1)}* {m.group(2)} = "
+        f"reinterpret_cast<{m.group(1)}*>(emu_dynamic_smem);", src)
+    return _LAUNCH.sub(launch, src)
 
 
 @pytest.fixture(scope="module")
@@ -107,20 +134,13 @@ def emu(tmp_path_factory):
         cpp.write_text(_host_source(cu))
         cpps.append(str(cpp))
     so = d / "emu.so"
-    subprocess.run(
+    r = subprocess.run(
         ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
          "-I", str(d), *cpps, "-o", str(so)],
-        check=True, capture_output=True, timeout=300,
+        capture_output=True, text=True, timeout=300,
     )
-    lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.nbody_allpairs_f32.restype = i
-    lib.nbody_allpairs_f32.argtypes = [p, p, p, p, p, ctypes.c_float, i, i, p, p]
-    lib.nbody_potential_partials.restype = i
-    lib.nbody_potential_partials.argtypes = [i]
-    lib.nbody_potential_f32.restype = i
-    lib.nbody_potential_f32.argtypes = [p, p, i, p, p, p]
-    return lib
+    assert r.returncode == 0, r.stderr
+    return _cuda.bind(ctypes.CDLL(str(so)))
 
 
 def _f32(a):
@@ -194,3 +214,46 @@ def test_potential_kernel_source_is_deterministic(emu):
                                 partials.data_ptr(), out.data_ptr(), None)
         results.append(out.item())
     assert results[0] == results[1]
+
+
+def _bh_case(name):
+    """(pos, mass, group_size, ld, leaf_cap, frontier_cap) of a small fused
+    Barnes-Hut case."""
+    rng = np.random.default_rng(21)
+    if name == "uniform":  # far cells, partial and empty groups
+        pos = rng.uniform(-2, 2, (400, 3))
+        return pos, rng.uniform(0.1, 1, 400), 64, 3, 8, 2048
+    if name == "cluster":  # an over-full terminal cell ships its bodies
+        pos = np.vstack([rng.normal(0, 1e-4, (100, 3)),
+                         rng.uniform(-1, 1, (20, 3)) * 50])
+        return pos, rng.uniform(0.1, 1, 120), 64, 3, 8, 2048
+    # a frontier wider than the 128-cell cap: the overflow lane reports it
+    pos = rng.uniform(-2, 2, (2000, 3))
+    return pos, rng.uniform(0.1, 1, 2000), 64, 4, 1, 128
+
+
+@pytest.mark.parametrize("name", ["uniform", "cluster", "overflow"])
+def test_bh_fused_kernel_source(emu, name):
+    """K6 against its plain version on the same tables and groups: equal
+    stats lanes (the MAC is written without contraction, so the decisions
+    match), accelerations within K1's bound."""
+    pos, mass, b, ld, leaf_cap, fcap = _bh_case(name)
+    fi = bh_fused.prepare_fused(_f32(pos), _f32(mass), ld=ld, group_size=b)
+    kw = dict(theta=0.5, eps2=0.01, leaf_cap=leaf_cap, ld=ld, group_size=b,
+              frontier_cap=fcap)
+    err, got, stats = bh_fused.launch(emu, fi.tree, fi.gstart, fi.gcount,
+                                      fi.src, fi.bsq, None, **kw)
+    assert err == 0
+    want, want_stats = bh_fused.fused_group_forces_reference(
+        fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq, **kw)
+    np.testing.assert_array_equal(stats.numpy(), want_stats.numpy())
+    assert int((fi.gcount == 0).sum()) > 0  # empty groups took part
+    if name == "uniform":
+        assert int(stats[:, bh_fused.S_FAR].sum()) > 0
+        assert int((fi.gcount % b != 0).sum()) > 1  # partial groups
+    if name == "overflow":
+        assert int(stats[:, bh_fused.S_OVF].max()) > 128
+        return  # past the cap both drop the same cells; forces are moot
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale,
+                               rtol=2e-4)
