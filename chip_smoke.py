@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py        # from the repository root
 
-It drives the port's two paths through the hand-written CUDA kernels and
+It drives the port's paths through the hand-written CUDA kernels and
 checks them: the default all-pairs CLI run (100k bodies x 10 KDK steps in
-f32 with --energy) and the fused Barnes-Hut run (--algo auto at 1M
-bodies, 5 KDK steps, f32, --energy).  Phases (each raises on failure, so
-the script exits non-zero and prints no result):
+f32 with --energy), the fused Barnes-Hut run (--algo auto at 1M bodies, 5
+KDK steps, f32, --energy), and both again with --dtype f64.  Phases (each
+raises on failure, so the script exits non-zero and prints no result):
 
 1. card and build: nvidia-smi's name and power limit, nvcc's version, the
    kernels built from nbody_tpu_torch/csrc/*.cu for sm_90a and the build
@@ -33,7 +33,23 @@ the script exits non-zero and prints no result):
 10. the same run with ``--algo exhaustive`` (K1): final positions and
     energy drift must agree;
 11. K6 and its twin at 100k and 1M, the 1M call split into sort+build, K6
-    and scatter, and s/step of both algorithms at 1M with --no-output.
+    and scatter, and s/step of both algorithms at 1M with --no-output;
+12. the fp64 all-pairs kernel (K4) against its plain version at 100k x 100k
+    and against the fp64 formula on a subset of targets, bit-identical
+    reruns;
+13. the fp64 potential-energy kernel (K5) against its plain version at
+    100k, bit-identical reruns;
+14. K6's df mode against its plain version on the same f64 tables and
+    groups, at 100k and 1M: equal stats, bit-identical reruns;
+15. the f64 all-pairs main path: 100k x 10 KDK steps, --dtype f64
+    --energy, counters reset just before and read just after; then the
+    same steps in-process through the kernel and through the plain
+    backend's force, whose final positions and drifts must agree;
+16. the f64 Barnes-Hut main path: --algo auto --dtype f64 --energy at 1M
+    over 5 steps, counters reset just before and read just after; the df
+    forces against K4's exact ones; s/step beside the f32 run's;
+17. the fp64 sun-earth run (SI units, 8640 steps) through K4: drift;
+18. fp64 kernel times beside the plain versions, and f64 s/step at 100k.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
@@ -57,6 +73,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CSV_100K = os.path.join(ROOT, "tests", "data", "100k_bodies.csv")
 CSV_10 = os.path.join(ROOT, "tests", "data", "10_bodies.csv")
 GOLDEN_10 = os.path.join(ROOT, "tests", "data", "golden_exh_10bodies_0_10_0.1.csv")
+SUN_EARTH = os.path.join(ROOT, "tests", "data", "sun_earth.csv")
 STEPS = 10
 MAIN_WINDOW = ["0", "0.001", "0.0001"]  # C-float step count: 10 steps
 ATOL_REL, RTOL = 2e-5, 2e-4  # f32 kernel bound (tests/test_pallas.py:25)
@@ -64,6 +81,19 @@ BH_N = 1_000_000  # the reference's Barnes-Hut size (tools/bench_bh.py:4-6)
 BH_STEPS, BH_DT = 5, 0.0001
 BH_WINDOW = ["0", "0.0005", "0.0001"]  # C-float step count: 5 steps
 BH_BOUND = 0.02  # max |a - exact| / max |a| (tests/test_bh_fused.py:51)
+F64_BOUND = 1e-12  # fp64 forces, max |err| / max |want| (test_pallas_df.py:47)
+F64_PE_BOUND = 1e-13  # fp64 PE, relative (test_pallas_df.py:101)
+F64_POS_BOUND = 1e-10  # final positions, kernel against the plain backend
+
+# Least-time bounds (the larger of bytes over the memory rate and operations
+# over the peak rate; NVIDIA H100 SXM data sheet, dense, at 700 W):
+HBM_BPS = 3.35e12
+FP32_PEAK = 67e12  # FLOP/s outside the tensor cores
+FP64_PEAK = 34e12  # FLOP/s outside the tensor cores
+# operations per pair, rsqrt counted as one: the force (3 sub; 3 mul + 3 add
+# for |d|^2 + eps2; rsqrt; 2 mul for r^-3; 1 mul by G·m; 3 multiply-adds),
+# and the potential energy (3 sub; 3 mul + 2 add; rsqrt; 2 mul; 1 add)
+FORCE_OPS, PE_OPS = 19, 12
 
 
 def check(ok: bool, what: str) -> None:
@@ -105,6 +135,100 @@ def f32_close(torch, got, want, what: str) -> float:
     return max_err
 
 
+def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time for `nbytes` moved and `ops`
+    done at `peak` operations per second."""
+    t_bytes, t_ops = nbytes / HBM_BPS, ops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
+def fused_work(args, stats, real_bytes: int) -> tuple[float, float]:
+    """(bytes, operations) K6 must move and do on these inputs: its tables,
+    groups and sources read once and its outputs written once; one pair
+    per (body, staged source) of each group."""
+    tree, gstart, gcount, src, _ = args
+    nbytes = (sum(t.numel() * t.element_size() for t in tree)
+              + 2 * gstart.numel() * 4 + src.numel() * real_bytes
+              + src.shape[0] * 3 * real_bytes + stats.numel() * 4)
+    pairs = float((stats[:, 1].double() * gcount.double()).sum().item())
+    return nbytes, pairs * FORCE_OPS
+
+
+SASS_OPS = ("FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA", "MUFU.RSQ", "MUFU.RSQ64H")
+
+
+def sass_counts(nvcc: str, so_path: str) -> None:
+    """Print, for each kernel in the built library, how many of each
+    floating-point instruction its SASS holds (cuobjdump -sass), and the
+    fp64 ones per MUFU.RSQ64H: every fp64 pair evaluation takes exactly one
+    rsqrt seed, so that ratio is the fp64 instructions per pair, plus the
+    kernel's few fp64 instructions outside its pair loops."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.access(cuobjdump, os.X_OK):
+        print(f"  SASS counts: not measured ({cuobjdump} not found)")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    op_re = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+    counts: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        m = op_re.search(line) if fn else None
+        if m:
+            op = m.group(1)
+            key = op if op.startswith("MUFU.") else op.split(".")[0]
+            if key in counts[fn]:
+                counts[fn][key] += 1
+    for fn, c in counts.items():
+        line = ", ".join(f"{k} {v}" for k, v in c.items() if v)
+        seeds = c["MUFU.RSQ64H"]
+        if seeds:
+            fp64 = c["DADD"] + c["DMUL"] + c["DFMA"]
+            line += (f"; per RSQ64H: DADD {c['DADD'] / seeds:.2f}, DMUL "
+                     f"{c['DMUL'] / seeds:.2f}, DFMA {c['DFMA'] / seeds:.2f}, all fp64 "
+                     f"{fp64 / seeds:.2f}")
+        print(f"  SASS {fn}: {line or 'no floating-point instructions'}")
+
+
+def build_phase(torch) -> tuple[str, str]:
+    """Phase [1]: the card, and the kernels built from the sources in this
+    run, with ptxas's registers and spills and the SASS instruction counts.
+    Returns (nvidia-smi line, device name)."""
+    from nbody_tpu_torch.ops import _cuda
+
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"[1] card: {card} | torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {torch.cuda.device_count()} device(s), "
+          f"device 0: {name}")
+    nvcc = _cuda.find_nvcc()
+    ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()
+    print(f"  nvcc: {nvcc}: {ver[-1]}")
+    if os.path.isdir(_cuda.BUILD_DIR):  # build from the sources in this run
+        for f in os.listdir(_cuda.BUILD_DIR):
+            if f.startswith("kernels-"):
+                os.remove(os.path.join(_cuda.BUILD_DIR, f))
+    t0 = time.perf_counter()
+    kernels = _cuda.library()
+    build_s = time.perf_counter() - t0
+    print(f"  built {os.path.relpath(kernels.path, ROOT)} from "
+          f"{[os.path.relpath(s, ROOT) for s in _cuda.sources()]} "
+          f"with {' '.join(_cuda.NVCC_FLAGS)}: nvcc {kernels.build_seconds:.2f} s, "
+          f"load {build_s:.2f} s")
+    for line in kernels.build_log.splitlines():
+        if ("ptxas info" in line and ("registers" in line or "Compiling" in line)
+                or "spill" in line):
+            print("  " + line.strip())
+    check(kernels.build_seconds > 0, "the kernels were compiled in this run")
+    sass_counts(nvcc, kernels.path)
+    return card, name
+
+
 def run_cli(argv: list[str]) -> str:
     """Run the port's CLI in-process; echo and return its stdout."""
     from nbody_tpu_torch.cli.main import main
@@ -133,6 +257,264 @@ def load_frames(path: str, n: int, frames: int = STEPS + 1) -> np.ndarray:
     return frames
 
 
+def fp64_forces(targets, pos, mass, G: float = 1.0, eps2: float = 0.01) -> np.ndarray:
+    """The reference's fp64 force formula in numpy (serial/exhaustive.c:
+    155-181, tests/oracle.py): a of `targets` from all (pos, mass)."""
+    d = pos[None, :, :] - targets[:, None, :]
+    r2 = (d * d).sum(-1) + eps2
+    return ((G * mass[None, :] * r2 ** -1.5)[..., None] * d).sum(1)
+
+
+def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
+                drift_bh32: float) -> list[dict]:
+    """Phases [12]-[18]: the fp64 kernels and the --dtype f64 paths.
+    Returns the fp64 kernels' entries of the JSON line."""
+    from nbody_tpu_torch.cli.main import build_force_fn
+    from nbody_tpu_torch.core.types import Bodies, SimConfig
+    from nbody_tpu_torch.diag.energy import (
+        cuda_potential_energy,
+        energy_drift,
+        get_energy,
+        potential_energy_reference,
+    )
+    from nbody_tpu_torch.integrate.leapfrog import simulate
+    from nbody_tpu_torch.ops import bh_fused, bh_fused_df
+    from nbody_tpu_torch.ops.cuda_exhaustive import cuda_rect_accelerations
+    from nbody_tpu_torch.ops.cuda_fp64 import (
+        cuda_accelerations_f64,
+        cuda_potential_energy_f64,
+        cuda_rect_accelerations_f64,
+    )
+    from nbody_tpu_torch.ops.exhaustive import rect_accelerations
+
+    f64 = torch.float64
+    n = arr.shape[0]
+    b64 = Bodies.from_numpy(arr, dtype=f64, device=dev)
+
+    # 12. fp64 all-pairs kernel
+    print("[12] fp64 all-pairs kernel K4 (nbody_tpu_torch/csrc/allpairs_f64.cu)")
+    got = cuda_accelerations_f64(b64.pos, b64.mass)
+    want = rect_accelerations(b64.pos, b64.pos, b64.mass)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    k4_err = (got - want).abs().max().item()
+    print(f"  {n} x {n} against the plain version: max |err| {k4_err:.3e}, force "
+          f"scale {scale:.4e}, rel {k4_err / scale:.3e} (bound {F64_BOUND:g})")
+    check(k4_err <= F64_BOUND * scale and bool(torch.isfinite(got).all()),
+          "K4 against its plain version")
+    rows = np.sort(np.random.default_rng(0).choice(n, 256, replace=False))
+    oracle = np.concatenate([fp64_forces(arr[rows[k:k + 32], :3], arr[:, :3], arr[:, 6])
+                             for k in range(0, len(rows), 32)])
+    got_rows = got[torch.as_tensor(rows, device=dev)].cpu().numpy()
+    rel = float(np.abs(got_rows - oracle).max() / np.abs(oracle).max())
+    print(f"  256 targets x {n} against the fp64 formula (numpy, r2**-1.5): rel "
+          f"{rel:.3e} (bound {F64_BOUND:g})")
+    check(rel < F64_BOUND, "K4 against the fp64 formula")
+    check(torch.equal(cuda_accelerations_f64(b64.pos, b64.mass), got),
+          "K4 reruns are bit-identical")
+    print("  two kernel runs bit-identical: True")
+
+    # 13. fp64 potential-energy kernel
+    print("[13] fp64 potential-energy kernel K5 (nbody_tpu_torch/csrc/potential_f64.cu)")
+    pe = cuda_potential_energy_f64(b64.pos, b64.mass).item()
+    pe_plain = potential_energy_reference(b64.pos, b64.mass).item()
+    k5_err = abs(pe - pe_plain)
+    print(f"  n={n}: kernel {pe!r}, plain {pe_plain!r}, rel {k5_err / abs(pe_plain):.3e} "
+          f"(bound {F64_PE_BOUND:g})")
+    check(k5_err <= F64_PE_BOUND * abs(pe_plain), "K5 against its plain version")
+    check(cuda_potential_energy_f64(b64.pos, b64.mass).item() == pe,
+          "K5 reruns are bit-identical")
+    print("  two kernel runs bit-identical: True")
+
+    # 14. K6's df mode against its plain version, at 100k and 1M
+    print("[14] K6 df mode (nbody_tpu_torch/csrc/bh_fused.cu, nbody_bh_fused_f64)")
+    b1m64 = Bodies.from_numpy(arr1m, dtype=f64, device=dev)
+    df = {}  # n -> (kernel arguments, keywords, max |err|, stats)
+    for bodies in (b64, b1m64):
+        fi = bh_fused.prepare_fused(bodies.pos, bodies.mass)
+        kw = dict(theta=0.5, eps2=0.01, leaf_cap=64, ld=fi.ld, group_size=fi.group_size)
+        args = (fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq)
+        got_s, stats_k = bh_fused_df.fused_group_forces_df(*args, **kw)
+        want_s, stats_p = bh_fused_df.fused_group_forces_df_reference(*args, **kw)
+        torch.cuda.synchronize()
+        scale = want_s.abs().max().item()
+        err = (got_s - want_s).abs().max().item()
+        print(f"  n={bodies.n}, ld {fi.ld}, {fi.gstart.shape[0]} group slots, B "
+              f"{fi.group_size}: max |err| {err:.3e}, force scale {scale:.4e}, rel "
+              f"{err / scale:.3e} (bound {F64_BOUND:g})")
+        check(err <= F64_BOUND * scale and bool(torch.isfinite(got_s).all()),
+              "K6 df against its plain version")
+        lanes = {name: int(stats_k[:, lane].long().sum())
+                 for name, lane in (("pops", bh_fused.S_POPS),
+                                    ("near_bodies", bh_fused.S_NEAR),
+                                    ("far_children", bh_fused.S_FAR))}
+        lanes["frontier_overflow"] = int(stats_k[:, bh_fused.S_OVF].max())
+        print(f"  stats {lanes}; equal to the plain version's lane by lane: "
+              f"{bool(torch.equal(stats_k, stats_p))}")
+        check(torch.equal(stats_k, stats_p), "K6 df stats equal the plain version's")
+        check(lanes["far_children"] > 0 and lanes["frontier_overflow"] == 0,
+              "K6 df accepted far cells without overflow")
+        again_s, again_stats = bh_fused_df.fused_group_forces_df(*args, **kw)
+        check(torch.equal(again_s, got_s) and torch.equal(again_stats, stats_k),
+              "K6 df reruns are bit-identical")
+        print("  two kernel runs bit-identical: True")
+        df[bodies.n] = (args, kw, err, stats_k)
+
+    # 15. the f64 all-pairs main path
+    print(f"[15] f64 main path: {n} bodies x {STEPS} KDK steps, --dtype f64 --energy")
+    out = os.path.join(tmp, "cuda64.csv")
+    counters = (cuda_rect_accelerations, cuda_rect_accelerations_f64,
+                cuda_potential_energy, cuda_potential_energy_f64)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = run_cli([CSV_100K, *MAIN_WINDOW, out, "--energy", "--dtype", "f64"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k4_launches, k3, k5_launches = (c.launches for c in counters)
+    print(f"  launches: fp64 all-pairs {k4_launches} (want {STEPS + 1}), fp64 "
+          f"potential {k5_launches} (want 2), f32 all-pairs {k1} and potential {k3} "
+          f"(want 0); whole CLI call {wall:.4f} s")
+    check(k4_launches == STEPS + 1 and k5_launches == 2, "K4 / K5 launches")
+    check(k1 == 0 and k3 == 0, "no f32 kernel on the f64 path")
+    check("backend: cuda, dtype: f64" in text, "the f64 main path took the kernels")
+    frames = load_frames(out, n)
+    drift_k = cli_number(text, "Relative energy drift:")
+    # the same steps in-process, through the kernel and the plain backend's
+    # force, so the final positions compare at full precision
+    dt = SimConfig.c_float(float(MAIN_WINDOW[2]))
+    fin = {label: simulate(b64, STEPS, dt, build_force_fn(label, 1.0, 0.01, dtype="f64"))
+           for label in ("cuda", "torch")}
+    torch.cuda.synchronize()
+    dpos = (fin["cuda"].pos - fin["torch"].pos).abs().max().item()
+    dframe = float(np.abs(frames[-1, :, 1:4] - fin["cuda"].pos.cpu().numpy()).max())
+    e0 = sum(get_energy(b64.pos, b64.vel, b64.mass))
+    e1 = sum(get_energy(fin["torch"].pos, fin["torch"].vel, fin["torch"].mass))
+    drift_t = energy_drift(e1, e0)
+    print(f"  in-process, kernel against plain backend: final positions max |diff| "
+          f"{dpos:.3e} (bound {F64_POS_BOUND:g}); the CLI's last frame against the "
+          f"kernel's {dframe:.3e} (%lf resolution, bound 1e-6)")
+    print(f"  drift: CLI (K4, K5) {drift_k:.6e}, plain backend {drift_t:.6e}, |diff| "
+          f"{abs(drift_k - drift_t):.3e} (bound 1e-3)")
+    check(dpos < F64_POS_BOUND, "f64 final positions agree")
+    check(dframe < 1e-6, "the CLI's frames are the kernel's run")
+    check(abs(drift_k - drift_t) < 1e-3, "f64 energy drifts agree")
+
+    # 16. the f64 Barnes-Hut main path
+    print(f"[16] f64 Barnes-Hut main path: {BH_N} bodies x {BH_STEPS} KDK steps, "
+          "--algo auto --dtype f64 --energy --write-every 5")
+    out_bh = os.path.join(tmp, "bh64.csv")
+    counters = (bh_fused.fused_group_forces, bh_fused_df.fused_group_forces_df,
+                cuda_rect_accelerations_f64, cuda_potential_energy_f64,
+                cuda_potential_energy)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text_bh = run_cli([csv1m, *BH_WINDOW, out_bh, "--energy", "--write-every", "5",
+                       "--dtype", "f64", "--algo", "auto"])
+    torch.cuda.synchronize()
+    wall_bh = time.perf_counter() - t0
+    k6, k6df_launches, k4_bh, k5_bh, k3_bh = (c.launches for c in counters)
+    print(f"  launches: K6 df {k6df_launches} (want {BH_STEPS + 2}: probe + "
+          f"{BH_STEPS + 1} evaluations), fp64 potential {k5_bh} (want 2), K6 f32 {k6}, "
+          f"fp64 all-pairs {k4_bh}, f32 potential {k3_bh} (want 0); whole CLI call "
+          f"{wall_bh:.4f} s")
+    check("Algorithm: barnes-hut, backend: cuda/fused, dtype: f64" in text_bh,
+          "--algo auto --dtype f64 took K6's df mode")
+    check(k6df_launches == BH_STEPS + 2 and k5_bh == 2, "K6 df / K5 launches")
+    check(k6 == 0 and k4_bh == 0 and k3_bh == 0, "no other kernel on the path")
+    load_frames(out_bh, BH_N, frames=2)
+    drift_bh64 = cli_number(text_bh, "Relative energy drift:")
+    print(f"  drift f64 {drift_bh64:.6e} against the f32 run's {drift_bh32:.6e} ([9]), "
+          f"|diff| {abs(drift_bh64 - drift_bh32):.3e} (bound 1e-3)")
+    check(abs(drift_bh64 - drift_bh32) < 1e-3, "f64 and f32 Barnes-Hut drifts agree")
+    acc = bh_fused_df.barneshut_fused_df(b1m64.pos, b1m64.mass)
+    exact = cuda_accelerations_f64(b1m64.pos, b1m64.mass)
+    torch.cuda.synchronize()
+    dmax = (acc - exact).abs().max().item()
+    rel = dmax / exact.abs().max().item()
+    print(f"  barneshut_fused_df against K4's exact forces: max |a - exact| / max |a| "
+          f"= {rel:.4e} (bound {BH_BOUND})")
+    check(rel < BH_BOUND and bool(torch.isfinite(acc).all()),
+          "f64 Barnes-Hut within 0.02 of exact forces at 1M")
+    for dtype in ("f32", "f64", "f64", "f32"):
+        text = run_cli([csv1m, *BH_WINDOW, os.path.join(tmp, "x.csv"), "--no-output",
+                        "--algo", "auto", "--dtype", dtype])
+        sim = cli_number(text, "Elapsed wall time:")
+        print(f"  {BH_N} --no-output --algo auto --dtype {dtype}: simulate {sim:.4f} s "
+              f"-> {sim / BH_STEPS:.4f} s/step [{card}]")
+
+    # 17. the fp64 sun-earth run through K4
+    print("[17] sun-earth, fp64, 8640 steps of 1000 s, --G 6.67e-11 --energy (K4)")
+    cuda_rect_accelerations_f64.launches = 0
+    text = run_cli([SUN_EARTH, "0", "8640000", "1000", os.path.join(tmp, "se.csv"),
+                    "--dtype", "f64", "--G", "6.67e-11", "--energy", "--no-output"])
+    drift_se = cli_number(text, "Relative energy drift:")
+    se_launches = cuda_rect_accelerations_f64.launches
+    print(f"  K4 launches {se_launches} (want 8641); drift {drift_se:.3e} (bound 1e-10)")
+    check(se_launches == 8641 and "backend: cuda, dtype: f64" in text,
+          "the sun-earth run took K4")
+    check(drift_se < 1e-10, "sun-earth fp64 drift")
+
+    # 18. fp64 timing
+    print(f"[18] fp64 timing on {card}")
+    k4_ms = cuda_ms(torch, lambda: cuda_accelerations_f64(b64.pos, b64.mass), 10)
+    k4_plain_ms = cuda_ms(torch, lambda: rect_accelerations(b64.pos, b64.pos, b64.mass), 2)
+    k5_ms = cuda_ms(torch, lambda: cuda_potential_energy_f64(b64.pos, b64.mass), 10)
+    k5_plain_ms = cuda_ms(torch, lambda: potential_energy_reference(b64.pos, b64.mass), 2)
+    k5_1m_ms = cuda_ms(torch, lambda: cuda_potential_energy_f64(b1m64.pos, b1m64.mass), 1)
+    (a100, kw100, _, _), (a1m, kw1m, k6df_err, st1m) = df[n], df[BH_N]
+    k6df_ms_100k = cuda_ms(torch, lambda: bh_fused_df.fused_group_forces_df(*a100, **kw100),
+                           10)
+    k6df_ms = cuda_ms(torch, lambda: bh_fused_df.fused_group_forces_df(*a1m, **kw1m), 10)
+    k6df_plain_ms = cuda_ms(
+        torch, lambda: bh_fused_df.fused_group_forces_df_reference(*a1m, **kw1m), 1)
+    whole_ms = cuda_ms(torch, lambda: bh_fused_df.barneshut_fused_df(b1m64.pos, b1m64.mass),
+                       10)
+    pairs = float(n) ** 2
+    print(f"  K4 {n}x{n}: kernel {k4_ms:.4f} ms ({pairs / k4_ms / 1e-3:.4e} pairs/s), "
+          f"plain {k4_plain_ms:.4f} ms [{card}]")
+    print(f"  K5 {n}x{n}: kernel {k5_ms:.4f} ms ({pairs / k5_ms / 1e-3:.4e} pairs/s), "
+          f"plain {k5_plain_ms:.4f} ms; at {BH_N}: {k5_1m_ms:.4f} ms (one run) [{card}]")
+    print(f"  K6 df at {n}: kernel {k6df_ms_100k:.4f} ms; at {BH_N} (ld {kw1m['ld']}): "
+          f"kernel {k6df_ms:.4f} ms, plain {k6df_plain_ms:.4f} ms (one run); "
+          f"barneshut_fused_df whole {whole_ms:.4f} ms [{card}]")
+    for _ in range(2):
+        text = run_cli([CSV_100K, *MAIN_WINDOW, os.path.join(tmp, "x.csv"), "--no-output",
+                        "--dtype", "f64"])
+        sim = cli_number(text, "Elapsed wall time:")
+        print(f"  {n} --no-output --dtype f64 (K4): simulate {sim:.4f} s -> "
+              f"{sim / STEPS:.4f} s/step, {(STEPS + 1) * pairs / sim:.4e} pairs/s [{card}]")
+
+    real = 8
+    small = (2 * n * 3 + n + n * 3) * real  # pos_i, pos_j, mass, out
+    k4_bound = bound(small, pairs * FORCE_OPS, FP64_PEAK)
+    k5_bound = bound((n * 4 + 2) * real, pairs * PE_OPS, FP64_PEAK)
+    k6df_bound = bound(*fused_work(a1m, st1m, real), FP64_PEAK)
+    return [
+        {"name": "allpairs_f64", "route": "cuda",
+         "source": "nbody_tpu_torch/csrc/allpairs_f64.cu",
+         "replaces": "nbody_tpu/ops/pallas_df.py:172",
+         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms,
+         "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+         "library_ms": None},
+        {"name": "potential_f64", "route": "cuda",
+         "source": "nbody_tpu_torch/csrc/potential_f64.cu",
+         "replaces": "nbody_tpu/ops/pallas_df.py:217",
+         "launches": k5_launches, "max_abs_err": k5_err, "ms": k5_ms,
+         "plain_ms": k5_plain_ms, "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
+         "library_ms": None},
+        {"name": "bh_fused_df", "route": "cuda",
+         "source": "nbody_tpu_torch/csrc/bh_fused.cu",
+         "replaces": "nbody_tpu/ops/bh_fused.py:130",
+         "launches": k6df_launches, "max_abs_err": k6df_err, "ms": k6df_ms,
+         "plain_ms": k6df_plain_ms, "bound_ms": k6df_bound[0], "bound_by": k6df_bound[1],
+         "library_ms": None},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -154,7 +536,7 @@ def main() -> int:
     )
     from nbody_tpu_torch.io.csv import read_bodies
     from nbody_tpu_torch.utils.fixtures import random_cloud, write_fixture
-    from nbody_tpu_torch.ops import _cuda, bh_fused
+    from nbody_tpu_torch.ops import bh_fused
     from nbody_tpu_torch.ops.cuda_exhaustive import (
         cuda_accelerations,
         cuda_rect_accelerations,
@@ -164,31 +546,7 @@ def main() -> int:
     dev = torch.device("cuda")
     check(not torch.backends.cuda.matmul.allow_tf32, "no TF32 in f32 matmuls")
 
-    # 1. card and build
-    card = card_line()
-    name = torch.cuda.get_device_name(0)
-    print(f"[1] card: {card} | torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}, {torch.cuda.device_count()} device(s), "
-          f"device 0: {name}")
-    nvcc = _cuda.find_nvcc()
-    ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()
-    print(f"  nvcc: {nvcc}: {ver[-1]}")
-    if os.path.isdir(_cuda.BUILD_DIR):  # build from the sources in this run
-        for f in os.listdir(_cuda.BUILD_DIR):
-            if f.startswith("kernels-"):
-                os.remove(os.path.join(_cuda.BUILD_DIR, f))
-    t0 = time.perf_counter()
-    kernels = _cuda.library()
-    build_s = time.perf_counter() - t0
-    print(f"  built {os.path.relpath(kernels.path, ROOT)} from "
-          f"{[os.path.relpath(s, ROOT) for s in _cuda.sources()]} "
-          f"with {' '.join(_cuda.NVCC_FLAGS)}: nvcc {kernels.build_seconds:.2f} s, "
-          f"load {build_s:.2f} s")
-    for line in kernels.build_log.splitlines():
-        if "ptxas info" in line and ("registers" in line or "Compiling" in line):
-            print("  " + line.strip())
-    check(kernels.build_seconds > 0, "the kernels were compiled in this run")
+    card, name = build_phase(torch)
 
     # 2. all-pairs kernel against its twin
     print("[2] all-pairs kernel (nbody_tpu_torch/csrc/allpairs.cu)")
@@ -330,7 +688,7 @@ def main() -> int:
             torch.cuda.synchronize()
             err = f32_close(torch, got_s, want_s, f"n={bodies.n}, ld {fi.ld}, "
                             f"{fi.gstart.shape[0]} group slots, B {fi.group_size}")
-            k6[bodies.n] = (args, kw, err)
+            k6[bodies.n] = (args, kw, err, stats_k)
             lanes = {name: int(stats_k[:, lane].long().sum())
                      for name, lane in (("pops", bh_fused.S_POPS),
                                         ("near_bodies", bh_fused.S_NEAR),
@@ -416,7 +774,7 @@ def main() -> int:
 
         # 11. Barnes-Hut timing
         print(f"[11] Barnes-Hut timing on {card}")
-        (args100k, kw100k, _), (args1m, kw1m, _) = k6[n], k6[BH_N]
+        (args100k, kw100k, _, _), (args1m, kw1m, _, stats1m) = k6[n], k6[BH_N]
         k6_ms_100k = cuda_ms(torch, lambda: bh_fused.fused_group_forces(
             *args100k, **kw100k), 10)
         k6_plain_ms_100k = cuda_ms(torch, lambda: bh_fused.fused_group_forces_reference(
@@ -444,22 +802,32 @@ def main() -> int:
                   f"({BH_STEPS + 1} evaluations) -> {sim / BH_STEPS:.4f} s/step "
                   f"[{card}]")
 
+        fp64_kernels = fp64_phases(torch, dev, card, arr, arr1m, csv1m, tmp, drift_bh)
+
+    small = (2 * n * 3 + n + n * 3) * 4  # pos_i, pos_j, mass, out (f32)
+    k1_bound = bound(small, pairs * FORCE_OPS, FP32_PEAK)
+    k3_bound = bound((n * 4 + 2) * 4, pairs * PE_OPS, FP32_PEAK)
+    k6_bound = bound(*fused_work(args1m, stats1m, 4), FP32_PEAK)
     print(json.dumps({"kernels": [
         {"name": "allpairs_f32", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/allpairs.cu",
          "replaces": "nbody_tpu/ops/pallas_exhaustive.py:64",
          "launches": k1_launches, "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "potential_f32", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/potential.cu",
          "replaces": "nbody_tpu/diag/energy.py:27",
          "launches": k3_launches, "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
+         "bound_by": k3_bound[1], "library_ms": None},
         {"name": "bh_fused_f32", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/bh_fused.cu",
          "replaces": "nbody_tpu/ops/bh_fused.py:130",
          "launches": k6_launches, "max_abs_err": k6_err,
-         "ms": k6_ms, "plain_ms": k6_plain_ms},
+         "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
+         "bound_by": k6_bound[1], "library_ms": None},
+        *fp64_kernels,
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -12,13 +12,15 @@ Routing:
   Barnes-Hut traversal (``ops/bh_fused.py``); ``--algo auto`` takes
   Barnes-Hut above 32,768 bodies and exhaustive otherwise
   (cli/main.py:356-357).
-* ``--backend cuda`` is the hand-written f32 kernel — K1
-  (``ops/cuda_exhaustive.py``) or K6 (``ops/bh_fused.py``) — and
-  ``--backend torch`` the plain PyTorch path: the counterparts of
-  ``pallas`` and ``jnp``.  ``auto`` takes ``cuda`` on the card in f32 and
-  ``torch`` on the CPU.  ``--dtype f64`` on the card needs the fp64 kernels
-  (K4, K6's df mode), which are not ported yet: ``auto`` and ``cuda``
-  refuse it, ``--backend torch`` runs the plain fp64 path.
+* ``--backend cuda`` is the hand-written kernel and ``--backend torch``
+  the plain PyTorch path: the counterparts of ``pallas`` (or
+  ``pallas-df`` in f64) and ``jnp``.  ``auto`` takes ``cuda`` on the card
+  and ``torch`` on the CPU.  The kernels: in f32, K1
+  (``ops/cuda_exhaustive.py``) or K6 (``ops/bh_fused.py``); with
+  ``--dtype f64``, the fp64 all-pairs kernel K4 (``ops/cuda_fp64.py``) or
+  K6's df mode (``ops/bh_fused_df.py``: fp64 evaluation, f32 MAC), as
+  cli/main.py:395-457 and :532-548.  ``--backend torch --dtype f64``
+  takes the same df decision rule through K6's plain version.
 * Barnes-Hut options that are not ported exit 2 and name what is missing:
   ``--bh-traversal flat|padded`` (K7), ``--bh-robust`` when it is on or
   ``auto`` resolves to on (the robust hybrid), ``--resort-every`` (the
@@ -28,8 +30,9 @@ Routing:
   ``check_fused``) unless ``--no-capacity-check``; an overflow exits 3
   with the flag value that fits.
 * ``--energy`` with the ``cuda`` backend at n >= 50,000 takes PE from the
-  potential-energy kernel and KE from a torch sum (the JAX CLI's large-N
-  path); otherwise it takes ``get_energy``.
+  potential-energy kernel (K3, or K5 in f64) and KE from a torch sum (the
+  JAX CLI's large-N path, cli/main.py:848-866); otherwise it takes
+  ``get_energy``.
 * ``--device cuda`` (the default) with no card exits non-zero; it never
   runs on the CPU instead.
 """
@@ -74,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["auto", "torch", "cuda"],
         default="auto",
         help="force backend: cuda = hand-written kernel, torch = plain "
-        "PyTorch (auto: cuda on the card in f32, torch on the CPU)",
+        "PyTorch (auto: cuda on the card, torch on the CPU)",
     )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--dtype", choices=["f32", "f64"], default="f32")
@@ -163,26 +166,13 @@ def resolve_algo(algo: str, n: int) -> str:
     return algo
 
 
-def resolve_backend(backend: str, device: str, dtype: str,
-                    algo: str = "exhaustive") -> str:
+def resolve_backend(backend: str, device: str) -> str:
     """The force backend a run takes; raises ValueError for combinations
-    that have no path."""
+    that have no path.  Both dtypes and both algorithms have kernels."""
     if backend == "auto":
         backend = "cuda" if device == "cuda" else "torch"
     if backend == "cuda" and device != "cuda":
         raise ValueError("--backend cuda needs --device cuda")
-    if backend == "cuda" and dtype == "f64":
-        if algo == "barnes-hut":
-            raise ValueError(
-                "--dtype f64 on the card needs the fused Barnes-Hut kernel's "
-                "df mode (K6 df, nbody_tpu/ops/bh_fused_df.py), which is not "
-                "ported yet; --backend torch runs the plain fp64 path"
-            )
-        raise ValueError(
-            "--dtype f64 on the card needs the fp64 all-pairs kernel (K4, "
-            "nbody_tpu/ops/pallas_df.py), which is not ported yet; "
-            "--backend torch runs the plain fp64 path"
-        )
     return backend
 
 
@@ -233,18 +223,24 @@ def fused_kwargs(args) -> dict:
 
 def build_force_fn(backend: str, G: float, softening_sq: float,
                    algo: str = "exhaustive", theta: float = constants.THETA,
-                   bh_kw: dict | None = None):
+                   bh_kw: dict | None = None, dtype: str = "f32"):
     if algo == "barnes-hut":
-        from nbody_tpu_torch.ops.bh_fused import (
-            barneshut_fused,
-            fused_group_forces,
-            fused_group_forces_reference,
-        )
+        from nbody_tpu_torch.ops import bh_fused, bh_fused_df
 
-        group_forces = (fused_group_forces if backend == "cuda"
-                        else fused_group_forces_reference)
-        return partial(barneshut_fused, G=G, softening_sq=softening_sq,
-                       theta=theta, group_forces=group_forces, **(bh_kw or {}))
+        if dtype == "f64":
+            fn, kernel, plain = (bh_fused_df.barneshut_fused_df,
+                                 bh_fused_df.fused_group_forces_df,
+                                 bh_fused_df.fused_group_forces_df_reference)
+        else:
+            fn, kernel, plain = (bh_fused.barneshut_fused, bh_fused.fused_group_forces,
+                                 bh_fused.fused_group_forces_reference)
+        group_forces = kernel if backend == "cuda" else plain
+        return partial(fn, G=G, softening_sq=softening_sq, theta=theta,
+                       group_forces=group_forces, **(bh_kw or {}))
+    if backend == "cuda" and dtype == "f64":
+        from nbody_tpu_torch.ops.cuda_fp64 import cuda_accelerations_f64
+
+        return partial(cuda_accelerations_f64, G=G, softening_sq=softening_sq)
     if backend == "cuda":
         from nbody_tpu_torch.ops.cuda_exhaustive import cuda_accelerations
 
@@ -267,6 +263,7 @@ def main(argv=None) -> int:
     )
     from nbody_tpu_torch.integrate.leapfrog import simulate
     from nbody_tpu_torch.io.csv import read_bodies, write_frames
+    from nbody_tpu_torch.ops.cuda_fp64 import cuda_potential_energy_f64
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print(
@@ -286,7 +283,7 @@ def main(argv=None) -> int:
         return 1
     algo = resolve_algo(args.algo, arr.shape[0])
     try:
-        backend = resolve_backend(args.backend, args.device, args.dtype, algo)
+        backend = resolve_backend(args.backend, args.device)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -315,12 +312,14 @@ def main(argv=None) -> int:
     dt = SimConfig.c_float(args.delta_time)
     n_steps = max(0, SimConfig.n_steps(t0, args.end_time, args.delta_time))
     bh_kw = fused_kwargs(args)
-    force = build_force_fn(backend, args.G, args.softening2, algo, args.theta, bh_kw)
+    force = build_force_fn(backend, args.G, args.softening2, algo, args.theta, bh_kw,
+                           args.dtype)
     backend_label = backend
     if algo == "barnes-hut":
         backend_label = f"{backend}/fused"
         if not args.no_capacity_check:
-            # startup capacity probe, one force evaluation (cli/main.py:728-770)
+            # startup capacity probe, one force evaluation through the run's
+            # own evaluator (cli/main.py:728-770)
             from nbody_tpu_torch.ops.barneshut import CapacityError
             from nbody_tpu_torch.ops.bh_fused import check_fused
 
@@ -343,7 +342,9 @@ def main(argv=None) -> int:
     def measure_energy(b):
         if backend == "cuda" and b.n >= PE_KERNEL_MIN_N:
             ke = 0.5 * (b.mass * (b.vel * b.vel).sum(-1)).sum()
-            pe = cuda_potential_energy(b.pos, b.mass, G=args.G)
+            pe_kernel = (cuda_potential_energy_f64 if args.dtype == "f64"
+                         else cuda_potential_energy)
+            pe = pe_kernel(b.pos, b.mass, G=args.G)
             return float(ke), float(pe)
         ke, pe = get_energy(b.pos, b.vel, b.mass, G=args.G)
         return float(ke), float(pe)

@@ -1,9 +1,10 @@
-// bh_fused.cu — fused Barnes-Hut traverse + evaluate, f32, for sm_90a.
+// bh_fused.cu — fused Barnes-Hut traverse + evaluate, f32 and fp64 (df)
+// modes, for sm_90a.
 //
-// Replaces the TPU kernel nbody_tpu/ops/bh_fused.py::_fused_kernel (f32
-// mode).  One thread block handles one Morton group: the bodies
-// [gstart, gstart + gcount) of the sorted source array, at most blockDim.
-// For each group it
+// Replaces the TPU kernel nbody_tpu/ops/bh_fused.py::_fused_kernel, in its
+// f32 mode and its df mode (df=True, used by nbody_tpu/ops/bh_fused_df.py).
+// One thread block handles one Morton group: the bodies
+// [gstart, gstart + gcount) of the sorted source array.  For each group it
 //
 //   1. takes the group's bounding box;
 //   2. runs a level-synchronous BFS over the dense grid (ops/bh_grid.py):
@@ -20,6 +21,18 @@
 //        a += gm * d * (|d|^2 + eps2)^(-3/2)
 //      — a body's own entry gives d = 0 and adds nothing.
 //
+// The two modes are one kernel body, templated on the evaluation type R:
+//   * f32 (R = float): tables, sources and accumulators in f32;
+//   * df (R = double): tables, sources, eps2 and accumulators in fp64, but
+//     the MAC stays in f32, as the TPU kernel's df mode classifies on the
+//     f32 hi halves: the box is taken over (float) of the body coordinates,
+//     each child's centre of mass enters as (float) of the fp64 table, and
+//     bsq and theta^2 are f32.  So the df mode opens and accepts the same
+//     cells as the f32 kernel would on the same tables, and only the force
+//     arithmetic changes precision.  On the TPU that arithmetic is
+//     double-float (f32 hi + lo pairs, ~290 VPU operations per pair);
+//     Hopper has fp64 units, so here it is native fp64.
+//
 // The only capacity is the frontier (fcap cells per level).  Its counter
 // runs on past fcap, cells beyond it are dropped, and the largest needed
 // count is reported in the overflow stat so the caller can prescribe the
@@ -33,55 +46,97 @@
 // atomics, and there are no float atomics: the same input gives the same
 // accelerations on every run.
 //
-// What bounds it on the card: the evaluation, ~20 FP32 operations and one
-// rsqrt per (body, source) pair, the same as K1.  At 1M uniform bodies a
-// group sees ~10^4 sources, against a few hundred frontier cells, so the
-// traversal is a small share.  Design for that: one thread per body, its
-// accumulators in registers; staged sources sit in shared memory (far
-// sources as float4, near runs as (start, offset) pairs that stream through
-// a float4 tile as in K1).  The staging buffers are evaluated and emptied
-// whenever a classification round could overflow them.
+// What bounds it on the card: the evaluation, one pair per (body, source),
+// ~20 FP32 operations and one rsqrt in f32 mode (K1's work); in df mode
+// allpairs_f64.cu's work, 17.9 fp64 instructions per pair in the SASS
+// (sm_90a, nvcc 12.9; chip_smoke.py phase 1 counts them), at half the
+// fp32 issue rate.
+// At 1M uniform bodies a group sees ~10^4 sources, against a few hundred
+// frontier cells, so the traversal is a small share.  Design for that: each
+// thread holds its bodies' coordinates and accumulators in registers;
+// staged sources sit in shared memory (far sources as rows [x y z G·m], near
+// runs as (start, offset) pairs that stream through a row tile as in K1).
+// The staging buffers are evaluated and emptied whenever a classification
+// round could overflow them.
 //
-// Left for later: one 1024-thread block per SM leaves the SM idle at every
-// block-wide barrier of the traversal; several groups per block or warp-
-// level traversal would hide that.
+// Registers: a block of up to 1024 threads leaves each thread at most 64
+// registers.  The f32 mode runs one body per thread.  fp64 coordinates and
+// accumulators take twice the registers, so the df mode runs half the
+// threads with two bodies each (bodies t and t + blockDim): up to 128
+// registers per thread, and each source row read from shared memory serves
+// two bodies.  Group sizes and groups are the same in both modes.  ptxas
+// (nvcc 12.9) gives the f32 mode 60 registers and the df mode 98, neither
+// spilling.  Shared memory per block at B = 1024 and a 2048-cell frontier:
+// 94,592 bytes in f32 mode, 121,216 in df mode (32-byte source rows).
+//
+// Left for later: one block per group leaves the SM idle at every block-
+// wide barrier of the traversal; several groups per block or warp-level
+// traversal would hide that.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kFarCap = 2048;   // staged far sources
-constexpr int kNearCap = 2048;  // staged near cells
+constexpr int kMaxThreads = 1024;  // bodies per group, at most
+constexpr int kFarCap = 2048;      // staged far sources
+constexpr int kNearCap = 2048;     // staged near cells
 constexpr int kMaxLd = 8;
 // stats lanes, as ops/bh_fused.py
 constexpr int kStatPops = 0, kStatSources = 1, kStatNear = 2, kStatOverflow = 3,
               kStatFar = 4, kNumStats = 5;
 
+struct alignas(16) Src64 {
+  double x, y, z, w;
+};
+
+// Per evaluation type: the staged source row, bodies per thread, rsqrt.
+template <class R>
+struct Eval;
+
+template <>
+struct Eval<float> {
+  using Src = float4;
+  static constexpr int kPer = 1;
+  static __device__ __forceinline__ float rsqrt_(float x) { return rsqrtf(x); }
+};
+
+template <>
+struct Eval<double> {
+  using Src = Src64;
+  static constexpr int kPer = 2;
+  static __device__ __forceinline__ double rsqrt_(double x) { return rsqrt(x); }
+};
+
 __host__ __device__ inline int level_offset(int d) { return ((1 << (3 * d)) - 1) / 7; }
 
+// Threads of a block for `group_size` bodies: a power of two, at least one
+// warp, kPer bodies per thread.
+template <class R>
 __host__ inline int block_threads(int group_size) {
   int t = 32;
-  while (t < group_size) t <<= 1;
+  while (t * Eval<R>::kPer < group_size) t <<= 1;
   return t;
 }
 
+template <class R>
 __host__ inline size_t smem_bytes(int threads, int fcap) {
-  return sizeof(float4) * (kFarCap + threads)             // far sources, near tile
+  using Src = typename Eval<R>::Src;
+  return sizeof(Src) * (kFarCap + threads)                // far sources, near tile
          + sizeof(int) * 2 * kNearCap                     // near starts, offsets
          + sizeof(unsigned long long) * (threads + 32)    // scan: flags
          + sizeof(int) * (threads + 32)                   // scan: near counts
          + sizeof(int) * 2 * fcap;                        // frontier, two levels
 }
 
-__device__ __forceinline__ void accumulate(const float4 s, float xi, float yi, float zi,
-                                           float eps2, float& ax, float& ay, float& az) {
-  const float dx = s.x - xi;
-  const float dy = s.y - yi;
-  const float dz = s.z - zi;
-  const float r2 = dx * dx + dy * dy + dz * dz + eps2;
-  const float inv_r = rsqrtf(r2);
-  const float w = s.w * (inv_r * inv_r * inv_r);
+template <class R, class Src>
+__device__ __forceinline__ void accumulate(const Src s, R xi, R yi, R zi, R eps2, R& ax,
+                                           R& ay, R& az) {
+  const R dx = s.x - xi;
+  const R dy = s.y - yi;
+  const R dz = s.z - zi;
+  const R r2 = dx * dx + dy * dy + dz * dz + eps2;
+  const R inv_r = Eval<R>::rsqrt_(r2);
+  const R w = s.w * (inv_r * inv_r * inv_r);
   ax += w * dx;
   ay += w * dy;
   az += w * dz;
@@ -130,18 +185,21 @@ __device__ void block_scan(unsigned long long f, int c, unsigned long long* sf, 
   ex_c = off_c + in_c - c;
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-bh_fused_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
-                const float* __restrict__ cz, const float* __restrict__ cgm,
+template <class R>
+__global__ void __launch_bounds__(kMaxThreads / Eval<R>::kPer)
+bh_fused_kernel(const R* __restrict__ cx, const R* __restrict__ cy,
+                const R* __restrict__ cz, const R* __restrict__ cgm,
                 const int* __restrict__ ccnt, const int* __restrict__ cstart,
                 const int* __restrict__ gstart, const int* __restrict__ gcount,
-                const float4* __restrict__ src, const float* __restrict__ bsq,
-                float theta_sq, float eps2, int leaf_cap, int ld, int fcap,
-                float* __restrict__ out, int* __restrict__ stats) {
+                const typename Eval<R>::Src* __restrict__ src, const float* __restrict__ bsq,
+                float theta_sq, R eps2, int leaf_cap, int ld, int fcap,
+                R* __restrict__ out, int* __restrict__ stats) {
+  using Src = typename Eval<R>::Src;
+  constexpr int kPer = Eval<R>::kPer;
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = blockDim.x;
-  float4* far_buf = reinterpret_cast<float4*>(smem);
-  float4* tile = far_buf + kFarCap;
+  Src* far_buf = reinterpret_cast<Src*>(smem);
+  Src* tile = far_buf + kFarCap;
   int* near_start = reinterpret_cast<int*>(tile + T);
   int* near_off = near_start + kNearCap;
   unsigned long long* scan_f = reinterpret_cast<unsigned long long*>(near_off + kNearCap);
@@ -158,24 +216,40 @@ bh_fused_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
     return;
   }
   const int gs = gstart[g];
-  const bool live = t < gc;
-  float xi = 0.f, yi = 0.f, zi = 0.f;
-  if (live) {
-    const float4 p = src[gs + t];
-    xi = p.x;
-    yi = p.y;
-    zi = p.z;
+  // this thread's bodies: t, t + T, ... of the group
+  bool live[kPer];
+  R xi[kPer], yi[kPer], zi[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    live[k] = t + k * T < gc;
+    xi[k] = yi[k] = zi[k] = R(0);
+    if (live[k]) {
+      const Src p = src[gs + t + k * T];
+      xi[k] = p.x;
+      yi[k] = p.y;
+      zi[k] = p.z;
+    }
   }
 
-  // 1. bounding box of the live bodies (tree min/max, exact)
+  // 1. bounding box of the live bodies (tree min/max, exact), in f32: over
+  // the f32-rounded coordinates in df mode
   float* red = reinterpret_cast<float*>(far_buf);  // 6 x T floats, free until staging
   const float inf = __int_as_float(0x7f800000);
-  red[0 * T + t] = live ? xi : inf;
-  red[1 * T + t] = live ? yi : inf;
-  red[2 * T + t] = live ? zi : inf;
-  red[3 * T + t] = live ? xi : -inf;
-  red[4 * T + t] = live ? yi : -inf;
-  red[5 * T + t] = live ? zi : -inf;
+  float blo[3] = {inf, inf, inf}, bhi[3] = {-inf, -inf, -inf};
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (live[k]) {
+      const float p[3] = {(float)xi[k], (float)yi[k], (float)zi[k]};
+      for (int a = 0; a < 3; ++a) {
+        blo[a] = fminf(blo[a], p[a]);
+        bhi[a] = fmaxf(bhi[a], p[a]);
+      }
+    }
+  }
+  for (int a = 0; a < 3; ++a) {
+    red[a * T + t] = blo[a];
+    red[(a + 3) * T + t] = bhi[a];
+  }
   __syncthreads();
   for (int s = T >> 1; s > 0; s >>= 1) {
     if (t < s) {
@@ -188,13 +262,20 @@ bh_fused_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
   const float hix = red[3 * T], hiy = red[4 * T], hiz = red[5 * T];
   __syncthreads();  // the box scratch becomes the far buffer
 
-  float ax = 0.f, ay = 0.f, az = 0.f;
+  R ax[kPer], ay[kPer], az[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) ax[k] = ay[k] = az[k] = R(0);
   int nfar = 0, nnear = 0, near_total = 0;  // staged now (block-uniform)
   int pops = 0, far_children = 0, near_bodies = 0, overflow = 0;
 
   // evaluate every staged source and empty the buffers (block-uniform call)
   auto flush = [&]() {
-    for (int k = 0; k < nfar; ++k) accumulate(far_buf[k], xi, yi, zi, eps2, ax, ay, az);
+    for (int q = 0; q < nfar; ++q) {
+      const Src s = far_buf[q];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        accumulate(s, xi[k], yi[k], zi[k], eps2, ax[k], ay[k], az[k]);
+    }
     for (int base = 0; base < near_total; base += T) {
       const int f = base + t;
       if (f < near_total) {
@@ -208,7 +289,12 @@ bh_fused_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
       __syncthreads();
       const int m = min(T, near_total - base);
 #pragma unroll 8
-      for (int k = 0; k < m; ++k) accumulate(tile[k], xi, yi, zi, eps2, ax, ay, az);
+      for (int q = 0; q < m; ++q) {
+        const Src s = tile[q];
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+          accumulate(s, xi[k], yi[k], zi[k], eps2, ax[k], ay[k], az[k]);
+      }
       __syncthreads();
     }
     nfar = nnear = near_total = 0;
@@ -229,16 +315,18 @@ bh_fused_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
       const int p = base + t;
       int code = 0;  // 1 far, 2 near, 3 open
       int child = 0, count = 0, first = 0;
-      float4 com = make_float4(0.f, 0.f, 0.f, 0.f);
+      Src com{};
       if (p < pairs) {
         child = fr_cur[p >> 3] * 8 + (p & 7);
         const int c = child_off + child;
         count = ccnt[c];
         if (count > 0) {
-          com = make_float4(cx[c], cy[c], cz[c], cgm[c]);
-          const float ddx = __fsub_rn(com.x, fminf(fmaxf(com.x, lox), hix));
-          const float ddy = __fsub_rn(com.y, fminf(fmaxf(com.y, loy), hiy));
-          const float ddz = __fsub_rn(com.z, fminf(fmaxf(com.z, loz), hiz));
+          com = Src{cx[c], cy[c], cz[c], cgm[c]};
+          // the MAC in f32, on the f32-rounded centre of mass in df mode
+          const float mx = (float)com.x, my = (float)com.y, mz = (float)com.z;
+          const float ddx = __fsub_rn(mx, fminf(fmaxf(mx, lox), hix));
+          const float ddy = __fsub_rn(my, fminf(fmaxf(my, loy), hiy));
+          const float ddz = __fsub_rn(mz, fminf(fmaxf(mz, loz), hiz));
           const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy)),
                                      __fmul_rn(ddz, ddz));
           if (__fmul_rn(theta_sq, d2) > bsq_next) {
@@ -286,11 +374,14 @@ bh_fused_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
   }
   flush();
 
-  if (live) {
-    float* o = out + 3 * (size_t)(gs + t);
-    o[0] = ax;
-    o[1] = ay;
-    o[2] = az;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (live[k]) {
+      R* o = out + 3 * (size_t)(gs + t + k * T);
+      o[0] = ax[k];
+      o[1] = ay[k];
+      o[2] = az[k];
+    }
   }
   if (t == 0) {
     st[kStatPops] = pops;
@@ -301,14 +392,35 @@ bh_fused_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
   }
 }
 
+template <class R>
+int launch_bh_fused(const R* cx, const R* cy, const R* cz, const R* gm, const int* cnt,
+                    const int* start, const int* gstart, const int* gcount, int n_groups,
+                    const R* src, const float* bsq, float theta_sq, R eps2, int leaf_cap,
+                    int ld, int fcap, int group_size, R* out, int* stats, void* stream) {
+  if (ld < 1 || ld > kMaxLd || group_size < 1 || group_size > kMaxThreads || fcap < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_groups <= 0) return static_cast<int>(cudaSuccess);
+  const int threads = block_threads<R>(group_size);
+  const size_t smem = smem_bytes<R>(threads, fcap);
+  cudaError_t err = cudaFuncSetAttribute(
+      bh_fused_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bh_fused_kernel<R><<<n_groups, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      cx, cy, cz, gm, cnt, start, gstart, gcount,
+      reinterpret_cast<const typename Eval<R>::Src*>(src), bsq, theta_sq, eps2, leaf_cap, ld,
+      fcap, out, stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // Shared memory one block needs for `group_size` bodies and a frontier of
-// `fcap` cells per level.
-int nbody_bh_fused_smem_bytes(int group_size, int fcap) {
-  return static_cast<int>(smem_bytes(block_threads(group_size), fcap));
+// `fcap` cells per level: of the f32 mode, or of the df mode if `f64`.
+int nbody_bh_fused_smem_bytes(int group_size, int fcap, int f64) {
+  return static_cast<int>(f64 ? smem_bytes<double>(block_threads<double>(group_size), fcap)
+                              : smem_bytes<float>(block_threads<float>(group_size), fcap));
 }
 
 // Launch on `stream`, one block per group slot.  Tables cx, cy, cz, gm (f32)
@@ -323,18 +435,22 @@ int nbody_bh_fused_f32(const float* cx, const float* cy, const float* cz, const 
                        const int* gcount, int n_groups, const float* src, const float* bsq,
                        float theta_sq, float eps2, int leaf_cap, int ld, int fcap,
                        int group_size, float* out, int* stats, void* stream) {
-  if (ld < 1 || ld > kMaxLd || group_size < 1 || group_size > kMaxThreads || fcap < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_groups <= 0) return static_cast<int>(cudaSuccess);
-  const int threads = block_threads(group_size);
-  const size_t smem = smem_bytes(threads, fcap);
-  cudaError_t err = cudaFuncSetAttribute(
-      bh_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bh_fused_kernel<<<n_groups, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      cx, cy, cz, gm, cnt, start, gstart, gcount, reinterpret_cast<const float4*>(src), bsq,
-      theta_sq, eps2, leaf_cap, ld, fcap, out, stats);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bh_fused<float>(cx, cy, cz, gm, cnt, start, gstart, gcount, n_groups, src,
+                                bsq, theta_sq, eps2, leaf_cap, ld, fcap, group_size, out,
+                                stats, stream);
+}
+
+// The df mode: as nbody_bh_fused_f32, with the tables cx, cy, cz, gm, the
+// sources src (n, 4), eps2 and out in fp64; bsq and theta_sq stay f32 (the
+// MAC is f32).
+int nbody_bh_fused_f64(const double* cx, const double* cy, const double* cz,
+                       const double* gm, const int* cnt, const int* start,
+                       const int* gstart, const int* gcount, int n_groups, const double* src,
+                       const float* bsq, float theta_sq, double eps2, int leaf_cap, int ld,
+                       int fcap, int group_size, double* out, int* stats, void* stream) {
+  return launch_bh_fused<double>(cx, cy, cz, gm, cnt, start, gstart, gcount, n_groups, src,
+                                 bsq, theta_sq, eps2, leaf_cap, ld, fcap, group_size, out,
+                                 stats, stream);
 }
 
 }  // extern "C"

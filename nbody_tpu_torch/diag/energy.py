@@ -15,8 +15,10 @@ Energy drift |E(t) - E(0)| / |E(0)| is the north-star correctness metric
 * ``cuda_potential_energy`` — PE through the hand-written kernel in
   ``nbody_tpu_torch/csrc/potential.cu`` (replacing the Pallas
   ``_pe_kernel``); ``cuda_potential_energy.launches`` counts launches.
-* ``potential_energy_reference`` — its plain twin: f32 pair terms summed
-  in fp64, as the kernel does.
+* ``potential_energy_reference`` — its plain twin: pair terms in the
+  inputs' dtype summed in fp64.  On f32 inputs that is what the kernel
+  does; on fp64 inputs it is the plain version of the fp64 PE kernel
+  (``ops/cuda_fp64.py``, K5).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from nbody_tpu_torch.core import constants
-from nbody_tpu_torch.ops.cuda_exhaustive import check_f32
+from nbody_tpu_torch.ops.cuda_exhaustive import check_tensor
 
 
 def _guarded_inv(r: torch.Tensor) -> torch.Tensor:
@@ -60,8 +62,9 @@ def potential_energy_reference(
     G: float = constants.BIG_G,
     chunk: int = 1024,
 ) -> torch.Tensor:
-    """Plain twin of the PE kernel: f32 pair terms -m_i m_j * rsqrt(r^2)
-    (0 at r^2 == 0), accumulated in fp64.  Returns a 0-d fp64 tensor."""
+    """Plain twin of the PE kernels: pair terms -m_i m_j * rsqrt(r^2) (0 at
+    r^2 == 0) in the inputs' dtype (f32 for K3, fp64 for K5), accumulated
+    in fp64.  Returns a 0-d fp64 tensor."""
     total = torch.zeros((), dtype=torch.float64, device=pos.device)
     for s in range(0, pos.shape[0], chunk):
         d = pos[None, :, :] - pos[s:s + chunk, None, :]
@@ -83,8 +86,8 @@ def cuda_potential_energy(
     kernel or raise."""
     device = pos.device
     n = pos.shape[0]
-    check_f32("pos", pos, (-1, 3), device)
-    check_f32("mass", mass, (n,), device)
+    check_tensor("pos", pos, (-1, 3), device)
+    check_tensor("mass", mass, (n,), device)
     if device.type == "cpu":
         return potential_energy_reference(pos, mass, G=G)
     if device.type != "cuda":

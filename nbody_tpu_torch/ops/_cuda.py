@@ -5,7 +5,8 @@ its own ``nvcc`` process, all started together, and the objects are linked
 into one shared library with a plain C interface, written to
 ``nbody_tpu_torch/_build/`` under a name keyed by a hash of the sources
 and flags, at first use (never at import).  The library is loaded with
-ctypes: every pointer and the stream are ``c_void_p``, ints are ``c_int``.
+ctypes: every pointer and the stream are ``c_void_p``, ints are ``c_int``,
+scalars ``c_float`` or ``c_double`` as the kernel takes them.
 
 Unlike the fastcsv loader nothing here falls back: a missing ``nvcc``, a
 compile error, a load error, or a non-zero ``cudaError_t`` returned by a
@@ -36,6 +37,8 @@ _LIB: "Kernels | None" = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_D = ctypes.c_double
 
 
 class CudaKernelError(RuntimeError):
@@ -68,13 +71,21 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nbody_potential_partials.argtypes = [_I]
     lib.nbody_potential_f32.restype = _I
     lib.nbody_potential_f32.argtypes = [_P, _P, _I, _P, _P, _P]
+    lib.nbody_allpairs_f64.restype = _I
+    lib.nbody_allpairs_f64.argtypes = [_P, _P, _P, _D, _I, _I, _P, _P]
+    lib.nbody_potential_f64_partials.restype = _I
+    lib.nbody_potential_f64_partials.argtypes = [_I]
+    lib.nbody_potential_f64.restype = _I
+    lib.nbody_potential_f64.argtypes = [_P, _P, _I, _P, _P, _P]
     lib.nbody_bh_fused_smem_bytes.restype = _I
-    lib.nbody_bh_fused_smem_bytes.argtypes = [_I, _I]
-    lib.nbody_bh_fused_f32.restype = _I
-    lib.nbody_bh_fused_f32.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-        ctypes.c_float, ctypes.c_float, _I, _I, _I, _I, _P, _P, _P,
-    ]
+    lib.nbody_bh_fused_smem_bytes.argtypes = [_I, _I, _I]
+    for name, eps2 in (("nbody_bh_fused_f32", _F), ("nbody_bh_fused_f64", _D)):
+        fn = getattr(lib, name)
+        fn.restype = _I
+        fn.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+            _F, eps2, _I, _I, _I, _I, _P, _P, _P,
+        ]
     lib.nbody_cuda_error_string.restype = ctypes.c_char_p
     lib.nbody_cuda_error_string.argtypes = [_I]
     return lib

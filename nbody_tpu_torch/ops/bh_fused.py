@@ -1,5 +1,5 @@
 """Fused Barnes-Hut traverse + evaluate — counterpart of
-``nbody_tpu/ops/bh_fused.py`` (f32 mode).
+``nbody_tpu/ops/bh_fused.py``.
 
 ``fused_group_forces`` wraps kernel K6, ``nbody_tpu_torch/csrc/bh_fused.cu``
 (which replaces the Pallas ``_fused_kernel``): per Morton group it walks
@@ -25,10 +25,12 @@ JAX package counts its 128-lane filler), near bodies, frontier overflow
 children.  The JAX package's ``eval_rows`` lane counts TPU rows and is
 dropped.
 
-The kernel is f32 only (its df mode, ``nbody_tpu/ops/bh_fused_df.py``, is
-not ported).  The plain version also runs in f64, with f64 tables and
-MAC: ``barneshut_fused`` computes in f64 when given f64 bodies on the CPU
-or through ``--backend torch``.
+The MAC is always f32, as in the JAX package.  For f64 bodies the path
+runs in K6's df mode (``ops/bh_fused_df.py``, the counterpart of
+``nbody_tpu/ops/bh_fused_df.py``): f64 tables, sources and evaluation,
+with the MAC on the f32-rounded tables and bodies, so f32 and df runs on
+the same tables open and accept the same cells.  The plain version takes
+both modes from src's dtype.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from nbody_tpu_torch.ops.barneshut import (
     group_ranges,
 )
 from nbody_tpu_torch.ops.bh_grid import GridTree, build_grid, grid_offsets
-from nbody_tpu_torch.ops.cuda_exhaustive import check_f32
+from nbody_tpu_torch.ops.cuda_exhaustive import check_tensor
 from nbody_tpu_torch.ops.morton import morton_sort
 
 FRONTIER_CAP = 2048  # cells per level per group (runtime overflow-checked)
@@ -81,20 +83,20 @@ def _round_cap(frontier_cap: int) -> int:
     return -(-int(frontier_cap) // 128) * 128
 
 
-def _theta_sq(theta: float, dtype: torch.dtype) -> float:
-    """θ² as the value the MAC multiplies by: JAX squares in Python and its
-    f32 multiply rounds that to f32."""
-    sq = float(theta) * float(theta)
-    return float(np.float32(sq)) if dtype == torch.float32 else sq
+def _theta_sq(theta: float) -> float:
+    """θ² as the value the f32 MAC multiplies by: JAX squares in Python and
+    its f32 multiply rounds that to f32."""
+    return float(np.float32(float(theta) * float(theta)))
 
 
-def _check_kernel_inputs(tree: GridTree, gstart, gcount, src, bsq, ld: int):
+def _check_kernel_inputs(tree: GridTree, gstart, gcount, src, bsq, ld: int,
+                         dtype: torch.dtype):
     device = src.device
     n = src.shape[0]
-    check_f32("src", src, (n, 4), device)
+    check_tensor("src", src, (n, 4), device, dtype)
     t = grid_offsets(ld)[ld + 1]
     for name in ("cx", "cy", "cz", "gm"):
-        check_f32(f"tree.{name}", getattr(tree, name), (t,), device)
+        check_tensor(f"tree.{name}", getattr(tree, name), (t,), device, dtype)
     for name, a, size in (("tree.cnt", tree.cnt, t), ("tree.start", tree.start, t),
                           ("gstart", gstart, -1), ("gcount", gcount, gstart.shape[0])):
         if a.dtype != torch.int32 or a.device != device or not a.is_contiguous():
@@ -102,32 +104,67 @@ def _check_kernel_inputs(tree: GridTree, gstart, gcount, src, bsq, ld: int):
                             f"got {a.dtype} on {a.device}")
         if a.dim() != 1 or size not in (-1, a.shape[0]):
             raise ValueError(f"{name}: shape {tuple(a.shape)}, expected ({size},)")
-    check_f32("bsq", bsq, (-1,), device)
+    check_tensor("bsq", bsq, (-1,), device)
     if bsq.shape[0] < ld + 1:
         raise ValueError(f"bsq: {bsq.shape[0]} levels, need ld + 1 = {ld + 1}")
     if src.data_ptr() % 16:
-        raise ValueError("src: the kernel reads float4 rows, so it must be "
-                         "16-byte aligned")
+        raise ValueError("src: the kernel reads 16-byte vector rows, so it must "
+                         "be 16-byte aligned")
 
 
 def launch(lib, tree: GridTree, gstart, gcount, src, bsq, stream, *, theta: float,
            eps2: float, leaf_cap: int, ld: int, group_size: int, frontier_cap: int):
-    """Call K6's launcher in `lib` on checked tensors; returns (cudaError_t,
-    accelerations (n, 3), stats (G, N_STATS)).  The tensors' pointers are
-    handed to the kernel as they are, so the CPU emulation of the kernel
-    source takes the same call."""
+    """Call K6's launcher in `lib` on checked tensors, in the f32 mode or,
+    for f64 `src` and tables, the df mode; returns (cudaError_t,
+    accelerations (n, 3) in src's dtype, stats (G, N_STATS)).  The tensors'
+    pointers are handed to the kernel as they are, so the CPU emulation of
+    the kernel source takes the same call."""
     n, n_groups = src.shape[0], gstart.shape[0]
-    out = torch.zeros((n, 3), dtype=torch.float32, device=src.device)
+    out = torch.zeros((n, 3), dtype=src.dtype, device=src.device)
     stats = torch.empty((n_groups, N_STATS), dtype=torch.int32, device=src.device)
-    err = lib.nbody_bh_fused_f32(
+    fn = lib.nbody_bh_fused_f64 if src.dtype == torch.float64 else lib.nbody_bh_fused_f32
+    err = fn(
         tree.cx.data_ptr(), tree.cy.data_ptr(), tree.cz.data_ptr(),
         tree.gm.data_ptr(), tree.cnt.data_ptr(), tree.start.data_ptr(),
         gstart.data_ptr(), gcount.data_ptr(), n_groups, src.data_ptr(),
-        bsq.data_ptr(), _theta_sq(theta, torch.float32), float(eps2),
+        bsq.data_ptr(), _theta_sq(theta), float(eps2),
         int(leaf_cap), int(ld), _round_cap(frontier_cap), int(group_size),
         out.data_ptr(), stats.data_ptr(), stream,
     )
     return err, out, stats
+
+
+def kernel_forces(dtype: torch.dtype, tree: GridTree, gstart, gcount, src, bsq, *,
+                  theta: float, eps2: float, leaf_cap: int, ld: int, group_size: int,
+                  frontier_cap: int):
+    """Check the inputs and launch K6 on the card, in the mode of `dtype`
+    (f32, or f64 for the df mode); raises on anything the kernel does not
+    take and on a launch error.  Returns (accelerations, stats)."""
+    device = src.device
+    if device.type != "cuda":
+        raise ValueError(f"no fused Barnes-Hut kernel for device {device}")
+    if not 1 <= group_size <= MAX_GROUP_SIZE:
+        raise ValueError(f"group_size must be in [1, {MAX_GROUP_SIZE}] (the kernel "
+                         f"runs one block per group), got {group_size}")
+    _check_kernel_inputs(tree, gstart, gcount, src, bsq, ld, dtype)
+
+    from nbody_tpu_torch.ops import _cuda
+
+    kernels = _cuda.library()
+    with torch.cuda.device(device):
+        err, out, stats = launch(
+            kernels.lib, tree, gstart, gcount, src, bsq, _cuda.stream_handle(device),
+            theta=theta, eps2=eps2, leaf_cap=leaf_cap, ld=ld, group_size=group_size,
+            frontier_cap=frontier_cap,
+        )
+    if err != 0:
+        fcap = _round_cap(frontier_cap)
+        smem = kernels.lib.nbody_bh_fused_smem_bytes(
+            int(group_size), fcap, int(dtype == torch.float64))
+        kernels.check(err, f"bh_fused kernel ({dtype}, group_size {group_size}, "
+                           f"frontier cap {fcap}: {smem} bytes of shared memory "
+                           "per block)")
+    return out, stats
 
 
 def fused_group_forces(
@@ -144,38 +181,18 @@ def fused_group_forces(
     group_size: int,
     frontier_cap: int = FRONTIER_CAP,
 ):
-    """Accelerations (n, 3) in sorted order and stats (G, N_STATS) int32
-    for the groups (gstart, gcount) of the sorted sources `src` (n, 4)
-    [x y z G·m] against the dense grid `tree` of depth `ld`, with
-    bsq[l] = (border / 2^l)^2.  Groups hold at most `group_size` bodies.
-    Bodies of no group (trimmed groups) get zero acceleration."""
+    """f32 accelerations (n, 3) in sorted order and stats (G, N_STATS)
+    int32 for the groups (gstart, gcount) of the sorted f32 sources `src`
+    (n, 4) [x y z G·m] against the f32 dense grid `tree` of depth `ld`,
+    with f32 bsq[l] = (border / 2^l)^2.  Groups hold at most `group_size`
+    bodies.  Bodies of no group (trimmed groups) get zero acceleration."""
     if not 1 <= ld <= MAX_LD:
         raise ValueError(f"ld must be in [1, {MAX_LD}], got {ld}")
     kw = dict(theta=theta, eps2=eps2, leaf_cap=leaf_cap, ld=ld,
               group_size=group_size, frontier_cap=frontier_cap)
-    device = src.device
-    if device.type == "cpu":
+    if src.device.type == "cpu":
         return fused_group_forces_reference(tree, gstart, gcount, src, bsq, **kw)
-    if device.type != "cuda":
-        raise ValueError(f"no fused Barnes-Hut kernel for device {device}")
-    if not 1 <= group_size <= MAX_GROUP_SIZE:
-        raise ValueError(f"group_size must be in [1, {MAX_GROUP_SIZE}] (the kernel "
-                         f"runs one thread per body), got {group_size}")
-    _check_kernel_inputs(tree, gstart, gcount, src, bsq, ld)
-
-    from nbody_tpu_torch.ops import _cuda
-
-    kernels = _cuda.library()
-    with torch.cuda.device(device):
-        err, out, stats = launch(
-            kernels.lib, tree, gstart, gcount, src, bsq, _cuda.stream_handle(device),
-            **kw,
-        )
-    if err != 0:
-        fcap = _round_cap(frontier_cap)
-        smem = kernels.lib.nbody_bh_fused_smem_bytes(int(group_size), fcap)
-        kernels.check(err, f"bh_fused kernel (group_size {group_size}, frontier "
-                           f"cap {fcap}: {smem} bytes of shared memory per block)")
+    out, stats = kernel_forces(torch.float32, tree, gstart, gcount, src, bsq, **kw)
     fused_group_forces.launches += 1
     return out, stats
 
@@ -197,17 +214,21 @@ def fused_group_forces_reference(
     group_size: int = MAX_GROUP_SIZE,
     frontier_cap: int = FRONTIER_CAP,
 ):
-    """The plain PyTorch version of K6: the same decisions in the same
-    arithmetic (each MAC operation rounded on its own, in src's dtype), the
-    same stats.  It walks all groups at once over a tensor of
-    (group, cell) frontier pairs, level by level, then evaluates each
-    group's sources in blocks so that memory stays bounded.  `group_size`
-    is taken for the kernel's signature; the groups' own counts rule."""
+    """The plain PyTorch version of K6 in both modes: the same decisions in
+    the same arithmetic, the same stats.  The MAC is f32, each operation
+    rounded on its own, on the f32-rounded centres of mass and bodies; the
+    evaluation is in src's dtype (f32, or f64 in the df mode).  It walks
+    all groups at once over a tensor of (group, cell) frontier pairs, level
+    by level, then evaluates each group's sources in blocks so that memory
+    stays bounded.  `group_size` is taken for the kernel's signature; the
+    groups' own counts rule."""
     del group_size
     device, dtype = src.device, src.dtype
+    f32 = torch.float32
     n, n_groups = src.shape[0], gstart.shape[0]
     fcap = _round_cap(frontier_cap)
-    theta_sq = torch.tensor(_theta_sq(theta, dtype), dtype=dtype, device=device)
+    theta_sq = torch.tensor(_theta_sq(theta), dtype=f32, device=device)
+    bsq = bsq.to(f32)
     off = grid_offsets(ld)
     stats = torch.zeros((n_groups, N_STATS), dtype=torch.int64, device=device)
     out = torch.zeros((n, 3), dtype=dtype, device=device)
@@ -222,9 +243,10 @@ def fused_group_forces_reference(
     slots = torch.arange(int(gc.max()), device=device)
     valid = slots[None, :] < gc[:, None]
     body = src[(gs[:, None] + slots).clamp(max=n - 1), :3]  # (L, B, 3)
-    inf = torch.tensor(float("inf"), dtype=dtype, device=device)
-    lo = torch.where(valid[..., None], body, inf).amin(dim=1)
-    hi = torch.where(valid[..., None], body, -inf).amax(dim=1)
+    body32 = body.to(f32)
+    inf = torch.tensor(float("inf"), dtype=f32, device=device)
+    lo = torch.where(valid[..., None], body32, inf).amin(dim=1)
+    hi = torch.where(valid[..., None], body32, -inf).amax(dim=1)
 
     fl = torch.arange(n_live, device=device)  # frontier: live-group index
     fc = torch.zeros(n_live, dtype=torch.int64, device=device)  # cell at level d
@@ -239,7 +261,8 @@ def fused_group_forces_reference(
         c = off[d + 1] + child
         cnt = tree.cnt[c].long()
         com = torch.stack([tree.cx[c], tree.cy[c], tree.cz[c]], dim=-1)  # (P, 8, 3)
-        dd = com - torch.minimum(torch.maximum(com, lo[fl][:, None]), hi[fl][:, None])
+        com32 = com.to(f32)
+        dd = com32 - torch.minimum(torch.maximum(com32, lo[fl][:, None]), hi[fl][:, None])
         sq = dd * dd
         d2 = sq[..., 0] + sq[..., 1] + sq[..., 2]
         exists = cnt > 0
@@ -307,7 +330,7 @@ class FusedInputs(NamedTuple):
     gstart: torch.Tensor  # (keep,) int32
     gcount: torch.Tensor  # (keep,) int32
     src: torch.Tensor  # (n, 4) sorted [x y z G·m]
-    bsq: torch.Tensor  # (ld + 2,) (border / 2^l)^2
+    bsq: torch.Tensor  # (ld + 2,) f32 (border / 2^l)^2
     ld: int
     group_size: int
     trimmed: torch.Tensor  # 0-dim: occupied groups cut by `keep`
@@ -324,9 +347,11 @@ def prepare_fused(
     border: torch.Tensor | None = None,
 ) -> FusedInputs:
     """Morton sort, dense grid and Morton groups for `pos`/`mass`
-    (``nbody_tpu/ops/bh_fused.py:1272-1327``), in f32, or in f64 for f64
-    bodies.  Checks the predicted device residency against the budget.  No
-    host sync."""
+    (``nbody_tpu/ops/bh_fused.py:1272-1327``), in f32, or for f64 bodies
+    in f64 (the df mode, ``nbody_tpu/ops/bh_fused_df.py:121-178``); bsq is
+    f32 in both, as the MAC is.  Checks the predicted device residency
+    against the budget (doubled in f64, as ``bh_fused_df.py:146-149``).
+    No host sync."""
     n = pos.shape[0]
     device = pos.device
     cdt = torch.float64 if pos.dtype == torch.float64 else torch.float32
@@ -347,13 +372,15 @@ def prepare_fused(
     g_max = group_capacity(n, b, sl, MORTON_DEPTH)
     budget = capacity.budget_bytes(device)
     keep = min(keep_groups or capacity.auto_keep(n, b, g_max, budget), g_max)
-    capacity.ensure_fits(capacity.estimate_fused_bytes(n, b, keep, ld),
-                         f"fused Barnes-Hut at n={n}", budget=budget)
+    est = capacity.estimate_fused_bytes(n, b, keep, ld)
+    if cdt == torch.float64:  # f64 sources and tables: twice the f32 bytes
+        est = {k: 2 * v for k, v in est.items()}
+    capacity.ensure_fits(est, f"fused Barnes-Hut at n={n}", budget=budget)
     gstart, gcount, _, _, trimmed = compact_groups(gstart, gcount, None, None, keep)
 
     src = torch.cat([pos_s, gm_s[:, None]], dim=1)
-    lev = torch.arange(ld + 2, dtype=cdt, device=device)
-    bsq = (border.to(cdt) / torch.exp2(lev)) ** 2
+    lev = torch.arange(ld + 2, dtype=torch.float32, device=device)
+    bsq = (border.to(torch.float32) / torch.exp2(lev)) ** 2
     return FusedInputs(perm, tree, gstart, gcount, src, bsq, ld, b, trimmed)
 
 
@@ -377,8 +404,10 @@ def barneshut_fused(
     signature), returned in pos's dtype.  Exact (not COM-merged) forces for
     clusters denser than the grid's terminal cells.
 
-    Computes in f32, or in f64 for f64 bodies (which the kernel refuses:
-    f64 needs ``group_forces=fused_group_forces_reference``).  `border`
+    Computes in f32, or for f64 bodies in the df mode (f64 evaluation,
+    f32 MAC), which needs a df evaluator: ``fused_group_forces_reference``
+    or ``bh_fused_df.fused_group_forces_df`` (the f32 kernel refuses f64;
+    ``bh_fused_df.barneshut_fused_df`` is the df entry point).  `border`
     overrides the root-cube size.  `group_forces` is the group evaluator:
     the K6 wrapper (default) or ``fused_group_forces_reference``
     (``--backend torch``, which must not launch the kernel on the card).

@@ -25,13 +25,14 @@ rect_accelerations_reference = rect_accelerations
 _INT_MAX = 2**31 - 1  # the kernels take sizes as C int
 
 
-def check_f32(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
-    """Raise unless `t` is a contiguous f32 tensor of `shape` on `device`
-    (-1 in `shape` matches any size)."""
+def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
+    `device` (-1 in `shape` matches any size)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dim() != len(shape) or any(
@@ -61,12 +62,12 @@ def cuda_rect_accelerations(
         raise ValueError("eps2_i and eps2_all must be given together")
     device = pos_i.device
     m, n = pos_i.shape[0], pos_j.shape[0]
-    check_f32("pos_i", pos_i, (-1, 3), device)
-    check_f32("pos_j", pos_j, (n, 3), device)
-    check_f32("mass_j", mass_j, (n,), device)
+    check_tensor("pos_i", pos_i, (-1, 3), device)
+    check_tensor("pos_j", pos_j, (n, 3), device)
+    check_tensor("mass_j", mass_j, (n,), device)
     if eps2_i is not None:
-        check_f32("eps2_i", eps2_i, (m,), device)
-        check_f32("eps2_all", eps2_all, (n,), device)
+        check_tensor("eps2_i", eps2_i, (m,), device)
+        check_tensor("eps2_all", eps2_all, (n,), device)
     if device.type == "cpu":
         return rect_accelerations_reference(
             pos_i, pos_j, mass_j, G=G, softening_sq=softening_sq,

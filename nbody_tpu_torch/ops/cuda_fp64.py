@@ -1,0 +1,115 @@
+"""fp64 all-pairs force and potential energy through hand-written CUDA
+kernels — counterpart of ``nbody_tpu/ops/pallas_df.py``.
+
+* ``cuda_rect_accelerations_f64`` / ``cuda_accelerations_f64`` wrap kernel
+  K4, ``nbody_tpu_torch/csrc/allpairs_f64.cu`` (which replaces the Pallas
+  ``_force_kernel``): softened fp64 accelerations, within 1e-12 of the
+  fp64 oracle (tests/test_pallas_df.py:47).
+* ``cuda_potential_energy_f64`` wraps kernel K5,
+  ``nbody_tpu_torch/csrc/potential_f64.cu`` (which replaces the Pallas
+  ``_pe_kernel``): the unsoftened PE with 1/r = 0 at r = 0, the full
+  symmetric sum halved.
+
+The TPU kernels reach fp64 grade with double-float f32 pairs because the
+TPU has no fp64 units; Hopper has them, so both kernels are native fp64.
+A CPU tensor goes to the plain version (``rect_accelerations`` and
+``potential_energy_reference``, which compute in the inputs' dtype); a
+CUDA tensor launches the kernel or raises.  Nothing falls back.  Each
+wrapper's ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nbody_tpu_torch.core import constants
+from nbody_tpu_torch.diag.energy import potential_energy_reference
+from nbody_tpu_torch.ops.cuda_exhaustive import check_tensor
+from nbody_tpu_torch.ops.exhaustive import rect_accelerations
+
+F64 = torch.float64
+
+
+def cuda_rect_accelerations_f64(
+    pos_i: torch.Tensor,
+    pos_j: torch.Tensor,
+    mass_j: torch.Tensor,
+    *,
+    G: float = constants.BIG_G,
+    softening_sq: float = constants.SOFTENING_SQ,
+) -> torch.Tensor:
+    """fp64 accelerations of pos_i (M, 3) targets against pos_j (N, 3) /
+    mass_j (N,) sources."""
+    device = pos_i.device
+    m, n = pos_i.shape[0], pos_j.shape[0]
+    check_tensor("pos_i", pos_i, (-1, 3), device, F64)
+    check_tensor("pos_j", pos_j, (n, 3), device, F64)
+    check_tensor("mass_j", mass_j, (n,), device, F64)
+    if device.type == "cpu":
+        return rect_accelerations(pos_i, pos_j, mass_j, G=G, softening_sq=softening_sq)
+    if device.type != "cuda":
+        raise ValueError(f"no fp64 all-pairs kernel for device {device}")
+
+    from nbody_tpu_torch.ops import _cuda
+
+    kernels = _cuda.library()
+    gm = G * mass_j  # G folded into the source weights in fp64 (pallas_df.py:305)
+    out = torch.empty((m, 3), dtype=F64, device=device)
+    with torch.cuda.device(device):
+        err = kernels.lib.nbody_allpairs_f64(
+            pos_i.data_ptr(), pos_j.data_ptr(), gm.data_ptr(), float(softening_sq),
+            m, n, out.data_ptr(), _cuda.stream_handle(device),
+        )
+    kernels.check(err, "fp64 allpairs kernel")
+    cuda_rect_accelerations_f64.launches += 1
+    return out
+
+
+cuda_rect_accelerations_f64.launches = 0
+
+
+def cuda_accelerations_f64(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    *,
+    G: float = constants.BIG_G,
+    softening_sq: float = constants.SOFTENING_SQ,
+) -> torch.Tensor:
+    """Square fp64 all-pairs accelerations (ForceFn signature)."""
+    return cuda_rect_accelerations_f64(pos, pos, mass, G=G, softening_sq=softening_sq)
+
+
+def cuda_potential_energy_f64(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    *,
+    G: float = constants.BIG_G,
+) -> torch.Tensor:
+    """Unsoftened PE of fp64 pos (N, 3) / mass (N,), as a 0-d fp64 tensor."""
+    device = pos.device
+    n = pos.shape[0]
+    check_tensor("pos", pos, (-1, 3), device, F64)
+    check_tensor("mass", mass, (n,), device, F64)
+    if device.type == "cpu":
+        return potential_energy_reference(pos, mass, G=G)
+    if device.type != "cuda":
+        raise ValueError(f"no fp64 potential-energy kernel for device {device}")
+
+    from nbody_tpu_torch.ops import _cuda
+
+    kernels = _cuda.library()
+    partials = torch.empty(
+        (kernels.lib.nbody_potential_f64_partials(n),), dtype=F64, device=device,
+    )
+    out = torch.empty((1,), dtype=F64, device=device)
+    with torch.cuda.device(device):
+        err = kernels.lib.nbody_potential_f64(
+            pos.data_ptr(), mass.data_ptr(), n, partials.data_ptr(),
+            out.data_ptr(), _cuda.stream_handle(device),
+        )
+    kernels.check(err, "fp64 potential-energy kernel")
+    cuda_potential_energy_f64.launches += 1
+    return G * out[0] * 0.5  # G and the 1/2 (pallas_df.py:434-435)
+
+
+cuda_potential_energy_f64.launches = 0

@@ -12,13 +12,19 @@ from conftest import DATA_DIR, random_cloud
 from nbody_tpu.cli.main import main as jax_main
 from nbody_tpu_torch.cli.main import (
     BH_AUTO_MIN_N,
+    build_force_fn,
     main,
     resolve_algo,
     resolve_backend,
 )
 from nbody_tpu_torch.core.types import Bodies
 from nbody_tpu_torch.io.csv import read_bodies, read_trajectory
+from nbody_tpu_torch.ops import bh_fused
 from nbody_tpu_torch.ops.bh_fused import barneshut_fused
+from nbody_tpu_torch.ops.bh_fused_df import barneshut_fused_df, fused_group_forces_df
+from nbody_tpu_torch.ops.cuda_exhaustive import cuda_accelerations
+from nbody_tpu_torch.ops.cuda_fp64 import cuda_accelerations_f64
+from nbody_tpu_torch.ops.exhaustive import exhaustive_accelerations
 from nbody_tpu_torch.utils.fixtures import write_fixture
 
 TEN = os.path.join(DATA_DIR, "10_bodies.csv")
@@ -211,19 +217,28 @@ def test_cli_capacity_probe_exits_3(tmp_path, capsys, flags, fix):
                  *flags, "--no-capacity-check"]) == 0
 
 
+def _routed(want, dtype, algo):
+    """The (function, group evaluator) the CLI builds for a backend."""
+    force = build_force_fn(want, 1.0, 0.01, algo, dtype=dtype)
+    return force.func, force.keywords.get("group_forces")
+
+
 @pytest.mark.parametrize("backend,device,dtype,want", [
     ("auto", "cuda", "f32", "cuda"),
     ("torch", "cuda", "f64", "torch"),
     ("auto", "cpu", "f64", "torch"),
-    ("auto", "cuda", "f64", "K6 df"),
-    ("cuda", "cuda", "f64", "bh_fused_df.py"),
+    ("auto", "cuda", "f64", "cuda"),
+    ("cuda", "cuda", "f64", "cuda"),
 ])
 def test_backend_routing_barnes_hut(backend, device, dtype, want):
-    if want in ("cuda", "torch"):
-        assert resolve_backend(backend, device, dtype, "barnes-hut") == want
-    else:
-        with pytest.raises(ValueError, match=want):
-            resolve_backend(backend, device, dtype, "barnes-hut")
+    """Both dtypes run on the card: f64 through K6's df mode
+    (barneshut_fused_df), with the df kernel or its plain version."""
+    assert resolve_backend(backend, device) == want
+    fn, group_forces = _routed(want, dtype, "barnes-hut")
+    assert fn is (barneshut_fused_df if dtype == "f64" else barneshut_fused)
+    kernels = {"f32": bh_fused.fused_group_forces, "f64": fused_group_forces_df}
+    assert group_forces is (kernels[dtype] if want == "cuda"
+                            else bh_fused.fused_group_forces_reference)
 
 
 @pytest.mark.parametrize("n,want", [(10, "exhaustive"), (32_768, "exhaustive"),
@@ -254,16 +269,20 @@ def test_cli_device_cuda_without_card_fails(tmp_path, capsys):
     ("auto", "cpu", "f64", "torch"),
     ("torch", "cuda", "f64", "torch"),
     ("cuda", "cuda", "f32", "cuda"),
-    ("auto", "cuda", "f64", "K4"),
-    ("cuda", "cuda", "f64", "K4"),
+    ("auto", "cuda", "f64", "cuda"),
+    ("cuda", "cuda", "f64", "cuda"),
     ("cuda", "cpu", "f32", "needs --device cuda"),
 ])
 def test_backend_routing(backend, device, dtype, want):
-    if want in ("cuda", "torch"):
-        assert resolve_backend(backend, device, dtype) == want
-    else:
+    """The exhaustive force: K1 in f32, K4 in f64, or the plain path."""
+    if want not in ("cuda", "torch"):
         with pytest.raises(ValueError, match=want):
-            resolve_backend(backend, device, dtype)
+            resolve_backend(backend, device)
+        return
+    assert resolve_backend(backend, device) == want
+    fn, _ = _routed(want, dtype, "exhaustive")
+    kernels = {"f32": cuda_accelerations, "f64": cuda_accelerations_f64}
+    assert fn is (kernels[dtype] if want == "cuda" else exhaustive_accelerations)
 
 
 def test_cli_sun_earth_f64_drift(capsys, tmp_path):

@@ -10,17 +10,26 @@ import numpy as np
 import pytest
 import torch
 
+from nbody_tpu_torch.cli.main import PE_KERNEL_MIN_N, main
 from nbody_tpu_torch.diag.energy import (
     cuda_potential_energy,
     get_energy,
     potential_energy_reference,
 )
-from nbody_tpu_torch.ops import bh_fused
+from nbody_tpu_torch.io.csv import read_trajectory
+from nbody_tpu_torch.ops import bh_fused, bh_fused_df
 from nbody_tpu_torch.ops.cuda_exhaustive import (
     cuda_accelerations,
     cuda_rect_accelerations,
     rect_accelerations_reference,
 )
+from nbody_tpu_torch.ops.cuda_fp64 import (
+    cuda_accelerations_f64,
+    cuda_potential_energy_f64,
+    cuda_rect_accelerations_f64,
+)
+from nbody_tpu_torch.ops.exhaustive import rect_accelerations
+from nbody_tpu_torch.utils.fixtures import random_cloud, write_fixture
 
 pytestmark = pytest.mark.cuda
 
@@ -136,3 +145,103 @@ def test_bh_fused_kernel_refuses_what_it_cannot_take(dev):
         bh_fused.barneshut_fused(pos, mass, group_size=2048)
     with pytest.raises(TypeError):
         bh_fused.barneshut_fused(pos.double(), mass.double())
+
+
+# ---- the fp64 kernels: K4, K5 and K6's df mode ----------------------------
+
+
+def _rel(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("m,n", [(4096, 4096), (3001, 257), (1, 1)])
+def test_allpairs_f64_kernel_matches_plain(dev, m, n):
+    """K4 within 1e-12 of its plain version (test_pallas_df.py:47), one
+    launch counted, bit-identical reruns."""
+    pos, mass = (t.double() for t in _cloud(max(m, n), dev, seed=m + 1))
+    pos[min(m, n) - 1] = pos[0]  # a coincident pair: the zero self-term
+    before = cuda_rect_accelerations_f64.launches
+    got = cuda_rect_accelerations_f64(pos[:m], pos[:n], mass[:n], G=0.7)
+    torch.cuda.synchronize()
+    assert cuda_rect_accelerations_f64.launches == before + 1
+    want = rect_accelerations(pos[:m], pos[:n], mass[:n], G=0.7)
+    assert got.dtype == torch.float64 and torch.isfinite(got).all()
+    if m > 1:
+        assert _rel(got, want) < 1e-12
+    else:
+        assert torch.equal(got, torch.zeros_like(got))
+    assert torch.equal(cuda_rect_accelerations_f64(pos[:m], pos[:n], mass[:n], G=0.7), got)
+
+
+def test_potential_f64_kernel_matches_plain(dev):
+    pos, mass = (t.double() for t in _cloud(20_000, dev, seed=9))
+    pos[1] = pos[0]  # a coincident pair: the r = 0 guard
+    before = cuda_potential_energy_f64.launches
+    got = cuda_potential_energy_f64(pos, mass, G=0.7)
+    assert cuda_potential_energy_f64.launches == before + 1
+    want = potential_energy_reference(pos, mass, G=0.7)
+    assert got.dtype == torch.float64
+    assert got.item() == pytest.approx(want.item(), rel=1e-13)
+    assert cuda_potential_energy_f64(pos, mass, G=0.7).item() == got.item()
+
+
+def test_fp64_kernels_refuse_f32_on_the_card(dev):
+    pos, mass = _cloud(8, dev)
+    with pytest.raises(TypeError):
+        cuda_accelerations_f64(pos, mass)
+    with pytest.raises(TypeError):
+        cuda_potential_energy_f64(pos, mass)
+
+
+@pytest.mark.parametrize("n,b,ld,leaf_cap", [(20_000, 1024, 0, 64),
+                                             (3001, 64, 3, 8),
+                                             (5000, 256, 4, 16),
+                                             (4000, 128, 8, 1)])
+def test_bh_fused_df_kernel_matches_plain(dev, n, b, ld, leaf_cap):
+    """K6's df mode against its plain version on the same f64 tables and
+    groups: equal stats, 1e-12 of the force scale, bit-identical reruns."""
+    pos, mass = (t.double() for t in _cloud(n, dev, seed=n))
+    fi = bh_fused.prepare_fused(pos, mass, ld=ld, group_size=b)
+    kw = dict(theta=0.5, eps2=0.01, leaf_cap=leaf_cap, ld=fi.ld, group_size=b)
+    args = (fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq)
+    before = bh_fused_df.fused_group_forces_df.launches
+    got, stats = bh_fused_df.fused_group_forces_df(*args, **kw)
+    torch.cuda.synchronize()
+    assert bh_fused_df.fused_group_forces_df.launches == before + 1
+    want, want_stats = bh_fused_df.fused_group_forces_df_reference(*args, **kw)
+    assert torch.equal(stats, want_stats)
+    assert int(stats[:, bh_fused.S_FAR].sum()) > 0
+    assert got.dtype == torch.float64 and _rel(got, want) < 1e-12
+    again, _ = bh_fused_df.fused_group_forces_df(*args, **kw)
+    assert torch.equal(got, again)
+
+
+def test_bh_fused_df_against_exact_forces(dev):
+    pos, mass = (t.double() for t in _cloud(50_000, dev, seed=5))
+    acc = bh_fused_df.barneshut_fused_df(pos, mass)
+    assert _rel(acc, cuda_accelerations_f64(pos, mass)) < 0.02  # test_bh_fused_df.py:226
+
+
+@pytest.mark.parametrize("algo,n", [("exhaustive", 60_000), ("barnes-hut", 5000),
+                                    ("auto", 40_000)])
+def test_cli_f64_runs_through_the_fp64_kernels(dev, tmp_path, capsys, algo, n):
+    """--dtype f64 on the card: K4 (and K5 at n >= 50,000) for the
+    all-pairs run, K6's df mode for Barnes-Hut; no f32 kernel launches."""
+    src, out = tmp_path / "in.csv", tmp_path / "o.csv"
+    write_fixture(str(src), random_cloud(n, seed=n))
+    counters = (cuda_rect_accelerations, cuda_potential_energy,
+                bh_fused.fused_group_forces, cuda_rect_accelerations_f64,
+                cuda_potential_energy_f64, bh_fused_df.fused_group_forces_df)
+    for c in counters:
+        c.launches = 0
+    assert main([str(src), "0", "0.002", "0.001", str(out), "--dtype", "f64",
+                 "--algo", algo, "--energy"]) == 0  # 2 steps
+    k1, k3, k6, k4, k5, k6df = (c.launches for c in counters)
+    assert (k1, k3, k6) == (0, 0, 0)
+    if algo == "exhaustive":
+        assert (k4, k5, k6df) == (3, 2, 0)
+    else:  # the capacity probe, then 3 evaluations
+        assert (k4, k5, k6df) == (0, 2 if n >= PE_KERNEL_MIN_N else 0, 4)
+    assert "backend: cuda" in capsys.readouterr().out
+    rows, n_out = read_trajectory(str(out))
+    assert n_out == n and np.isfinite(rows).all()

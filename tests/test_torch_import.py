@@ -37,6 +37,7 @@ def test_every_module_imports_clean_and_builds_nothing():
         "import nbody_tpu_torch.cli.main, nbody_tpu_torch.ops.cuda_exhaustive, "
         "nbody_tpu_torch.ops._cuda, nbody_tpu_torch.diag.energy, "
         "nbody_tpu_torch.ops.bh_fused, nbody_tpu_torch.ops.bh_grid, "
+        "nbody_tpu_torch.ops.bh_fused_df, nbody_tpu_torch.ops.cuda_fp64, "
         "nbody_tpu_torch.ops.morton, nbody_tpu_torch.ops.barneshut, "
         "nbody_tpu_torch.core.capacity, nbody_tpu_torch.utils.fixtures, "
         "nbody_tpu_torch.integrate.leapfrog, nbody_tpu_torch.io.csv, "

@@ -22,6 +22,7 @@ from conftest import random_cloud
 from nbody_tpu_torch.diag.energy import potential_energy_reference
 from nbody_tpu_torch.ops import _cuda, bh_fused
 from nbody_tpu_torch.ops.cuda_exhaustive import rect_accelerations_reference
+from nbody_tpu_torch.ops.exhaustive import rect_accelerations
 
 # Stands in for <cuda_runtime.h> when the .cu sources are built with g++.
 EMU_HEADER = r"""// CPU emulation of the CUDA features the port's kernels use.  Each CUDA
@@ -29,7 +30,7 @@ EMU_HEADER = r"""// CPU emulation of the CUDA features the port's kernels use.  
 // `static` stands in for __shared__ and one buffer per launch for `extern
 // __shared__`; __syncthreads is a barrier over the block.
 // It checks the kernels' indexing, masking and reductions, not the card's
-// arithmetic: rsqrtf here is 1/sqrt, and nothing is timed.
+// arithmetic: rsqrtf and rsqrt here are 1/sqrt, and nothing is timed.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -56,6 +57,7 @@ struct dim3 {
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, sizeof f); return f; }
 // round-to-nearest single operations: plain operators (g++ does not contract
 // them into FMAs for the x86-64 baseline)
@@ -145,6 +147,10 @@ def emu(tmp_path_factory):
 
 def _f32(a):
     return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32)
+
+
+def _f64(a):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64)
 
 
 def _emu_allpairs(lib, pos_i, pos_j, mass_j, eps2, eps2_i=None, eps2_j=None):
@@ -257,3 +263,64 @@ def test_bh_fused_kernel_source(emu, name):
     scale = want.abs().max().item()
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale,
                                rtol=2e-4)
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (137, 300), (300, 517)])
+def test_allpairs_f64_kernel_source(emu, m, n):
+    """K4 within 1e-12 of its plain version (test_pallas_df.py:47), with a
+    target coincident with a source (the zero self-term)."""
+    arr = random_cloud(max(m, n), seed=m + n)
+    pos_i, pos_j, mass_j = _f64(arr[:m, :3]), _f64(arr[:n, :3]), _f64(arr[:n, 6])
+    out = torch.full((m, 3), float("nan"), dtype=torch.float64)
+    gm = 0.7 * mass_j  # G folded in, as the wrapper does
+    assert emu.nbody_allpairs_f64(pos_i.data_ptr(), pos_j.data_ptr(), gm.data_ptr(),
+                                  0.01, m, n, out.data_ptr(), None) == 0
+    want = rect_accelerations(pos_i, pos_j, mass_j, G=0.7)
+    scale = want.abs().max().item()
+    assert (out - want).abs().max().item() <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("n", [1, 255, 700])
+def test_potential_f64_kernel_source(emu, n):
+    """K5 within 1e-13 of its plain version, with a coincident pair
+    exercising the r = 0 guard; reruns are bit-identical."""
+    arr = random_cloud(n, seed=n)
+    if n > 2:
+        arr[1, :3] = arr[0, :3]
+    pos, mass = _f64(arr[:, :3]), _f64(arr[:, 6])
+    results = []
+    for _ in range(2):
+        partials = torch.zeros(emu.nbody_potential_f64_partials(n), dtype=torch.float64)
+        out = torch.full((1,), float("nan"), dtype=torch.float64)
+        assert emu.nbody_potential_f64(pos.data_ptr(), mass.data_ptr(), n,
+                                       partials.data_ptr(), out.data_ptr(), None) == 0
+        results.append(0.5 * out.item())  # G = 1 and the 1/2 the wrapper applies
+    want = potential_energy_reference(pos, mass).item()
+    assert results[0] == results[1]
+    assert results[0] == pytest.approx(want, rel=1e-13, abs=1e-300)
+
+
+@pytest.mark.parametrize("name", ["uniform", "cluster", "overflow"])
+def test_bh_fused_df_kernel_source(emu, name):
+    """K6's df mode (two bodies per thread) against its plain version on the
+    same f64 tables and groups: equal stats lanes, accelerations within
+    1e-12 of the force scale."""
+    pos, mass, b, ld, leaf_cap, fcap = _bh_case(name)
+    fi = bh_fused.prepare_fused(_f64(pos), _f64(mass), ld=ld, group_size=b)
+    assert fi.src.dtype == fi.tree.cx.dtype == torch.float64
+    assert fi.bsq.dtype == torch.float32
+    kw = dict(theta=0.5, eps2=0.01, leaf_cap=leaf_cap, ld=ld, group_size=b,
+              frontier_cap=fcap)
+    err, got, stats = bh_fused.launch(emu, fi.tree, fi.gstart, fi.gcount,
+                                      fi.src, fi.bsq, None, **kw)
+    assert err == 0 and got.dtype == torch.float64
+    want, want_stats = bh_fused.fused_group_forces_reference(
+        fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq, **kw)
+    np.testing.assert_array_equal(stats.numpy(), want_stats.numpy())
+    if name == "uniform":
+        assert int(stats[:, bh_fused.S_FAR].sum()) > 0
+    if name == "overflow":
+        assert int(stats[:, bh_fused.S_OVF].max()) > 128
+        return
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-12 * scale
