@@ -6,8 +6,10 @@
 It drives the port's paths through the hand-written CUDA kernels and
 checks them: the default all-pairs CLI run (100k bodies x 10 KDK steps in
 f32 with --energy), the fused Barnes-Hut run (--algo auto at 1M bodies, 5
-KDK steps, f32, --energy), and both again with --dtype f64.  Phases (each
-raises on failure, so the script exits non-zero and prints no result):
+KDK steps, f32, --energy), both again with --dtype f64, and the list-based
+Barnes-Hut run (--bh-traversal flat at 1M bodies, 5 KDK steps, f32 and
+f64).  Phases (each raises on failure, so the script exits non-zero and
+prints no result):
 
 1. card and build: nvidia-smi's name and power limit, nvcc's version, the
    kernels built from nbody_tpu_torch/csrc/*.cu for sm_90a and the build
@@ -49,7 +51,25 @@ raises on failure, so the script exits non-zero and prints no result):
     over 5 steps, counters reset just before and read just after; the df
     forces against K4's exact ones; s/step beside the f32 run's;
 17. the fp64 sun-earth run (SI units, 8640 steps) through K4: drift;
-18. fp64 kernel times beside the plain versions, and f64 s/step at 100k.
+18. fp64 kernel times beside the plain versions, and f64 s/step at 100k;
+19. the group x interaction-list kernel (K7, both entry points) against its
+    plain version on the lists the flat traversal builds: f32 at 100k and
+    1M, fp64 at 100k and 1M; bit-identical reruns; issued thread-pairs;
+20. the list path (barneshut_accelerations, flat) against [8]'s exact
+    forces at 1M; the padded traversal against flat at 100k, and at 1M if
+    its capacity probe fits;
+21. the list-path main path: --algo barnes-hut --bh-traversal flat
+    --energy --write-every 5 at 1M over 5 steps, counters reset just
+    before and read just after; drift and final positions against [10]'s
+    exhaustive run (a probe that overflows is rerun with the value it
+    prescribes);
+22. the same run with --dtype f64 through K7's fp64 entry point; its forces
+    against K4's exact ones;
+23. K7 and its plain version timed at 100k and 1M, one 1M list-path
+    evaluation split into sort+tree+groups, traversal, K7 and scatter, a
+    torch.profiler trace of one evaluation (device busy share, kernel
+    launches, the costliest kernels), and --no-output s/step at 1M in
+    turns flat, fused, fused, flat (and padded where it fits).
 
 Then one JSON line describing the kernels, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
@@ -255,6 +275,326 @@ def load_frames(path: str, n: int, frames: int = STEPS + 1) -> np.ndarray:
     frames = rows.reshape(frames, n, 5)
     check(bool((frames[:, :, 0] == np.arange(n)).all()), f"{path}: body ids")
     return frames
+
+
+def run_cli_rc(argv: list[str]) -> tuple[int, str, str]:
+    """Run the port's CLI in-process; echo and return (exit code, stdout,
+    stderr)."""
+    from nbody_tpu_torch.cli.main import main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    for label, buf in (("|", out), ("!", err)):
+        if buf.getvalue():
+            print(f"  {label} " + buf.getvalue().rstrip().replace("\n", f"\n  {label} "))
+    return rc, out.getvalue(), err.getvalue()
+
+
+def timed_once(torch, fn):
+    """(result, device ms) of one call of `fn`, with CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def lists_work(gl, real_bytes: int) -> tuple[float, float, float, float]:
+    """(bytes, operations, real pairs, issued thread-pairs) of one K7 call
+    on these lists: each group's list rows up to its length read once, the
+    slot positions read once and the accelerations written once, the
+    lengths read once; one pair per (real body, list row up to the
+    length); the kernel issues ceil(B / 256) * 256 threads per group, each
+    running the group's length."""
+    n_groups, b, _ = gl.pg.shape
+    lengths = gl.lengths.double()
+    count = gl.group_valid.sum(1).double()
+    rows = float(lengths.sum().item())
+    pairs = float((count * lengths).sum().item())
+    issued = float(-(-b // 256) * 256) * rows
+    nbytes = rows * 4 * real_bytes + 2 * n_groups * b * 3 * real_bytes + n_groups * 4
+    return nbytes, pairs * FORCE_OPS, pairs, issued
+
+
+def list_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str, exact1m,
+                frames_ex, drift_ex: float, drift_bh32: float) -> list[dict]:
+    """Phases [19]-[23]: K7 and the list-based Barnes-Hut path.  Returns
+    K7's entries of the JSON line."""
+    from nbody_tpu_torch.core.types import Bodies
+    from nbody_tpu_torch.diag.energy import cuda_potential_energy
+    from nbody_tpu_torch.ops import barneshut, bh_fused, bh_fused_df, cuda_lists
+    from nbody_tpu_torch.ops.cuda_exhaustive import cuda_rect_accelerations
+    from nbody_tpu_torch.ops.cuda_fp64 import (
+        cuda_accelerations_f64,
+        cuda_potential_energy_f64,
+        cuda_rect_accelerations_f64,
+    )
+
+    f32, f64 = torch.float32, torch.float64
+    n = arr.shape[0]
+    bodies = {(n, f32): Bodies.from_numpy(arr, dtype=f32, device=dev),
+              (BH_N, f32): Bodies.from_numpy(arr1m, dtype=f32, device=dev),
+              (n, f64): Bodies.from_numpy(arr, dtype=f64, device=dev),
+              (BH_N, f64): Bodies.from_numpy(arr1m, dtype=f64, device=dev)}
+    wrappers = {f32: cuda_lists.eval_lists, f64: cuda_lists.eval_lists_f64}
+
+    # 19. K7 against its plain version on the flat traversal's lists
+    print("[19] group x interaction-list kernel K7 (nbody_tpu_torch/csrc/group_lists.cu)")
+    k7 = {}  # (n, dtype) -> (group lists, max |err|, plain ms)
+    for (nb, dtype), bd in bodies.items():
+        gl = barneshut.group_lists(bd.pos, bd.mass)
+        st = [int(x) for x in gl.stats]
+        need = st[0]
+        print(f"  n={nb} {dtype}: {gl.pg.shape[0]} group slots, B {gl.pg.shape[1]}, "
+              f"{int((gl.lengths > 1).sum())} groups with lists > 1 row, stats "
+              f"(list, frontier excess, ranges excess, terminal COM) {st}")
+        check(st[1] == 0 and st[2] == 0, "flat traversal frontier and stores fit")
+        if need > gl.lists.shape[1]:
+            print(f"  lists need {need} rows, over the default 16384: rebuilt with "
+                  f"list_size={need}")
+            gl = barneshut.group_lists(bd.pos, bd.mass, list_size=need)
+        wrap = wrappers[dtype]
+        got = wrap(gl.pg, gl.lists, gl.lengths, eps2=0.01)
+        want, plain_ms = timed_once(torch, lambda: barneshut.eval_lists_reference(
+            gl.pg, gl.lists, gl.lengths, eps2=0.01))
+        what = f"n={nb}, M {gl.lists.shape[1]}"
+        if dtype == f32:
+            err = f32_close(torch, got, want, what)
+        else:
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            print(f"  {what}: max |err| {err:.3e}, force scale {scale:.4e}, rel "
+                  f"{err / scale:.3e} (bound {F64_BOUND:g})")
+            check(err <= F64_BOUND * scale and bool(torch.isfinite(got).all()),
+                  "K7 fp64 against its plain version")
+        check(torch.equal(wrap(gl.pg, gl.lists, gl.lengths, eps2=0.01), got),
+              "K7 reruns are bit-identical")
+        _, _, pairs, issued = lists_work(gl, 4)
+        jax_grid = float(gl.pg.shape[0] * gl.pg.shape[1] * gl.lists.shape[1])
+        print(f"  two kernel runs bit-identical: True; real pairs {pairs:.4e}, issued "
+              f"thread-pairs {issued:.4e}, JAX's grid G*B*M {jax_grid:.4e}; plain "
+              f"version one run {plain_ms:.4f} ms [{card}]")
+        k7[nb, dtype] = (gl, err, plain_ms)
+    list_1m = k7[BH_N, f32][0].lists.shape[1]
+
+    # 20. the list path against exact forces at 1M; padded against flat
+    print(f"[20] barneshut_accelerations (flat, K7) against exact all-pairs forces, "
+          f"{BH_N} bodies")
+    b1m = bodies[BH_N, f32]
+    acc, stats = barneshut.barneshut_accelerations(b1m.pos, b1m.mass, list_size=list_1m,
+                                                   return_stats=True)
+    torch.cuda.synchronize()
+    print(f"  BHStats: {dict((k, int(v)) for k, v in stats.traverse._asdict().items())}, "
+          f"list capacity {stats.list_capacity}, frontier capacity "
+          f"{stats.frontier_capacity}, range capacity {stats.range_capacity}; "
+          f"overflowed {stats.overflowed()}")
+    check(not stats.overflowed(), "the flat traversal fits at 1M")
+    dlist = (acc - exact1m).abs().max().item()
+    rel = dlist / exact1m.abs().max().item()
+    med = ((acc - exact1m).norm(dim=1) / exact1m.norm(dim=1)).median().item()
+    print(f"  max |a - exact| / max |a| = {rel:.4e} (bound {BH_BOUND}); median "
+          f"|a - exact| / |exact| = {med:.4e}; max |a - exact| {dlist:.4e}")
+    check(rel < BH_BOUND and bool(torch.isfinite(acc).all()),
+          "the list path within 0.02 of exact forces at 1M")
+    padded_default_fits = {}  # n -> whether the padded probe fits the defaults
+    for nb in (n, BH_N):
+        bd = bodies[nb, f32]
+        kw = {"list_size": list_1m}
+        for attempt in range(4):
+            check(attempt < 3, "the padded probe fits the sizes it prescribes")
+            try:
+                barneshut.check_capacities(bd.pos, bd.mass, traversal="padded", **kw)
+                break
+            except barneshut.CapacityError as e:
+                # a finding, not a failure: run with the sizes it names
+                print(f"  padded at n={nb}, {kw}: the probe overflows: {e}")
+                for key in ("list_size", "frontier_size", "range_size"):
+                    m = re.search(key + r"=(\d+)", str(e))
+                    if m:
+                        kw[key] = int(m.group(1))
+        padded_default_fits[nb] = kw == {"list_size": list_1m}
+        print(f"  padded at n={nb}: runs with {kw} (the defaults fit: "
+              f"{padded_default_fits[nb]})")
+        a_pad = barneshut.barneshut_accelerations(bd.pos, bd.mass, traversal="padded", **kw)
+        a_flat = (acc if nb == BH_N else
+                  barneshut.barneshut_accelerations(bd.pos, bd.mass, list_size=list_1m))
+        scale = a_flat.abs().max().item()
+        d = (a_pad - a_flat).abs().max().item() / scale
+        print(f"  padded against flat at n={nb}: max |diff| / force scale {d:.4e} "
+              "(bound 2e-3, tests/test_barneshut.py:195)")
+        check(d < 2e-3 and bool(torch.isfinite(a_pad).all()), "padded agrees with flat")
+
+    # 21. the list-path main path
+    print(f"[21] list-path main path: {BH_N} bodies x {BH_STEPS} KDK steps, --algo "
+          "barnes-hut --bh-traversal flat, f32, --energy, --write-every 5")
+    out_l = os.path.join(tmp, "list.csv")
+    argv = [csv1m, *BH_WINDOW, out_l, "--energy", "--write-every", "5", "--algo",
+            "barnes-hut", "--bh-traversal", "flat"]
+    counters = (cuda_lists.eval_lists, cuda_lists.eval_lists_f64,
+                bh_fused.fused_group_forces, bh_fused_df.fused_group_forces_df,
+                cuda_rect_accelerations, cuda_rect_accelerations_f64,
+                cuda_potential_energy, cuda_potential_energy_f64)
+
+    def main_path(argv):
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, text, err = run_cli_rc(argv)
+        torch.cuda.synchronize()
+        return rc, text, err, time.perf_counter() - t0, [c.launches for c in counters]
+
+    rc, text, err, wall, launches = main_path(argv)
+    flag = []
+    if rc == 3:
+        m = re.search(r"--bh-list-size (\d+)", err)
+        check(m is not None, "the overflowing probe names the list size that fits")
+        flag = ["--bh-list-size", m.group(1)]
+        print(f"  the probe exits 3 with the default capacities; rerun with "
+              f"{' '.join(flag)} (a finding)")
+        rc, text, err, wall, launches = main_path([*argv, *flag])
+    check(rc == 0, f"CLI exit code {rc}")
+    k7_l, k7_64, k6_l, k6df_l, k1_l, k4_l, k3_l, k5_l = launches
+    print(f"  launches: K7 {k7_l} (want {BH_STEPS + 2}: probe + {BH_STEPS + 1} "
+          f"evaluations), potential {k3_l} (want 2), K6 {k6_l}, all-pairs {k1_l}, "
+          f"fp64 kernels {k7_64 + k6df_l + k4_l + k5_l} (want 0); whole CLI call "
+          f"{wall:.4f} s")
+    check("Algorithm: barnes-hut, backend: cuda, dtype: f32" in text,
+          "--bh-traversal flat took the list path on the kernel backend")
+    check(k7_l == BH_STEPS + 2 and k3_l == 2, "K7 / K3 launches")
+    check(k6_l == k6df_l == k1_l == k4_l == k7_64 == k5_l == 0, "no other kernel")
+    frames_l = load_frames(out_l, BH_N, frames=2)
+    drift_l = cli_number(text, "Relative energy drift:")
+    t_bh = BH_STEPS * BH_DT
+    pos_bound = dlist * t_bh * t_bh + 2e-6
+    dpos = float(np.abs(frames_l[-1, :, 1:4] - frames_ex[-1, :, 1:4]).max())
+    print(f"  final positions against the exhaustive run's ([10]) max |diff| {dpos:.3e} "
+          f"(bound max|da| T^2 + 2e-6 = {pos_bound:.3e}); drift list path "
+          f"{drift_l:.6e} vs exhaustive {drift_ex:.6e}, |diff| "
+          f"{abs(drift_l - drift_ex):.3e} (bound 1e-3); fused ([9]) {drift_bh32:.6e}")
+    check(dpos < pos_bound, "final positions agree with the exhaustive run")
+    check(abs(drift_l - drift_ex) < 1e-3, "drift agrees with the exhaustive run")
+
+    # 22. the f64 list path
+    print(f"[22] f64 list path: {BH_N} bodies x {BH_STEPS} KDK steps, --dtype f64 "
+          "--bh-traversal flat --energy --write-every 5")
+    out_l64 = os.path.join(tmp, "list64.csv")
+    rc, text, err, wall, launches = main_path(
+        [csv1m, *BH_WINDOW, out_l64, "--energy", "--write-every", "5", "--algo",
+         "barnes-hut", "--bh-traversal", "flat", "--dtype", "f64", *flag])
+    check(rc == 0, f"CLI exit code {rc}")
+    k7_32, k7_64_l, k6_l, k6df_l, k1_l, k4_l, k3_l, k5_l = launches
+    print(f"  launches: K7 fp64 {k7_64_l} (want {BH_STEPS + 2}), fp64 potential {k5_l} "
+          f"(want 2), K7 f32 {k7_32}, K6 {k6_l}, K6 df {k6df_l}, all-pairs {k1_l + k4_l}, "
+          f"f32 potential {k3_l} (want 0); whole CLI call {wall:.4f} s")
+    check("Algorithm: barnes-hut, backend: cuda, dtype: f64" in text,
+          "the f64 list path took the kernel backend")
+    check(k7_64_l == BH_STEPS + 2 and k5_l == 2, "K7 fp64 / K5 launches")
+    check(k7_32 == k6_l == k6df_l == k1_l == k4_l == k3_l == 0, "no other kernel")
+    load_frames(out_l64, BH_N, frames=2)
+    drift_l64 = cli_number(text, "Relative energy drift:")
+    print(f"  drift f64 {drift_l64:.6e} against the f32 list run's {drift_l:.6e}, |diff| "
+          f"{abs(drift_l64 - drift_l):.3e} (bound 1e-3)")
+    check(abs(drift_l64 - drift_l) < 1e-3, "f64 and f32 list-path drifts agree")
+    b1m64 = bodies[BH_N, f64]
+    acc64 = barneshut.barneshut_accelerations(b1m64.pos, b1m64.mass, list_size=list_1m)
+    exact64 = cuda_accelerations_f64(b1m64.pos, b1m64.mass)
+    torch.cuda.synchronize()
+    rel64 = (acc64 - exact64).abs().max().item() / exact64.abs().max().item()
+    print(f"  barneshut_accelerations f64 against K4's exact forces: max |a - exact| / "
+          f"max |a| = {rel64:.4e} (bound {BH_BOUND}; f32 {rel:.4e})")
+    check(rel64 < BH_BOUND and bool(torch.isfinite(acc64).all()),
+          "f64 list path within 0.02 of exact forces at 1M")
+    del acc64, exact64
+
+    # 23. timing
+    print(f"[23] list-path timing on {card}")
+    ms = {}
+    for (nb, dtype), (gl, _, plain_ms) in k7.items():
+        wrap = wrappers[dtype]
+        ms[nb, dtype] = cuda_ms(torch, lambda: wrap(gl.pg, gl.lists, gl.lengths,
+                                                    eps2=0.01), 10)
+        _, _, pairs, issued = lists_work(gl, 4)
+        print(f"  K7 {'f32' if dtype == f32 else 'fp64'} at n={nb}: kernel "
+              f"{ms[nb, dtype]:.4f} ms ({issued / ms[nb, dtype] / 1e-3:.4e} issued "
+              f"thread-pairs/s, {pairs / ms[nb, dtype] / 1e-3:.4e} real pairs/s), "
+              f"plain {plain_ms:.4f} ms (one run) [{card}]")
+    kw = dict(list_size=list_1m)
+    gs, sl, lc, depth = barneshut.list_layout(BH_N, 9, 0, 0)
+    prep = barneshut._prepare(b1m.pos, b1m.mass, depth, gs, sl)
+    _, perm, levels, border, pos_s, mass_s, gidx, gval, pg, lo, hi = prep
+    gm_s = mass_s * 1.0
+    trav = dict(G=1.0, theta=0.5, leaf_cap=lc, frontier_size=1024, range_size=1024,
+                list_size=list_1m, traversal="flat")
+    lists, lengths, _ = barneshut.traverse_groups(levels, border, pos_s, gm_s, lo, hi,
+                                                  **trav)
+    acc_g = cuda_lists.eval_lists(pg, lists, lengths, eps2=0.01)
+    prep_ms = cuda_ms(torch, lambda: barneshut._prepare(b1m.pos, b1m.mass, depth, gs, sl),
+                      10)
+    trav_ms = cuda_ms(torch, lambda: barneshut.traverse_groups(
+        levels, border, pos_s, gm_s, lo, hi, **trav), 10)
+    scat_ms = cuda_ms(torch, lambda: barneshut.scatter_groups(acc_g, gidx, gval, perm), 10)
+    whole_ms = cuda_ms(torch, lambda: barneshut.barneshut_accelerations(
+        b1m.pos, b1m.mass, **kw), 10)
+    k7_1m = ms[BH_N, f32]
+    print(f"  barneshut_accelerations (flat) at {BH_N}: whole {whole_ms:.4f} ms = "
+          f"sort+tree+groups {prep_ms:.4f} ms + traversal {trav_ms:.4f} ms + K7 "
+          f"{k7_1m:.4f} ms + scatter {scat_ms:.4f} ms (parts timed apart); traversal "
+          f"share {trav_ms / (prep_ms + trav_ms + k7_1m + scat_ms):.3f} [{card}]")
+    del prep, levels, lists, acc_g
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    barneshut.barneshut_accelerations(b1m.pos, b1m.mass, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        barneshut.barneshut_accelerations(b1m.pos, b1m.mass, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # the kernels' own rows: an operator's row repeats its kernels' time
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:3]
+    print(f"  profile of one list-path evaluation at {BH_N}: wall {wall_ms:.4f} ms "
+          f"(profiled), kernels {device_ms:.4f} ms on the device, busy share "
+          f"{device_ms / wall_ms:.3f}, {launches} kernel launches; top: "
+          + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.4f} ms"
+                      for e in top) + f" [{card}]")
+    turns = ["flat", "fused", "fused", "flat"]
+    if padded_default_fits[BH_N]:  # the CLI has no flag for the padded sizes
+        turns.append("padded")
+    for trav_name in turns:
+        rc, text, _ = run_cli_rc([csv1m, *BH_WINDOW, os.path.join(tmp, "x.csv"),
+                                  "--no-output", "--algo", "barnes-hut",
+                                  "--bh-traversal", trav_name,
+                                  *(flag if trav_name != "fused" else [])])
+        check(rc == 0, f"--bh-traversal {trav_name} --no-output exit code {rc}")
+        sim = cli_number(text, "Elapsed wall time:")
+        print(f"  {BH_N} --no-output --bh-traversal {trav_name}: simulate {sim:.4f} s "
+              f"-> {sim / BH_STEPS:.4f} s/step [{card}]")
+
+    entries = []
+    for dtype, name, launches_main in ((f32, "group_lists_f32", k7_l),
+                                       (f64, "group_lists_f64", k7_64_l)):
+        gl, err, plain_ms = k7[BH_N, dtype]
+        real = 4 if dtype == f32 else 8
+        nbytes, ops, _, _ = lists_work(gl, real)
+        bd = bound(nbytes, ops, FP32_PEAK if dtype == f32 else FP64_PEAK)
+        entries.append(
+            {"name": name, "route": "cuda", "source": "nbody_tpu_torch/csrc/group_lists.cu",
+             "replaces": "nbody_tpu/ops/barneshut.py:52", "launches": launches_main,
+             "max_abs_err": err, "ms": ms[BH_N, dtype], "plain_ms": plain_ms,
+             "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None})
+        print(f"  K7 {name} at {BH_N}: bound {bd[0]:.4f} ms ({bd[1]}), "
+              f"{ms[BH_N, dtype] / bd[0]:.2f}x the bound")
+    return entries
 
 
 def fp64_forces(targets, pos, mass, G: float = 1.0, eps2: float = 0.01) -> np.ndarray:
@@ -803,6 +1143,8 @@ def main() -> int:
                   f"[{card}]")
 
         fp64_kernels = fp64_phases(torch, dev, card, arr, arr1m, csv1m, tmp, drift_bh)
+        list_kernels = list_phases(torch, dev, card, arr, arr1m, csv1m, tmp, exact,
+                                   frames_ex, drift_ex, drift_bh)
 
     small = (2 * n * 3 + n + n * 3) * 4  # pos_i, pos_j, mass, out (f32)
     k1_bound = bound(small, pairs * FORCE_OPS, FP32_PEAK)
@@ -828,6 +1170,7 @@ def main() -> int:
          "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
          "bound_by": k6_bound[1], "library_ms": None},
         *fp64_kernels,
+        *list_kernels,
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,13 @@ counterpart in its docstring.
 
 Ported so far: the default all-pairs CLI run (``--algo exhaustive``), with
 the force kernel (``ops/cuda_exhaustive.py``) and the potential-energy
-kernel (``diag/energy.py``); and the fused Barnes-Hut run (``--algo
-barnes-hut``, or ``auto`` above 32,768 bodies, f32 on the card), with the
-traverse-and-evaluate kernel (``ops/bh_fused.py``).
+kernel (``diag/energy.py``); the fused Barnes-Hut run (``--algo
+barnes-hut``, or ``auto`` above 32,768 bodies), with the
+traverse-and-evaluate kernel (``ops/bh_fused.py``); the list-based
+Barnes-Hut run (``--bh-traversal flat|padded``, and ``auto`` with
+``--backend torch``), with the group x interaction-list kernel
+(``ops/barneshut.py``, ``ops/cuda_lists.py``); and ``--dtype f64`` for
+all of them, through native fp64 kernels.
 
 The names below are re-exported lazily: importing the package imports
 neither jax nor triton and builds no kernel.
@@ -28,6 +32,7 @@ _EXPORTS = {
     "exhaustive_accelerations": "nbody_tpu_torch.ops.exhaustive",
     "cuda_accelerations": "nbody_tpu_torch.ops.cuda_exhaustive",
     "barneshut_fused": "nbody_tpu_torch.ops.bh_fused",
+    "barneshut_accelerations": "nbody_tpu_torch.ops.barneshut",
     "leapfrog_steps": "nbody_tpu_torch.integrate.leapfrog",
     "simulate": "nbody_tpu_torch.integrate.leapfrog",
     "get_energy": "nbody_tpu_torch.diag.energy",

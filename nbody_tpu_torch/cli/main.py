@@ -8,27 +8,34 @@ JAX CLI's ``Pair interactions/sec`` line.
 
 Routing:
 
-* ``--algo exhaustive`` is all-pairs; ``--algo barnes-hut`` the fused
-  Barnes-Hut traversal (``ops/bh_fused.py``); ``--algo auto`` takes
-  Barnes-Hut above 32,768 bodies and exhaustive otherwise
-  (cli/main.py:356-357).
+* ``--algo exhaustive`` is all-pairs; ``--algo barnes-hut`` is Barnes-Hut;
+  ``--algo auto`` takes Barnes-Hut above 32,768 bodies and exhaustive
+  otherwise (cli/main.py:356-357).
 * ``--backend cuda`` is the hand-written kernel and ``--backend torch``
   the plain PyTorch path: the counterparts of ``pallas`` (or
   ``pallas-df`` in f64) and ``jnp``.  ``auto`` takes ``cuda`` on the card
-  and ``torch`` on the CPU.  The kernels: in f32, K1
-  (``ops/cuda_exhaustive.py``) or K6 (``ops/bh_fused.py``); with
-  ``--dtype f64``, the fp64 all-pairs kernel K4 (``ops/cuda_fp64.py``) or
-  K6's df mode (``ops/bh_fused_df.py``: fp64 evaluation, f32 MAC), as
-  cli/main.py:395-457 and :532-548.  ``--backend torch --dtype f64``
-  takes the same df decision rule through K6's plain version.
-* Barnes-Hut options that are not ported exit 2 and name what is missing:
-  ``--bh-traversal flat|padded`` (K7), ``--bh-robust`` when it is on or
-  ``auto`` resolves to on (the robust hybrid), ``--resort-every`` (the
-  persistent layout) and ``--timers``.  None runs another computation in
-  its place.
-* Barnes-Hut runs a startup capacity probe (one extra force evaluation,
-  ``check_fused``) unless ``--no-capacity-check``; an overflow exits 3
-  with the flag value that fits.
+  and ``torch`` on the CPU.
+* ``--bh-traversal`` picks the Barnes-Hut engine as cli/main.py:492-501:
+  ``fused`` is the fused traversal (``ops/bh_fused.py``, K6, or its df
+  mode in f64), ``flat`` and ``padded`` the list-based path
+  (``ops/barneshut.py``, whose evaluator is K7, ``ops/cuda_lists.py``).
+  ``auto`` is fused with ``cuda`` and flat with ``torch``, as JAX's auto
+  is fused with ``pallas`` and flat with ``jnp``.
+* The all-pairs kernels: K1 (``ops/cuda_exhaustive.py``) in f32, K4
+  (``ops/cuda_fp64.py``) with ``--dtype f64``.  ``--backend torch --dtype
+  f64`` takes the same decision rules through the plain versions.
+* Options that are not ported exit 2 and name what is missing:
+  ``--bh-robust`` on the fused traversal when it is on or ``auto``
+  resolves to on (the robust hybrid), ``--resort-every`` on the fused
+  traversal (the persistent layout) and ``--timers``.  None runs another
+  computation in its place.  On a list traversal ``--bh-robust`` and
+  ``--resort-every`` do nothing in JAX either: the port prints JAX's note
+  or warning and runs.
+* Barnes-Hut runs a startup capacity probe (one extra force evaluation
+  through the run's own traversal and evaluator: ``check_fused``, or
+  ``check_capacities``) unless ``--no-capacity-check``; an overflow exits
+  3 with the setting that fits; a terminal-resolution residual of the
+  list path prints a warning and the run goes on (cli/main.py:771-775).
 * ``--energy`` with the ``cuda`` backend at n >= 50,000 takes PE from the
   potential-energy kernel (K3, or K5 in f64) and KE from a torch sum (the
   JAX CLI's large-N path, cli/main.py:848-866); otherwise it takes
@@ -113,22 +120,29 @@ def build_parser() -> argparse.ArgumentParser:
         "--bh-traversal",
         choices=["auto", "fused", "flat", "padded"],
         default="auto",
-        help="Barnes-Hut traversal engine (auto = fused; flat and padded "
-        "need the list-based evaluator, not ported yet)",
+        help="Barnes-Hut traversal engine (auto: fused with the cuda "
+        "backend, flat with torch; flat and padded are the list-based "
+        "path)",
     )
     p.add_argument(
         "--bh-robust",
         choices=["auto", "on", "off"],
         default="auto",
         help="exact outlier hybrid for the fused Barnes-Hut path (not "
-        "ported yet: a run where it is on, or where auto finds a "
-        "full/robust border ratio above 4, exits 2)",
+        "ported yet: a fused run where it is on, or where auto finds a "
+        "full/robust border ratio above 4, exits 2; the list traversals "
+        "ignore it)",
     )
     p.add_argument("--bh-group-size", type=int, default=0,
-                   help="Barnes-Hut bodies per traversal group (0 = auto, "
-                   "1024, the most the card's kernel takes)")
+                   help="Barnes-Hut bodies per traversal group (0 = auto: "
+                   "1024 fused, the most its kernel takes; 256-2048 list)")
     p.add_argument("--bh-leaf-cap", type=int, default=0,
-                   help="Barnes-Hut near-field leaf capacity (0 = auto, 64)")
+                   help="Barnes-Hut near-field leaf capacity (0 = auto: 64 "
+                   "fused, 16-32 list)")
+    p.add_argument("--bh-list-size", type=int, default=0,
+                   help="list-based Barnes-Hut per-group source-list capacity "
+                   "(0 = auto, 16384; capacity errors prescribe the value "
+                   "that fits)")
     p.add_argument(
         "--bh-ld", type=int, default=0,
         help="Barnes-Hut dense-grid terminal level (0 = auto: ~16 "
@@ -150,7 +164,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--resort-every", type=int, default=0, metavar="K",
-        help="persistent Morton order (not ported yet: K > 0 exits 2)",
+        help="persistent Morton order of the fused Barnes-Hut path (not "
+        "ported yet: K > 0 exits 2 there; elsewhere it is ignored with a "
+        "warning)",
     )
     p.add_argument(
         "--timers", action="store_true",
@@ -176,22 +192,37 @@ def resolve_backend(backend: str, device: str) -> str:
     return backend
 
 
-def unported_bh_option(args, backend: str) -> str | None:
+def resolve_traversal(traversal: str, backend: str) -> str:
+    """``auto``: the fused traversal with the cuda backend, flat with torch
+    (JAX: fused with pallas, flat with jnp, cli/main.py:492-501)."""
+    if traversal == "auto":
+        return "fused" if backend == "cuda" else "flat"
+    return traversal
+
+
+def wants_persistent(args, algo: str, traversal: str) -> bool:
+    """Whether JAX would run the persistent Morton layout: --resort-every on
+    the fused Barnes-Hut path with the KDK integrator in f32
+    (cli/main.py:937-946).  Elsewhere it warns and ignores the flag."""
+    return (args.resort_every > 0 and algo == "barnes-hut" and traversal == "fused"
+            and args.integrator == "leapfrog" and args.dtype != "f64")
+
+
+def unported_bh_option(args, backend: str, traversal: str) -> str | None:
     """Why a Barnes-Hut run cannot go ahead as asked, or None."""
     from nbody_tpu_torch.ops.bh_fused import MAX_GROUP_SIZE as max_b
     from nbody_tpu_torch.ops.bh_fused import MAX_LD as max_ld
 
-    if args.bh_traversal in ("flat", "padded"):
-        return (f"--bh-traversal {args.bh_traversal} needs the list-based "
-                "Barnes-Hut evaluator (K7, nbody_tpu/ops/barneshut.py:52), "
-                "which is not ported yet; --bh-traversal fused runs the "
-                "fused kernel")
-    if args.resort_every > 0:
+    if args.timers:
+        part = ("the per-phase breakdown of the list-based path (K7's pipeline, "
+                "nbody_tpu/diag/bh_phases.py::flat_phase_times)" if traversal != "fused"
+                else "the per-phase Barnes-Hut breakdown (nbody_tpu/diag/bh_phases.py)")
+        return f"--timers with --bh-traversal {traversal} needs {part}, which is not ported yet"
+    if traversal != "fused":
+        return None
+    if wants_persistent(args, "barnes-hut", traversal):
         return ("--resort-every needs the persistent Morton layout "
                 "(nbody_tpu/ops/bh_persistent.py), which is not ported yet")
-    if args.timers:
-        return ("--timers needs the per-phase Barnes-Hut breakdown "
-                "(nbody_tpu/diag/bh_phases.py), which is not ported yet")
     if not 0 <= args.bh_ld <= max_ld:
         return f"--bh-ld must be in [0, {max_ld}], got {args.bh_ld}"
     if args.bh_group_size < 0 or (backend == "cuda" and args.bh_group_size > max_b):
@@ -221,9 +252,32 @@ def fused_kwargs(args) -> dict:
     return {k: v for k, v in flags.items() if v}
 
 
+def list_kwargs(args) -> dict:
+    """Knobs of the list-based path from flags (0 = auto, omitted), as
+    cli/main.py:311-320 ``_bh_kwargs``."""
+    flags = {"group_size": args.bh_group_size, "leaf_cap": args.bh_leaf_cap,
+             "list_size": args.bh_list_size}
+    return {k: v for k, v in flags.items() if v}
+
+
 def build_force_fn(backend: str, G: float, softening_sq: float,
                    algo: str = "exhaustive", theta: float = constants.THETA,
-                   bh_kw: dict | None = None, dtype: str = "f32"):
+                   bh_kw: dict | None = None, dtype: str = "f32",
+                   traversal: str = "fused"):
+    """The force function of a run; `traversal` is a resolved Barnes-Hut
+    engine (fused, flat or padded)."""
+    if algo == "barnes-hut" and traversal != "fused":
+        from nbody_tpu_torch.ops import barneshut, cuda_lists
+
+        if backend != "cuda":
+            group_forces = barneshut.eval_lists_reference
+        elif dtype == "f64":
+            group_forces = cuda_lists.eval_lists_f64
+        else:
+            group_forces = cuda_lists.eval_lists
+        return partial(barneshut.barneshut_accelerations, G=G, softening_sq=softening_sq,
+                       theta=theta, traversal=traversal, group_forces=group_forces,
+                       **(bh_kw or {}))
     if algo == "barnes-hut":
         from nbody_tpu_torch.ops import bh_fused, bh_fused_df
 
@@ -287,12 +341,22 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    traversal = resolve_traversal(args.bh_traversal, backend)
     if algo == "barnes-hut":
-        why = unported_bh_option(args, backend)
+        why = unported_bh_option(args, backend, traversal)
         if why is None and args.bh_robust != "off":
             # --bh-robust auto resolves as cli/main.py:642-666
             ratio = robust_ratio(arr[:, 0:3])
-            if args.bh_robust == "on" or ratio > 4.0:
+            robust = args.bh_robust == "on" or ratio > 4.0
+            if args.bh_robust == "auto" and robust:
+                print("note: outlier-dominated bounding box detected (full/robust "
+                      f"border ratio {ratio:.0f}); enabling --bh-robust on (exact "
+                      "hybrid)", file=sys.stderr)
+            if robust and traversal != "fused":
+                # JAX's list path never reads the flag (cli/main.py:311-320)
+                print(f"note: --bh-robust applies to the fused traversal only; "
+                      f"--bh-traversal {traversal} runs without it", file=sys.stderr)
+            elif robust:
                 why = ("the robust Barnes-Hut hybrid (barneshut_fused_robust, "
                        "ROADMAP queue 1 item 5) is not ported yet, and "
                        + ("--bh-robust on asks for it" if args.bh_robust == "on"
@@ -302,6 +366,13 @@ def main(argv=None) -> int:
         if why is not None:
             print(f"error: {why}", file=sys.stderr)
             return 2
+    if args.resort_every > 0 and not wants_persistent(args, algo, traversal):
+        # cli/main.py:935-957
+        print("warning: --resort-every requires the fused Barnes-Hut path with "
+              "the KDK integrator"
+              + (" (and f32 state: the persistent layout is f32 — --dtype f64 "
+                 "runs the one-shot df kernel per step)" if args.dtype == "f64" else "")
+              + "; ignoring", file=sys.stderr)
     dtype = torch.float64 if args.dtype == "f64" else torch.float32
     device = torch.device(args.device)
     bodies = Bodies.from_numpy(arr, dtype=dtype, device=device)
@@ -311,23 +382,32 @@ def main(argv=None) -> int:
     t0 = args.start_time
     dt = SimConfig.c_float(args.delta_time)
     n_steps = max(0, SimConfig.n_steps(t0, args.end_time, args.delta_time))
-    bh_kw = fused_kwargs(args)
+    listed = algo == "barnes-hut" and traversal != "fused"
+    bh_kw = list_kwargs(args) if listed else fused_kwargs(args)
     force = build_force_fn(backend, args.G, args.softening2, algo, args.theta, bh_kw,
-                           args.dtype)
+                           args.dtype, traversal)
     backend_label = backend
     if algo == "barnes-hut":
-        backend_label = f"{backend}/fused"
+        if not listed:
+            backend_label = f"{backend}/fused"
         if not args.no_capacity_check:
             # startup capacity probe, one force evaluation through the run's
-            # own evaluator (cli/main.py:728-770)
-            from nbody_tpu_torch.ops.barneshut import CapacityError
+            # own traversal and evaluator (cli/main.py:728-775)
+            from nbody_tpu_torch.ops.barneshut import (
+                CapacityError,
+                ResolutionError,
+                check_capacities,
+            )
             from nbody_tpu_torch.ops.bh_fused import check_fused
 
+            probe = check_capacities if listed else check_fused
             try:
-                check_fused(bodies.pos, bodies.mass, **force.keywords)
+                probe(bodies.pos, bodies.mass, **force.keywords)
             except CapacityError as e:
                 print(f"error: {e}", file=sys.stderr)
                 return 3
+            except ResolutionError as e:
+                print(f"warning: {e}", file=sys.stderr)
 
     # Reference banner (serial/exhaustive.c:55-57), extended with our config.
     print(

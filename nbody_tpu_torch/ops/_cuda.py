@@ -86,6 +86,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
             _F, eps2, _I, _I, _I, _I, _P, _P, _P,
         ]
+    for name, eps2 in (("nbody_group_lists_f32", _F), ("nbody_group_lists_f64", _D)):
+        fn = getattr(lib, name)
+        fn.restype = _I
+        fn.argtypes = [_P, _P, _P, _I, _I, _I, eps2, _P, _P]
     lib.nbody_cuda_error_string.restype = ctypes.c_char_p
     lib.nbody_cuda_error_string.argtypes = [_I]
     return lib

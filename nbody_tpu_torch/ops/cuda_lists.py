@@ -1,0 +1,94 @@
+"""Barnes-Hut group x interaction-list evaluation through the hand-written
+CUDA kernel K7 — counterpart of ``nbody_tpu/ops/barneshut.py``'s
+``_eval_lists_pallas`` (the Pallas ``_group_kernel``).
+
+``eval_lists`` (f32) and ``eval_lists_f64`` (native fp64) wrap the two
+entry points of ``nbody_tpu_torch/csrc/group_lists.cu``.  A CPU tensor
+goes to the plain version, ``barneshut.eval_lists_reference``; a CUDA
+tensor launches the kernel or raises.  Nothing falls back.  Each wrapper's
+``.launches`` counts its kernel's launches.
+
+JAX's Pallas path casts to f32 whatever the run's dtype
+(``barneshut.py:87-90``); the fp64 entry point serves ``--dtype f64`` and
+is held to JAX's jnp path, which evaluates in f64.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nbody_tpu_torch.ops.barneshut import eval_lists_reference
+from nbody_tpu_torch.ops.cuda_exhaustive import check_tensor
+
+
+def _check(pos_groups, lists, lengths, dtype: torch.dtype):
+    device = pos_groups.device
+    check_tensor("pos_groups", pos_groups, (-1, -1, 3), device, dtype)
+    g, b = pos_groups.shape[:2]
+    check_tensor("lists", lists, (g, -1, 4), device, dtype)
+    check_tensor("lengths", lengths, (g,), device, torch.int32)
+    if max(b, lists.shape[1]) > 2**31 - 1:
+        raise ValueError("eval_lists: B or M exceeds the kernel's C int")
+
+
+def launch(lib, pos_groups, lists, lengths, stream, *, eps2: float):
+    """Call K7's launcher in `lib` for pos_groups' dtype on checked
+    tensors; returns (cudaError_t, accelerations (G, B, 3)).  The tensors'
+    pointers go to the kernel as they are, so the CPU emulation of the
+    kernel source takes the same call."""
+    g, b, _ = pos_groups.shape
+    out = torch.empty_like(pos_groups)
+    fn = (lib.nbody_group_lists_f64 if pos_groups.dtype == torch.float64
+          else lib.nbody_group_lists_f32)
+    err = fn(pos_groups.data_ptr(), lists.data_ptr(), lengths.data_ptr(), g, b,
+             lists.shape[1], float(eps2), out.data_ptr(), stream)
+    return err, out
+
+
+def _kernel(pos_groups, lists, lengths, eps2: float) -> torch.Tensor:
+    device = pos_groups.device
+    if device.type != "cuda":
+        raise ValueError(f"no interaction-list kernel for device {device}")
+    if lists.data_ptr() % 16:
+        raise ValueError("lists: the kernel reads 16-byte vector rows, so it must be "
+                         "16-byte aligned")
+    from nbody_tpu_torch.ops import _cuda
+
+    kernels = _cuda.library()
+    with torch.cuda.device(device):
+        err, out = launch(kernels.lib, pos_groups, lists, lengths,
+                          _cuda.stream_handle(device), eps2=eps2)
+    kernels.check(err, f"group_lists kernel ({pos_groups.dtype}, groups "
+                       f"{pos_groups.shape[0]}, B {pos_groups.shape[1]}, M "
+                       f"{lists.shape[1]})")
+    return out
+
+
+def eval_lists(pos_groups: torch.Tensor, lists: torch.Tensor, lengths: torch.Tensor,
+               *, eps2: float) -> torch.Tensor:
+    """f32 accelerations (G, B, 3) of every slot of `pos_groups` (G, B, 3)
+    against its group's first lengths[g] rows of `lists` (G, M, 4) [x y z
+    G·m] (the rest must have G·m = 0, as the traversals write them)."""
+    _check(pos_groups, lists, lengths, torch.float32)
+    if pos_groups.device.type == "cpu":
+        return eval_lists_reference(pos_groups, lists, lengths, eps2=eps2)
+    out = _kernel(pos_groups, lists, lengths, eps2)
+    eval_lists.launches += 1
+    return out
+
+
+eval_lists.launches = 0
+
+
+def eval_lists_f64(pos_groups: torch.Tensor, lists: torch.Tensor, lengths: torch.Tensor,
+                   *, eps2: float) -> torch.Tensor:
+    """The same in native fp64, from f64 bodies and lists."""
+    _check(pos_groups, lists, lengths, torch.float64)
+    if pos_groups.device.type == "cpu":
+        return eval_lists_reference(pos_groups, lists, lengths, eps2=eps2)
+    out = _kernel(pos_groups, lists, lengths, eps2)
+    eval_lists_f64.launches += 1
+    return out
+
+
+eval_lists_f64.launches = 0

@@ -22,6 +22,17 @@ from nbody_tpu_torch.ops.barneshut import CapacityError
 from nbody_tpu_torch.utils.fixtures import plummer_cloud
 from tests.oracle import accel_exhaustive_f64
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs a worker per core, and torch's
+    default of a thread per core in every worker oversubscribes the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 EPS2, G, THETA = 0.01, 1.0, 0.5
 K1_ATOL, K1_RTOL = 2e-5, 2e-4  # the f32 kernel bound (test_pallas.py:25)
 

@@ -16,16 +16,28 @@ from nbody_tpu_torch.cli.main import (
     main,
     resolve_algo,
     resolve_backend,
+    resolve_traversal,
 )
 from nbody_tpu_torch.core.types import Bodies
 from nbody_tpu_torch.io.csv import read_bodies, read_trajectory
-from nbody_tpu_torch.ops import bh_fused
+from nbody_tpu_torch.ops import barneshut, bh_fused, cuda_lists
 from nbody_tpu_torch.ops.bh_fused import barneshut_fused
 from nbody_tpu_torch.ops.bh_fused_df import barneshut_fused_df, fused_group_forces_df
 from nbody_tpu_torch.ops.cuda_exhaustive import cuda_accelerations
 from nbody_tpu_torch.ops.cuda_fp64 import cuda_accelerations_f64
 from nbody_tpu_torch.ops.exhaustive import exhaustive_accelerations
 from nbody_tpu_torch.utils.fixtures import write_fixture
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs a worker per core, and torch's
+    default of a thread per core in every worker oversubscribes the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 TEN = os.path.join(DATA_DIR, "10_bodies.csv")
 GOLDEN = os.path.join(DATA_DIR, "golden_exh_10bodies_0_10_0.1.csv")
@@ -107,14 +119,16 @@ def test_cli_end_before_start_runs_zero_steps(tmp_path):
 @pytest.mark.parametrize("algo", ["barnes-hut", "auto"])
 def test_cli_refuses_unported_algo(tmp_path, capsys, algo):
     """A Barnes-Hut run that needs a part not ported yet exits 2 and names
-    it: the list-based traversal (K7), and the robust hybrid, here on the
-    Barnes-Hut side of --algo auto (> 32,768 bodies)."""
+    it: --timers on the list-based path (K7's pipeline), and the robust
+    hybrid of the fused traversal, here on the Barnes-Hut side of --algo
+    auto (> 32,768 bodies)."""
     if algo == "barnes-hut":
-        src, flags, missing = TEN, ["--bh-traversal", "flat"], "K7"
+        src, flags, missing = TEN, ["--bh-traversal", "flat", "--timers"], "K7"
     else:
         src = tmp_path / "big.csv"
         write_fixture(src, random_cloud(BH_AUTO_MIN_N + 1, seed=1))
-        flags, missing = ["--bh-robust", "on"], "robust Barnes-Hut hybrid"
+        flags = ["--bh-robust", "on", "--bh-traversal", "fused"]
+        missing = "robust Barnes-Hut hybrid"
     out = tmp_path / "o.csv"
     assert main([str(src), "0", "1", "0.1", str(out), "--device", "cpu",
                  "--algo", algo, *flags]) == 2
@@ -139,7 +153,7 @@ def test_cli_barnes_hut_at_10_bodies(tmp_path, capsys):
     golden trajectory within its %lf resolution."""
     out = tmp_path / "o.csv"
     assert main([TEN, "0", "10", "0.1", str(out), *CPU64,
-                 "--algo", "barnes-hut", "--energy"]) == 0
+                 "--algo", "barnes-hut", "--bh-traversal", "fused", "--energy"]) == 0
     text = capsys.readouterr().out
     assert "Algorithm: barnes-hut, backend: torch/fused, dtype: f64" in text
     assert "Pair interactions/sec" not in text  # exhaustive only (:1196)
@@ -156,8 +170,9 @@ def test_cli_barnes_hut_f32_matches_plain_call(tmp_path):
     src, out = tmp_path / "in.csv", tmp_path / "o.csv"
     write_fixture(src, arr)
     assert main([str(src), "0", "0.01", "0.01", str(out), "--device", "cpu",
-                 "--algo", "barnes-hut", "--bh-group-size", "64",
-                 "--bh-leaf-cap", "8", "--bh-ld", "3", "--theta", "0.6"]) == 0
+                 "--algo", "barnes-hut", "--bh-traversal", "fused",
+                 "--bh-group-size", "64", "--bh-leaf-cap", "8", "--bh-ld", "3",
+                 "--theta", "0.6"]) == 0
     b = Bodies.from_numpy(read_bodies(str(src)), dtype=torch.float32)
     kw = dict(theta=0.6, group_size=64, leaf_cap=8, ld=3)
     acc = barneshut_fused(b.pos, b.mass, **kw)
@@ -170,28 +185,36 @@ def test_cli_barnes_hut_f32_matches_plain_call(tmp_path):
 
 
 @pytest.mark.parametrize("flags,missing", [
-    (["--bh-traversal", "padded"], "K7"),
-    (["--resort-every", "4"], "persistent Morton layout"),
+    (["--bh-traversal", "padded", "--timers"], "K7"),
+    (["--resort-every", "4", "--bh-traversal", "fused", "--dtype", "f32"],
+     "persistent Morton layout"),
     (["--timers"], "per-phase"),
-    (["--bh-ld", "9"], "--bh-ld must be in [0, 8]"),
+    (["--bh-ld", "9", "--bh-traversal", "fused"], "--bh-ld must be in [0, 8]"),
 ])
 def test_cli_barnes_hut_unported_options(tmp_path, capsys, flags, missing):
+    """--timers (either traversal) and, on the fused traversal, the
+    persistent layout (f32 KDK, where JAX takes it) and a dense grid deeper
+    than K6 takes exit 2."""
     assert main([TEN, "0", "1", "0.1", str(tmp_path / "o.csv"), *CPU64,
                  "--algo", "barnes-hut", *flags]) == 2
     assert missing in capsys.readouterr().err
 
 
-def test_cli_robust_auto_resolves_on_and_refuses(tmp_path, capsys):
-    """--bh-robust auto on an outlier-dominated cloud resolves to on
-    (cli/main.py:642-666), which is not ported: exit 2, never the plain
-    path in its place; --bh-robust off runs."""
+def _outlier_cloud(tmp_path):
     rng = np.random.default_rng(2)
     arr = random_cloud(400, seed=2)
     arr[:5, :3] = rng.uniform(-1, 1, (5, 3)) * 1000.0
     src = tmp_path / "outliers.csv"
     write_fixture(src, arr)
-    argv = [str(src), "0", "0.1", "0.1", str(tmp_path / "o.csv"), "--device",
-            "cpu", "--algo", "barnes-hut"]
+    return src
+
+
+def test_cli_robust_auto_resolves_on_and_refuses(tmp_path, capsys):
+    """--bh-robust auto on an outlier-dominated cloud resolves to on
+    (cli/main.py:642-666), which the fused traversal has not ported: exit
+    2, never the plain path in its place; --bh-robust off runs."""
+    argv = [str(_outlier_cloud(tmp_path)), "0", "0.1", "0.1", str(tmp_path / "o.csv"),
+            "--device", "cpu", "--algo", "barnes-hut", "--bh-traversal", "fused"]
     assert main(argv) == 2
     err = capsys.readouterr().err
     assert "robust" in err and "resolves to on" in err
@@ -206,15 +229,14 @@ def test_cli_robust_auto_resolves_on_and_refuses(tmp_path, capsys):
 def test_cli_capacity_probe_exits_3(tmp_path, capsys, flags, fix):
     src = tmp_path / "in.csv"
     write_fixture(src, random_cloud(2000, seed=21))
-    assert main([str(src), "0", "0.1", "0.1", str(tmp_path / "o.csv"), "--device",
-                 "cpu", "--algo", "barnes-hut", "--bh-group-size", "64",
-                 *flags]) == 3
+    argv = [str(src), "0", "0.1", "0.1", str(tmp_path / "o.csv"), "--device", "cpu",
+            "--algo", "barnes-hut", "--bh-traversal", "fused", "--bh-group-size", "64",
+            *flags]
+    assert main(argv) == 3
     err = capsys.readouterr().err
     assert "capacity overflow" in err and fix in err
     # without the probe the run goes ahead
-    assert main([str(src), "0", "0.1", "0.1", str(tmp_path / "o.csv"), "--device",
-                 "cpu", "--algo", "barnes-hut", "--bh-group-size", "64",
-                 *flags, "--no-capacity-check"]) == 0
+    assert main([*argv, "--no-capacity-check"]) == 0
 
 
 def _routed(want, dtype, algo):
@@ -295,3 +317,102 @@ def test_cli_sun_earth_f64_drift(capsys, tmp_path):
     assert "time steps: 8640" in text
     drift = float(re.search(r"Relative energy drift: (\S+)", text).group(1))
     assert drift < 1e-10, drift
+
+
+@pytest.mark.parametrize("traversal,backend,want", [
+    ("auto", "cuda", "fused"),
+    ("auto", "torch", "flat"),
+    ("flat", "cuda", "flat"),
+    ("padded", "torch", "padded"),
+    ("fused", "torch", "fused"),
+])
+def test_resolve_traversal(traversal, backend, want):
+    """auto is fused with the kernel backend and flat with the plain one,
+    as JAX's auto is fused with pallas and flat with jnp."""
+    assert resolve_traversal(traversal, backend) == want
+
+
+@pytest.mark.parametrize("backend,dtype", [("cuda", "f32"), ("cuda", "f64"),
+                                           ("torch", "f32"), ("torch", "f64")])
+@pytest.mark.parametrize("traversal", ["flat", "padded"])
+def test_backend_routing_list_path(backend, dtype, traversal):
+    """A list traversal runs barneshut_accelerations with K7's wrapper for
+    the dtype, or with K7's plain version under --backend torch."""
+    force = build_force_fn(backend, 1.0, 0.01, "barnes-hut", dtype=dtype,
+                           bh_kw={"list_size": 512}, traversal=traversal)
+    assert force.func is barneshut.barneshut_accelerations
+    assert force.keywords["traversal"] == traversal
+    assert force.keywords["list_size"] == 512
+    kernels = {"f32": cuda_lists.eval_lists, "f64": cuda_lists.eval_lists_f64}
+    assert force.keywords["group_forces"] is (
+        kernels[dtype] if backend == "cuda" else barneshut.eval_lists_reference)
+
+
+@pytest.mark.parametrize("traversal", ["flat", "padded", "auto"])
+def test_cli_list_traversals_at_10_bodies(tmp_path, capsys, traversal):
+    """At 10 bodies the one group's box holds every centre of mass and the
+    root holds fewer than leaf_cap bodies, so the list path is exact: 10
+    steps match the all-pairs golden trajectory within its %lf
+    resolution.  auto with --backend torch is the flat traversal."""
+    out = tmp_path / "o.csv"
+    assert main([TEN, "0", "1", "0.1", str(out), *CPU64, "--algo", "barnes-hut",
+                 "--bh-traversal", traversal, "--bh-list-size", "64", "--energy"]) == 0
+    text = capsys.readouterr().out
+    assert "Algorithm: barnes-hut, backend: torch, dtype: f64" in text
+    assert "Relative energy drift:" in text
+    golden = np.loadtxt(GOLDEN, delimiter=",")[:110]
+    np.testing.assert_allclose(np.loadtxt(out, delimiter=","), golden, atol=1.1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_cli_list_path_matches_plain_call(tmp_path, capsys, dtype):
+    """The CLI's flat Barnes-Hut force is barneshut_accelerations with the
+    flags' knobs: one KDK step of a 2,000-body cloud against the same step
+    by hand."""
+    arr = random_cloud(2000, seed=4)
+    src, out = tmp_path / "in.csv", tmp_path / "o.csv"
+    write_fixture(src, arr)
+    assert main([str(src), "0", "0.01", "0.01", str(out), "--device", "cpu",
+                 "--dtype", dtype, "--algo", "barnes-hut", "--bh-traversal", "flat",
+                 "--bh-group-size", "64", "--bh-leaf-cap", "8", "--bh-list-size", "1024",
+                 "--theta", "0.6"]) == 0
+    assert f"backend: torch, dtype: {dtype}" in capsys.readouterr().out
+    tdt = torch.float64 if dtype == "f64" else torch.float32
+    b = Bodies.from_numpy(read_bodies(str(src)), dtype=tdt)
+    acc = barneshut.barneshut_accelerations(b.pos, b.mass, theta=0.6, group_size=64,
+                                            leaf_cap=8, list_size=1024)
+    dt = np.float32(0.01) if dtype == "f32" else float(np.float32(0.01))
+    pos = b.pos + (b.vel + acc * (dt * 0.5)) * dt
+    rows, n = read_trajectory(out)
+    np.testing.assert_allclose(rows.reshape(2, n, 5)[1, :, 1:4], pos.numpy(),
+                               atol=1.1e-6, rtol=0)
+
+
+def test_cli_list_size_overflow_exits_3(tmp_path, capsys):
+    """The probe runs the run's own traversal: lists of 8 cannot hold the 10
+    bodies, so it exits 3 naming --bh-list-size 10, which then runs."""
+    argv = [TEN, "0", "0.1", "0.1", str(tmp_path / "o.csv"), *CPU64, "--algo",
+            "barnes-hut", "--bh-traversal", "padded"]
+    assert main([*argv, "--bh-list-size", "8"]) == 3
+    err = capsys.readouterr().err
+    assert "capacity overflow" in err and "--bh-list-size 10" in err
+    assert main([*argv, "--bh-list-size", "10"]) == 0
+
+
+@pytest.mark.parametrize("flags,said", [
+    ([], "enabling --bh-robust on"),
+    (["--bh-robust", "on"], "--bh-robust applies to the fused traversal only"),
+    (["--resort-every", "4"], "--resort-every requires the fused Barnes-Hut path"),
+])
+def test_cli_list_path_warns_and_runs(tmp_path, capsys, flags, said):
+    """On a list traversal --bh-robust and --resort-every do nothing, in JAX
+    too: the run prints the note or warning and goes on (the outliers also
+    merge a terminal cell, which warns and goes on as in JAX)."""
+    out = tmp_path / "o.csv"
+    assert main([str(_outlier_cloud(tmp_path)), "0", "0.1", "0.1", str(out), "--device",
+                 "cpu", "--algo", "barnes-hut", "--bh-list-size", "1024", *flags]) == 0
+    captured = capsys.readouterr()
+    assert said in captured.err
+    assert "backend: torch, dtype: f32" in captured.out
+    rows, _ = read_trajectory(out)
+    assert np.isfinite(rows).all()

@@ -17,7 +17,7 @@ from nbody_tpu_torch.diag.energy import (
     potential_energy_reference,
 )
 from nbody_tpu_torch.io.csv import read_trajectory
-from nbody_tpu_torch.ops import bh_fused, bh_fused_df
+from nbody_tpu_torch.ops import barneshut, bh_fused, bh_fused_df, cuda_lists
 from nbody_tpu_torch.ops.cuda_exhaustive import (
     cuda_accelerations,
     cuda_rect_accelerations,
@@ -245,3 +245,67 @@ def test_cli_f64_runs_through_the_fp64_kernels(dev, tmp_path, capsys, algo, n):
     assert "backend: cuda" in capsys.readouterr().out
     rows, n_out = read_trajectory(str(out))
     assert n_out == n and np.isfinite(rows).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_group_lists_kernel_matches_plain(dev, dtype):
+    """K7 against its plain version on the flat traversal's own lists at
+    100k bodies (B 1792, 120 group slots): K1's bound in f32, 1e-12 of the
+    force scale in fp64; one launch counted; reruns bit-identical."""
+    pos, mass = _cloud(100_000, dev, seed=11)
+    gl = barneshut.group_lists(pos.to(dtype), mass.to(dtype))
+    assert not bool((gl.lengths == 0).any())
+    wrapper = cuda_lists.eval_lists_f64 if dtype == torch.float64 else cuda_lists.eval_lists
+    before = wrapper.launches
+    got = wrapper(gl.pg, gl.lists, gl.lengths, eps2=0.01)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = barneshut.eval_lists_reference(gl.pg, gl.lists, gl.lengths, eps2=0.01)
+    if dtype == torch.float32:
+        _assert_f32_close(got, want)
+    else:
+        assert _rel(got, want) <= 1e-12
+    assert torch.equal(wrapper(gl.pg, gl.lists, gl.lengths, eps2=0.01), got)
+
+
+def test_group_lists_kernel_refuses_f64_in_the_f32_entry(dev):
+    pg = torch.zeros((2, 4, 3), dtype=torch.float64, device=dev)
+    lists = torch.zeros((2, 8, 4), dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError):
+        cuda_lists.eval_lists(pg, lists, torch.ones(2, dtype=torch.int32, device=dev),
+                              eps2=0.01)
+
+
+@pytest.mark.parametrize("traversal", ["flat", "padded"])
+def test_list_path_against_exact_forces(dev, traversal):
+    """The list path through K7 at 100k within 0.02 of K1's exact forces
+    (the Barnes-Hut bound, test_bh_fused.py:51).  The padded traversal's
+    default frontier (1024) is too narrow at 100k uniform bodies (1280)."""
+    pos, mass = _cloud(100_000, dev, seed=12)
+    before = cuda_lists.eval_lists.launches
+    acc, stats = barneshut.barneshut_accelerations(pos, mass, traversal=traversal,
+                                                   frontier_size=2048, return_stats=True)
+    assert cuda_lists.eval_lists.launches == before + 1
+    assert not stats.overflowed()
+    assert _rel(acc, cuda_accelerations(pos, mass)) < 0.02
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_cli_flat_runs_through_k7(dev, tmp_path, capsys, dtype):
+    """--bh-traversal flat on the card: K7 (the probe, then 3 evaluations
+    over 2 steps) in the run's dtype, and neither K6 nor K1."""
+    src, out = tmp_path / "in.csv", tmp_path / "o.csv"
+    write_fixture(str(src), random_cloud(5000, seed=3))
+    counters = (cuda_lists.eval_lists, cuda_lists.eval_lists_f64,
+                bh_fused.fused_group_forces, bh_fused_df.fused_group_forces_df,
+                cuda_rect_accelerations, cuda_rect_accelerations_f64)
+    for c in counters:
+        c.launches = 0
+    assert main([str(src), "0", "0.002", "0.001", str(out), "--dtype", dtype,
+                 "--algo", "barnes-hut", "--bh-traversal", "flat"]) == 0
+    k7, k7_64, *others = (c.launches for c in counters)
+    assert (k7, k7_64) == ((4, 0) if dtype == "f32" else (0, 4))
+    assert others == [0, 0, 0, 0]
+    assert f"backend: cuda, dtype: {dtype}" in capsys.readouterr().out
+    rows, n_out = read_trajectory(str(out))
+    assert n_out == 5000 and np.isfinite(rows).all()

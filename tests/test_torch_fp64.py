@@ -40,6 +40,17 @@ from nbody_tpu_torch.ops import bh_fused, bh_fused_df, cuda_fp64
 from nbody_tpu_torch.ops.barneshut import CapacityError, group_capacity
 from nbody_tpu_torch.utils.fixtures import write_fixture
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs a worker per core, and torch's
+    default of a thread per core in every worker oversubscribes the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 EPS2, THETA, LEAF_CAP = 0.01, 0.5, 64
 F64 = torch.float64
 
@@ -302,8 +313,9 @@ def test_cli_f64_barnes_hut_matches_df_call(tmp_path, capsys):
     src, out = tmp_path / "in.csv", tmp_path / "o.csv"
     write_fixture(src, arr)
     assert main([str(src), "0", "0.01", "0.01", str(out), "--device", "cpu",
-                 "--dtype", "f64", "--algo", "barnes-hut", "--bh-group-size", "64",
-                 "--bh-leaf-cap", "8", "--bh-ld", "3", "--theta", "0.6"]) == 0
+                 "--dtype", "f64", "--algo", "barnes-hut", "--bh-traversal", "fused",
+                 "--bh-group-size", "64", "--bh-leaf-cap", "8", "--bh-ld", "3",
+                 "--theta", "0.6"]) == 0
     assert "backend: torch/fused, dtype: f64" in capsys.readouterr().out
     b = Bodies.from_numpy(read_bodies(str(src)), dtype=F64)
     acc = bh_fused_df.barneshut_fused_df(

@@ -28,7 +28,8 @@ def _kernel_libs() -> set:
 
 def test_package_import_and_lazy_exports():
     _run("import nbody_tpu_torch; nbody_tpu_torch.Bodies; "
-         "nbody_tpu_torch.cuda_accelerations; " + CHECK)
+         "nbody_tpu_torch.cuda_accelerations; "
+         "nbody_tpu_torch.barneshut_accelerations; " + CHECK)
 
 
 def test_every_module_imports_clean_and_builds_nothing():
@@ -41,6 +42,8 @@ def test_every_module_imports_clean_and_builds_nothing():
         "nbody_tpu_torch.ops.morton, nbody_tpu_torch.ops.barneshut, "
         "nbody_tpu_torch.core.capacity, nbody_tpu_torch.utils.fixtures, "
         "nbody_tpu_torch.integrate.leapfrog, nbody_tpu_torch.io.csv, "
-        "nbody_tpu_torch.__main__; " + CHECK
+        "nbody_tpu_torch.ops.bh_tree, nbody_tpu_torch.ops.bh_traverse, "
+        "nbody_tpu_torch.ops.bh_traverse_flat, nbody_tpu_torch.ops.cuda_lists, "
+        "nbody_tpu_torch.diag.treedump, nbody_tpu_torch.__main__; " + CHECK
     )
     assert _kernel_libs() == before

@@ -20,13 +20,25 @@ import torch
 
 from conftest import random_cloud
 from nbody_tpu_torch.diag.energy import potential_energy_reference
-from nbody_tpu_torch.ops import _cuda, bh_fused
+from nbody_tpu_torch.ops import _cuda, barneshut, bh_fused, cuda_lists
 from nbody_tpu_torch.ops.cuda_exhaustive import rect_accelerations_reference
 from nbody_tpu_torch.ops.exhaustive import rect_accelerations
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs a worker per core, and torch's
+    default of a thread per core in every worker oversubscribes the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # Stands in for <cuda_runtime.h> when the .cu sources are built with g++.
 EMU_HEADER = r"""// CPU emulation of the CUDA features the port's kernels use.  Each CUDA
-// thread is a std::thread; the blocks of a grid run one after another, so
+// thread is a std::thread; the blocks of a grid (x fastest, then y) run one
+// after another, so
 // `static` stands in for __shared__ and one buffer per launch for `extern
 // __shared__`; __syncthreads is a barrier over the block.
 // It checks the kernels' indexing, masking and reductions, not the card's
@@ -85,19 +97,22 @@ template <class F>
 void emu_launch(dim3 grid, int block, size_t smem_bytes, F body) {
   std::vector<double> smem(smem_bytes / sizeof(double) + 1);
   emu_dynamic_smem = reinterpret_cast<unsigned char*>(smem.data());
-  for (unsigned b = 0; b < grid.x; ++b) {
-    std::barrier<> bar(block);
-    emu_block_barrier = &bar;
-    std::vector<std::thread> threads;
-    for (int t = 0; t < block; ++t) {
-      threads.emplace_back([&, t, b] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        blockDim.x = block;
-        body();
-      });
+  for (unsigned by = 0; by < grid.y; ++by) {
+    for (unsigned b = 0; b < grid.x; ++b) {
+      std::barrier<> bar(block);
+      emu_block_barrier = &bar;
+      std::vector<std::thread> threads;
+      for (int t = 0; t < block; ++t) {
+        threads.emplace_back([&, t, b, by] {
+          threadIdx.x = t;
+          blockIdx.x = b;
+          blockIdx.y = by;
+          blockDim.x = block;
+          body();
+        });
+      }
+      for (auto& th : threads) th.join();
     }
-    for (auto& th : threads) th.join();
   }
 }
 """
@@ -324,3 +339,65 @@ def test_bh_fused_df_kernel_source(emu, name):
         return
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() <= 1e-12 * scale
+
+
+def _lists_case(dtype):
+    """Four groups of B = 300 slots (two blocks, the second partial) against
+    lists of M = 600 rows: lengths 517 and 300 (not multiples of the
+    256-row tile), 0, and the full 600; group 2 holds 200 bodies and 100
+    pad slots repeating its first body; each group's list holds one of its
+    own bodies (a zero self-term).  Rows past a length are zero, as the
+    traversals leave them."""
+    rng = np.random.default_rng(17)
+    g, b, m = 4, 300, 600
+    pg = rng.uniform(-2, 2, (g, b, 3))
+    pg[2, 200:] = pg[2, 0]
+    lengths = np.array([517, 0, 300, 600], np.int32)
+    lists = np.zeros((g, m, 4))
+    for k, length in enumerate(lengths):
+        lists[k, :length, :3] = rng.uniform(-3, 3, (length, 3))
+        lists[k, :length, 3] = rng.uniform(0.04, 1.0, length)
+        if length:
+            lists[k, length // 2, :3] = pg[k, 7]
+    return (torch.as_tensor(pg, dtype=dtype), torch.as_tensor(lists, dtype=dtype),
+            torch.as_tensor(lengths))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_group_lists_kernel_source(emu, dtype):
+    """K7 against its plain version (which runs the full M): f32 within
+    K1's bound, fp64 within 1e-12 of the force scale; a zero-length group
+    gets zero; reruns are bit-identical."""
+    pg, lists, lengths = _lists_case(dtype)
+    err, got = cuda_lists.launch(emu, pg, lists, lengths, None, eps2=0.01)
+    assert err == 0 and got.dtype == dtype
+    want = barneshut.eval_lists_reference(pg, lists, lengths, eps2=0.01)
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    np.testing.assert_array_equal(got[2, 200:].numpy(),
+                                  np.broadcast_to(got[2, 0].numpy(), (100, 3)))
+    scale = want.abs().max().item()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale, rtol=2e-4)
+    else:
+        assert (got - want).abs().max().item() <= 1e-12 * scale
+    _, again = cuda_lists.launch(emu, pg, lists, lengths, None, eps2=0.01)
+    assert torch.equal(again, got)
+
+
+def test_group_lists_kernel_source_in_the_pipeline(emu):
+    """The flat traversal's own lists through K7's source: the whole
+    list-based path within K1's bound of the plain path."""
+    arr = random_cloud(600, seed=8)
+    pos, mass = _f32(arr[:, :3]), _f32(arr[:, 6])
+
+    def emulated(pg, lists, lengths, *, eps2):
+        err, out = cuda_lists.launch(emu, pg, lists, lengths, None, eps2=eps2)
+        assert err == 0
+        return out
+
+    kw = dict(group_size=64, list_size=2048)
+    got = barneshut.barneshut_accelerations(pos, mass, group_forces=emulated, **kw)
+    want = barneshut.barneshut_accelerations(
+        pos, mass, group_forces=barneshut.eval_lists_reference, **kw)
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale, rtol=2e-4)
