@@ -6,9 +6,10 @@
 It drives the port's paths through the hand-written CUDA kernels and
 checks them: the default all-pairs CLI run (100k bodies x 10 KDK steps in
 f32 with --energy), the fused Barnes-Hut run (--algo auto at 1M bodies, 5
-KDK steps, f32, --energy), both again with --dtype f64, and the list-based
+KDK steps, f32, --energy), both again with --dtype f64, the list-based
 Barnes-Hut run (--bh-traversal flat at 1M bodies, 5 KDK steps, f32 and
-f64).  Phases (each raises on failure, so the script exits non-zero and
+f64), the tensor-core all-pairs kernel, and the robust Barnes-Hut run
+(--algo auto on a 1M Plummer sphere with escapers, f32 and f64).  Phases (each raises on failure, so the script exits non-zero and
 prints no result):
 
 1. card and build: nvidia-smi's name and power limit, nvcc's version, the
@@ -69,7 +70,26 @@ prints no result):
     evaluation split into sort+tree+groups, traversal, K7 and scatter, a
     torch.profiler trace of one evaluation (device busy share, kernel
     launches, the costliest kernels), and --no-output s/step at 1M in
-    turns flat, fused, fused, flat (and padded where it fits).
+    turns flat, fused, fused, flat (and padded where it fits);
+24. the tensor-core all-pairs kernel (K2) against its plain version at
+    100k x 100k, at 100,003 x 4,099, in per-body mode and on a cloud offset
+    from the origin; against K1, and against the fp64 formula on 256
+    targets; bit-identical reruns;
+25. the robust Barnes-Hut hybrid (barneshut_fused_robust: K6 + K1) against
+    exact forces on a 1M Plummer sphere with 8 escapers at r 300-1000, the
+    escapers against their own force scale; near bodies of the plain fused
+    path on the same input;
+26. the robust main path: that input as CSV, --algo auto --energy
+    --write-every 5 over 5 steps, counters reset just before and read just
+    after (K6 and K1 7 times each); drift and final positions against the
+    --algo exhaustive run of the same file;
+27. the same with --dtype f64 (K6 df + K4), its forces against K4's exact
+    ones;
+28. K2 beside K1 at 100k with K2's bound; one robust evaluation split into
+    box, depth probe, set-up, K6 and the K1 rectangle; the depth pricer's
+    unit costs on this card (K6 time against its stats lanes, set-up time
+    against the dense-grid nodes); --no-output s/step of the uniform 1M run
+    with --bh-robust off, on, on, off.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
@@ -174,7 +194,8 @@ def fused_work(args, stats, real_bytes: int) -> tuple[float, float]:
     return nbytes, pairs * FORCE_OPS
 
 
-SASS_OPS = ("FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA", "MUFU.RSQ", "MUFU.RSQ64H")
+SASS_OPS = ("FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA", "MUFU.RSQ", "MUFU.RSQ64H",
+            "HMMA", "F2F", "F2FP", "FRND")
 
 
 def sass_counts(nvcc: str, so_path: str) -> None:
@@ -625,7 +646,7 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
         cuda_potential_energy_f64,
         cuda_rect_accelerations_f64,
     )
-    from nbody_tpu_torch.ops.exhaustive import rect_accelerations
+    from nbody_tpu_torch.ops.cuda_exhaustive import rect_accelerations_reference
 
     f64 = torch.float64
     n = arr.shape[0]
@@ -634,7 +655,7 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
     # 12. fp64 all-pairs kernel
     print("[12] fp64 all-pairs kernel K4 (nbody_tpu_torch/csrc/allpairs_f64.cu)")
     got = cuda_accelerations_f64(b64.pos, b64.mass)
-    want = rect_accelerations(b64.pos, b64.pos, b64.mass)
+    want = rect_accelerations_reference(b64.pos, b64.pos, b64.mass)
     torch.cuda.synchronize()
     scale = want.abs().max().item()
     k4_err = (got - want).abs().max().item()
@@ -801,7 +822,8 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
     # 18. fp64 timing
     print(f"[18] fp64 timing on {card}")
     k4_ms = cuda_ms(torch, lambda: cuda_accelerations_f64(b64.pos, b64.mass), 10)
-    k4_plain_ms = cuda_ms(torch, lambda: rect_accelerations(b64.pos, b64.pos, b64.mass), 2)
+    k4_plain_ms = cuda_ms(torch, lambda: rect_accelerations_reference(b64.pos, b64.pos,
+                                                                     b64.mass), 2)
     k5_ms = cuda_ms(torch, lambda: cuda_potential_energy_f64(b64.pos, b64.mass), 10)
     k5_plain_ms = cuda_ms(torch, lambda: potential_energy_reference(b64.pos, b64.mass), 2)
     k5_1m_ms = cuda_ms(torch, lambda: cuda_potential_energy_f64(b1m64.pos, b1m64.mass), 1)
@@ -853,6 +875,293 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
          "plain_ms": k6df_plain_ms, "bound_ms": k6df_bound[0], "bound_by": k6df_bound[1],
          "library_ms": None},
     ]
+
+
+K2_OPS = 13  # CUDA-core operations per pair of K2: the force's 19 less the 6 of the j-sum
+K2_TC_FLOPS = 8  # tensor-core flops per pair of the contraction W @ [x y z 1]
+TF32_PEAK = 495e12  # dense TF32 tensor-core FLOP/s
+OFFSET = (8.0, -8.0, 8.0)  # [24]'s cloud off the origin
+
+
+def with_escapers(arr: np.ndarray) -> np.ndarray:
+    """`arr` with its first 8 bodies moved out to r 300-1000, in the manner
+    of tests/test_bh_robust.py:20-28."""
+    out = arr.copy()
+    rng = np.random.default_rng(1)
+    u = rng.normal(size=(8, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    out[:8, :3] = u * rng.uniform(300.0, 1000.0, (8, 1))
+    return out
+
+
+def fit_unit_costs(points) -> tuple[float, float]:
+    """(ns per staged source, ns per 128 classified cells) by least squares
+    over (K6 ms, staged sources, classified cells), each cost kept >= 0."""
+    a = np.array([[s, c / 128.0] for _, s, c in points])
+    t = np.array([ms * 1e6 for ms, _, _ in points])
+    x = np.linalg.lstsq(a, t, rcond=None)[0]
+    if x[1] < 0:
+        x = np.array([float(a[:, 0] @ t / (a[:, 0] @ a[:, 0])), 0.0])
+    if x[0] < 0:
+        x = np.array([0.0, float(a[:, 1] @ t / (a[:, 1] @ a[:, 1]))])
+    return float(x[0]), float(x[1])
+
+
+def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> dict:
+    """Phases [24]-[28]: K2 against its plain version and K1, and the robust
+    Barnes-Hut hybrid (K6 + K1, K6 df + K4) at 1M bodies.  Returns K2's
+    entry of the JSON line."""
+    from nbody_tpu_torch.core.types import Bodies
+    from nbody_tpu_torch.diag.energy import cuda_potential_energy
+    from nbody_tpu_torch.ops import bh_autold, bh_fused, bh_fused_df
+    from nbody_tpu_torch.ops.cuda_exhaustive import (
+        cuda_accelerations,
+        cuda_rect_accelerations,
+        cuda_rect_accelerations_mxu,
+        rect_accelerations_mxu_reference,
+    )
+    from nbody_tpu_torch.ops.cuda_fp64 import (
+        cuda_accelerations_f64,
+        cuda_potential_energy_f64,
+        cuda_rect_accelerations_f64,
+    )
+    from nbody_tpu_torch.utils.fixtures import plummer_cloud, random_cloud, write_fixture
+
+    f32, f64 = torch.float32, torch.float64
+    n = arr.shape[0]
+    b = Bodies.from_numpy(arr, dtype=f32, device=dev)
+
+    # 24. K2 against its plain version, K1 and the fp64 formula
+    print("[24] tensor-core all-pairs kernel K2 (nbody_tpu_torch/csrc/allpairs_mma.cu)")
+    cuda_rect_accelerations_mxu.launches = 0
+    got = cuda_accelerations(b.pos, b.mass, use_mxu=True)
+    want, k2_plain_ms = timed_once(torch, lambda: rect_accelerations_mxu_reference(
+        b.pos, b.pos, b.mass))
+    k2_err = f32_close(torch, got, want, f"{n} x {n} against its plain version")
+    f32_close(torch, got, k1_100k, f"{n} x {n} against K1")
+    rows = np.sort(np.random.default_rng(0).choice(n, 256, replace=False))
+    oracle = np.concatenate([fp64_forces(arr[rows[k:k + 32], :3], arr[:, :3], arr[:, 6])
+                             for k in range(0, len(rows), 32)])
+    rel = float(np.abs(got[torch.as_tensor(rows, device=dev)].cpu().numpy() - oracle).max()
+                / np.abs(oracle).max())
+    print(f"  256 targets x {n} against the fp64 formula (numpy): rel {rel:.3e} (bound 2e-3, "
+          "tests/test_softening.py:163)")
+    check(rel < 2e-3, "K2 against the fp64 formula")
+    check(torch.equal(cuda_accelerations(b.pos, b.mass, use_mxu=True), got),
+          "K2 reruns are bit-identical")
+    print("  two kernel runs bit-identical: True")
+    c = torch.as_tensor(random_cloud(100_003, 2), dtype=f32, device=dev)
+    pi, pj, mj = c[:, :3].contiguous(), c[:4_099, :3].contiguous(), c[:4_099, 6].contiguous()
+    got_u = cuda_rect_accelerations(pi, pj, mj, use_mxu=True)
+    f32_close(torch, got_u, rect_accelerations_mxu_reference(pi, pj, mj),
+              "100003 x 4099 against its plain version")
+    f32_close(torch, got_u, cuda_rect_accelerations(pi, pj, mj), "100003 x 4099 against K1")
+    e2 = torch.as_tensor(np.random.default_rng(3).uniform(1e-3, 1e-2, n), dtype=f32,
+                         device=dev)
+    got_pb = cuda_accelerations(b.pos, b.mass, eps2_per_body=e2, use_mxu=True)
+    f32_close(torch, got_pb, rect_accelerations_mxu_reference(
+        b.pos, b.pos, b.mass, eps2_i=e2, eps2_all=e2),
+        f"per-body eps2 in [1e-3, 1e-2], {n} x {n}, against its plain version")
+    f32_close(torch, got_pb, cuda_accelerations(b.pos, b.mass, eps2_per_body=e2),
+              "per-body against K1")
+    off = (b.pos + torch.tensor(OFFSET, dtype=f32, device=dev)).contiguous()
+    got_o = cuda_accelerations(off, b.mass, use_mxu=True)
+    f32_close(torch, got_o, rect_accelerations_mxu_reference(off, off, b.mass),
+              f"cloud offset by {OFFSET}, against its plain version")
+    f32_close(torch, got_o, cuda_accelerations(off, b.mass), "offset cloud against K1")
+    k2_launches = cuda_rect_accelerations_mxu.launches
+    print(f"  K2 launches in [24]: {k2_launches} (no CLI path takes K2, as in JAX)")
+    del want, got_u, got_pb, got_o, c, pi, pj, mj, off
+
+    # 25. robust forces at 1M
+    print(f"[25] robust hybrid (K6 + K1) against exact forces: plummer_cloud({BH_N}, "
+          "seed=0) with 8 bodies at r 300-1000")
+    arr_r = with_escapers(plummer_cloud(BH_N, seed=0))
+    br = Bodies.from_numpy(arr_r, dtype=f32, device=dev)
+    counters = (bh_fused.fused_group_forces, cuda_rect_accelerations)
+    for cnt in counters:
+        cnt.launches = 0
+    acc_r, st_r = bh_fused.barneshut_fused_robust(br.pos, br.mass, return_stats=True)
+    exact_r = cuda_accelerations(br.pos, br.mass)
+    torch.cuda.synchronize()
+    check([cnt.launches for cnt in counters] == [1, 2], "one K6 and one K1 launch "
+          "(and K1 for the exact forces)")
+    dmax_r = (acc_r - exact_r).abs().max().item()
+    rel_r = dmax_r / exact_r.abs().max().item()
+    own = ((acc_r[:8] - exact_r[:8]).abs().amax(dim=1) / exact_r[:8].abs().amax(dim=1))
+    print(f"  max |a - exact| / max |a| = {rel_r:.4e} (bound {BH_BOUND}); escapers against "
+          f"their own force scale: max {own.max().item():.4e} (bound {BH_BOUND}); robust "
+          f"near bodies {int(st_r['near_bodies'])}, frontier overflow "
+          f"{int(st_r['frontier_overflow'])}")
+    check(rel_r < BH_BOUND and own.max().item() < BH_BOUND
+          and bool(torch.isfinite(acc_r).all()), "robust forces within 0.02 of exact")
+    (_, st_p), plain_ms = timed_once(torch, lambda: bh_fused.barneshut_fused(
+        br.pos, br.mass, return_stats=True))
+    print(f"  near bodies, plain fused against robust on this input: "
+          f"{int(st_p['near_bodies'])} against {int(st_r['near_bodies'])}; one plain "
+          f"evaluation {plain_ms:.4f} ms [{card}]")
+
+    # 26. the robust main path
+    print(f"[26] robust main path: {BH_N} bodies x {BH_STEPS} KDK steps, --algo auto "
+          "--energy --write-every 5, f32")
+    csv_r = os.path.join(tmp, "robust_1m.csv")
+    write_fixture(csv_r, arr_r)
+    counters = (bh_fused.fused_group_forces, bh_fused_df.fused_group_forces_df,
+                cuda_rect_accelerations, cuda_rect_accelerations_f64,
+                cuda_rect_accelerations_mxu, cuda_potential_energy, cuda_potential_energy_f64)
+
+    def main_path(argv):
+        for cnt in counters:
+            cnt.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, text, err = run_cli_rc(argv)
+        torch.cuda.synchronize()
+        check(rc == 0, f"CLI exit code {rc} for {argv}")
+        return text, err, time.perf_counter() - t0, [cnt.launches for cnt in counters]
+
+    out_r = os.path.join(tmp, "robust.csv")
+    text, err, wall, launches = main_path([csv_r, *BH_WINDOW, out_r, "--energy",
+                                           "--write-every", "5", "--algo", "auto"])
+    k6_l, k6df_l, k1_l, k4_l, k2_l, k3_l, k5_l = launches
+    print(f"  launches: K6 {k6_l}, K1 {k1_l} (want {BH_STEPS + 2} each: probe + "
+          f"{BH_STEPS + 1} evaluations), potential {k3_l} (want 2), K6 df {k6df_l}, K4 "
+          f"{k4_l}, K2 {k2_l}, K5 {k5_l} (want 0); whole CLI call {wall:.4f} s")
+    check("enabling --bh-robust on" in err and "data-adaptive grid depth picked" in err,
+          "the robust hybrid and the depth pricer engaged")
+    check("Algorithm: barnes-hut, backend: cuda/fused/robust, dtype: f32" in text,
+          "the banner names the robust hybrid")
+    check(k6_l == k1_l == BH_STEPS + 2 and k3_l == 2, "K6 / K1 / K3 launches")
+    check(k6df_l == k4_l == k2_l == k5_l == 0, "no other kernel")
+    frames_r = load_frames(out_r, BH_N, frames=2)
+    drift_r = cli_number(text, "Relative energy drift:")
+    out_x = os.path.join(tmp, "robust_ex.csv")
+    text_x, _, _, _ = main_path([csv_r, *BH_WINDOW, out_x, "--energy", "--write-every", "5",
+                                 "--algo", "exhaustive"])
+    frames_x = load_frames(out_x, BH_N, frames=2)
+    drift_x = cli_number(text_x, "Relative energy drift:")
+    t_bh = BH_STEPS * BH_DT
+    pos_bound = dmax_r * t_bh * t_bh + 2e-6
+    dpos = float(np.abs(frames_r[-1, :, 1:4] - frames_x[-1, :, 1:4]).max())
+    print(f"  final positions against the exhaustive run's max |diff| {dpos:.3e} (bound "
+          f"{pos_bound:.3e}); drift robust {drift_r:.6e} vs exhaustive {drift_x:.6e}, |diff| "
+          f"{abs(drift_r - drift_x):.3e} (bound 1e-3)")
+    check(dpos < pos_bound, "robust final positions agree with the exhaustive run")
+    check(abs(drift_r - drift_x) < 1e-3, "robust drift agrees with the exhaustive run")
+    del frames_r, frames_x
+
+    # 27. the same with --dtype f64
+    print(f"[27] robust main path, --dtype f64 (K6 df + K4)")
+    text, err, wall, launches = main_path([csv_r, *BH_WINDOW, os.path.join(tmp, "r64.csv"),
+                                           "--energy", "--write-every", "5", "--algo", "auto",
+                                           "--dtype", "f64"])
+    k6_l, k6df_l, k1_l, k4_l, k2_l, k3_l, k5_l = launches
+    print(f"  launches: K6 df {k6df_l}, K4 {k4_l} (want {BH_STEPS + 2} each), fp64 potential "
+          f"{k5_l} (want 2), K6 {k6_l}, K1 {k1_l}, K2 {k2_l}, K3 {k3_l} (want 0); whole CLI "
+          f"call {wall:.4f} s")
+    check("backend: cuda/fused/robust, dtype: f64" in text, "the f64 robust banner")
+    check(k6df_l == k4_l == BH_STEPS + 2 and k5_l == 2, "K6 df / K4 / K5 launches")
+    check(k6_l == k1_l == k2_l == k3_l == 0, "no f32 kernel on the f64 path")
+    drift_r64 = cli_number(text, "Relative energy drift:")
+    print(f"  drift f64 {drift_r64:.6e} against the f32 run's {drift_r:.6e}, |diff| "
+          f"{abs(drift_r64 - drift_r):.3e} (bound 1e-3)")
+    check(abs(drift_r64 - drift_r) < 1e-3, "f64 and f32 robust drifts agree")
+    br64 = Bodies.from_numpy(arr_r, dtype=f64, device=dev)
+    acc64 = bh_fused_df.barneshut_fused_robust_df(br64.pos, br64.mass)
+    exact64 = cuda_accelerations_f64(br64.pos, br64.mass)
+    torch.cuda.synchronize()
+    rel64 = (acc64 - exact64).abs().max().item() / exact64.abs().max().item()
+    print(f"  barneshut_fused_robust_df against K4's exact forces: max |a - exact| / max |a| "
+          f"= {rel64:.4e} (bound {BH_BOUND}; f32 {rel_r:.4e})")
+    check(rel64 < BH_BOUND and bool(torch.isfinite(acc64).all()),
+          "f64 robust forces within 0.02 of exact")
+    del br64, acc64, exact64
+
+    # 28. times and the H100 unit costs of the depth pricer
+    print(f"[28] timing on {card}")
+    k2_ms = cuda_ms(torch, lambda: cuda_accelerations(b.pos, b.mass, use_mxu=True), 10)
+    k1_ms = cuda_ms(torch, lambda: cuda_accelerations(b.pos, b.mass), 10)
+    pairs = float(n) ** 2
+    nbytes = (2 * n * 3 + n + n * 3) * 4
+    t_bytes, t_cc, t_tc = nbytes / HBM_BPS, pairs * K2_OPS / FP32_PEAK, (
+        pairs * K2_TC_FLOPS / TF32_PEAK)
+    k2_bound = (max(t_bytes, t_cc, t_tc) * 1e3,
+                "bytes" if t_bytes > max(t_cc, t_tc) else "operations")
+    print(f"  K2 {n}x{n}: {k2_ms:.4f} ms ({pairs / k2_ms / 1e-3:.4e} pairs/s), K1 {k1_ms:.4f} "
+          f"ms in the same call; K2's bound {k2_bound[0]:.4f} ms ({k2_bound[1]}: {K2_OPS} "
+          f"CUDA-core operations a pair at 67 TFLOP/s {t_cc * 1e3:.4f} ms, the contraction "
+          f"{K2_TC_FLOPS} flops a pair at 495 TF32 TFLOP/s {t_tc * 1e3:.4f} ms), "
+          f"{k2_ms / k2_bound[0]:.2f}x it; plain {k2_plain_ms:.4f} ms (one run) [{card}]")
+    center, border, out_idx = bh_fused.robust_box(br.pos)
+    box_ms = cuda_ms(torch, lambda: bh_fused.robust_box(br.pos), 10)
+    t0 = time.perf_counter()
+    ld_pick, costs = bh_autold.choose_ld(arr_r[:, 0:3], arr_r[:, 6], robust=True)
+    probe_s = time.perf_counter() - t0
+    rel = br.pos - center
+    mass_bh = br.mass.index_fill(0, out_idx, 0.0)
+    fi = bh_fused.prepare_fused(rel, mass_bh, ld=ld_pick, border=border)
+    kw = dict(theta=0.5, eps2=0.01, leaf_cap=64, ld=fi.ld, group_size=fi.group_size)
+    k6args = (fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq)
+    prep_ms = cuda_ms(torch, lambda: bh_fused.prepare_fused(rel, mass_bh, ld=ld_pick,
+                                                            border=border), 5)
+    k6_ms = cuda_ms(torch, lambda: bh_fused.fused_group_forces(*k6args, **kw), 5)
+    src_o, m_o = br.pos[out_idx].contiguous(), br.mass[out_idx].contiguous()
+    rect_ms = cuda_ms(torch, lambda: cuda_rect_accelerations(br.pos, src_o, m_o), 5)
+    whole_ms = cuda_ms(torch, lambda: bh_fused.barneshut_fused_robust(br.pos, br.mass,
+                                                                      ld=ld_pick), 5)
+    print(f"  one robust evaluation at {BH_N} (ld {ld_pick}, K {out_idx.numel()}): whole "
+          f"{whole_ms:.4f} ms; box {box_ms:.4f} ms + sort+build+groups {prep_ms:.4f} ms + K6 "
+          f"{k6_ms:.4f} ms + K1 rectangle ({BH_N} x {out_idx.numel()}) {rect_ms:.4f} ms "
+          f"(parts timed apart); the depth probe (host, once per input) {probe_s:.4f} s "
+          f"[{card}]")
+    # unit costs: K6 time against its stats lanes, set-up time against the
+    # dense-grid nodes, over depths of this input and of the uniform cloud
+    points, builds = [], []
+    b1m = Bodies.from_numpy(random_cloud(BH_N, seed=0), dtype=f32, device=dev)
+    for label, (p_, m_, bd_), lds in (("robust", (rel, mass_bh, border), (5, 6, 7, 8)),
+                                       ("uniform", (b1m.pos, b1m.mass, None), (4, 5, 6, 7))):
+        for ld in lds:
+            fi = bh_fused.prepare_fused(p_, m_, ld=ld, border=bd_)
+            kw = dict(theta=0.5, eps2=0.01, leaf_cap=64, ld=ld, group_size=fi.group_size)
+            a_ = (fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq)
+            _, st = bh_fused.fused_group_forces(*a_, **kw)
+            ms = cuda_ms(torch, lambda: bh_fused.fused_group_forces(*a_, **kw), 3)
+            pm = cuda_ms(torch, lambda: bh_fused.prepare_fused(p_, m_, ld=ld, border=bd_), 3)
+            staged = float(st[:, bh_fused.S_SRC].double().sum().item())
+            classified = 8.0 * float(st[:, bh_fused.S_POPS].double().sum().item())
+            nodes = (8 ** (ld + 1) - 1) // 7
+            points.append((ms, staged, classified))
+            builds.append((label, nodes, pm))
+            print(f"  {label} ld {ld}: K6 {ms:.4f} ms, staged sources {staged:.4e}, classified "
+                  f"cells (8 x pops) {classified:.4e}; set-up {pm:.4f} ms over {nodes} nodes")
+    ns_src, ns_pop = fit_unit_costs(points)
+    rb = [(nd, pm) for label, nd, pm in builds if label == "robust"]
+    ns_node = max(0.0, float(np.polyfit([nd for nd, _ in rb], [pm * 1e6 for _, pm in rb],
+                                        1)[0]))
+    print(f"  H100 unit costs: NS_PER_SOURCE {ns_src:.4f}, NS_PER_POP {ns_pop:.4f} (per 128 "
+          f"classified cells), NS_PER_BUILD_NODE {ns_node:.4f} (the port's now: "
+          f"{bh_autold.NS_PER_SOURCE}, {bh_autold.NS_PER_POP}, "
+          f"{bh_autold.NS_PER_BUILD_NODE}) [{card}]")
+    del fi, k6args, points
+    rc, text, _ = run_cli_rc([csv_r, *BH_WINDOW, os.path.join(tmp, "x.csv"), "--no-output",
+                              "--algo", "auto"])
+    check(rc == 0, f"robust --no-output exit code {rc}")
+    sim = cli_number(text, "Elapsed wall time:")
+    print(f"  {BH_N} Plummer with escapers --no-output --algo auto (robust): simulate "
+          f"{sim:.4f} s -> {sim / BH_STEPS:.4f} s/step [{card}]")
+    for robust in ("off", "on", "on", "off"):
+        rc, text, _ = run_cli_rc([csv1m, *BH_WINDOW, os.path.join(tmp, "x.csv"), "--no-output",
+                                  "--algo", "auto", "--bh-robust", robust])
+        check(rc == 0, f"--bh-robust {robust} --no-output exit code {rc}")
+        sim = cli_number(text, "Elapsed wall time:")
+        print(f"  {BH_N} uniform --no-output --bh-robust {robust}: simulate {sim:.4f} s -> "
+              f"{sim / BH_STEPS:.4f} s/step [{card}]")
+    return {"name": "allpairs_mma_f32", "route": "cuda",
+            "source": "nbody_tpu_torch/csrc/allpairs_mma.cu",
+            "replaces": "nbody_tpu/ops/pallas_exhaustive.py:80",
+            "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
+            "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+            "library_ms": None}
 
 
 def main() -> int:
@@ -1145,6 +1454,8 @@ def main() -> int:
         fp64_kernels = fp64_phases(torch, dev, card, arr, arr1m, csv1m, tmp, drift_bh)
         list_kernels = list_phases(torch, dev, card, arr, arr1m, csv1m, tmp, exact,
                                    frames_ex, drift_ex, drift_bh)
+        del exact
+        k2_entry = robust_phases(torch, dev, card, arr, got, tmp, csv1m)
 
     small = (2 * n * 3 + n + n * 3) * 4  # pos_i, pos_j, mass, out (f32)
     k1_bound = bound(small, pairs * FORCE_OPS, FP32_PEAK)
@@ -1157,6 +1468,7 @@ def main() -> int:
          "launches": k1_launches, "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
+        k2_entry,
         {"name": "potential_f32", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/potential.cu",
          "replaces": "nbody_tpu/diag/energy.py:27",

@@ -13,8 +13,11 @@ barnes-hut``, or ``auto`` above 32,768 bodies), with the
 traverse-and-evaluate kernel (``ops/bh_fused.py``); the list-based
 Barnes-Hut run (``--bh-traversal flat|padded``, and ``auto`` with
 ``--backend torch``), with the group x interaction-list kernel
-(``ops/barneshut.py``, ``ops/cuda_lists.py``); and ``--dtype f64`` for
-all of them, through native fp64 kernels.
+(``ops/barneshut.py``, ``ops/cuda_lists.py``); ``--dtype f64`` for all
+of them, through native fp64 kernels; the tensor-core all-pairs kernel
+(``cuda_accelerations(use_mxu=True)``); and the exact outlier hybrid of
+the fused run (``--bh-robust``, ``ops/bh_fused.py``) with its depth
+pricer (``ops/bh_autold.py``).
 
 The names below are re-exported lazily: importing the package imports
 neither jax nor triton and builds no kernel.
@@ -32,6 +35,7 @@ _EXPORTS = {
     "exhaustive_accelerations": "nbody_tpu_torch.ops.exhaustive",
     "cuda_accelerations": "nbody_tpu_torch.ops.cuda_exhaustive",
     "barneshut_fused": "nbody_tpu_torch.ops.bh_fused",
+    "barneshut_fused_robust": "nbody_tpu_torch.ops.bh_fused",
     "barneshut_accelerations": "nbody_tpu_torch.ops.barneshut",
     "leapfrog_steps": "nbody_tpu_torch.integrate.leapfrog",
     "simulate": "nbody_tpu_torch.integrate.leapfrog",

@@ -22,12 +22,24 @@ Routing:
   ``auto`` is fused with ``cuda`` and flat with ``torch``, as JAX's auto
   is fused with ``pallas`` and flat with ``jnp``.
 * The all-pairs kernels: K1 (``ops/cuda_exhaustive.py``) in f32, K4
-  (``ops/cuda_fp64.py``) with ``--dtype f64``.  ``--backend torch --dtype
-  f64`` takes the same decision rules through the plain versions.
+  (``ops/cuda_fp64.py``) with ``--dtype f64``.  ``--backend torch`` takes
+  the plain ``exhaustive_accelerations`` in JAX's ``auto`` mode (``mxu``
+  above 2,048 bodies, as ``--backend jnp``); ``--backend torch --dtype
+  f64`` takes the Barnes-Hut decision rules through the plain versions.
+* ``--softening-per-body FILE`` (one ε per body, cli/main.py:372-400)
+  runs all-pairs only, through K1 on the card or the plain path; with
+  ``--dtype f64`` and the cuda backend it exits, as JAX's ``pallas-df``
+  does, since K4 has no per-body mode.
+* ``--bh-robust`` on the fused traversal is the exact outlier hybrid
+  (``ops/bh_fused.py::barneshut_fused_robust``, or ``bh_fused_df``'s in
+  f64): ``auto`` resolves to on where the full/robust border ratio is
+  above 4 (cli/main.py:638-666), and above 32,768 bodies without
+  ``--bh-ld`` the depth comes from ``ops/bh_autold.choose_ld_cached``
+  (cli/main.py:668-699).  The tree goes through K6 (or its df mode) and
+  the outliers' rectangle through K1 (or K4).
 * Options that are not ported exit 2 and name what is missing:
-  ``--bh-robust`` on the fused traversal when it is on or ``auto``
-  resolves to on (the robust hybrid), ``--resort-every`` on the fused
-  traversal (the persistent layout) and ``--timers``.  None runs another
+  ``--resort-every`` on the fused traversal (the persistent layout, with
+  or without the robust hybrid) and ``--timers``.  None runs another
   computation in its place.  On a list traversal ``--bh-robust`` and
   ``--resort-every`` do nothing in JAX either: the port prints JAX's note
   or warning and runs.
@@ -99,6 +111,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--theta", type=float, default=constants.THETA)
     p.add_argument("--softening2", type=float, default=constants.SOFTENING_SQ)
     p.add_argument(
+        "--softening-per-body",
+        metavar="FILE",
+        default=None,
+        help="per-body softening lengths eps_i, one per line (N lines); pairs "
+        "soften with the symmetric mean (eps_i^2 + eps_j^2)/2.  Exhaustive "
+        "algorithm only",
+    )
+    p.add_argument(
         "--no-output",
         action="store_true",
         help="skip trajectory writing (the reference's non--DRESULTS build)",
@@ -128,10 +148,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--bh-robust",
         choices=["auto", "on", "off"],
         default="auto",
-        help="exact outlier hybrid for the fused Barnes-Hut path (not "
-        "ported yet: a fused run where it is on, or where auto finds a "
-        "full/robust border ratio above 4, exits 2; the list traversals "
-        "ignore it)",
+        help="exact outlier hybrid for the fused Barnes-Hut path: size the "
+        "root cube ignoring the ~n/512 most distant bodies and add their "
+        "pull with one exact (N, K) all-pairs rectangle (auto: on where the "
+        "full/robust border ratio is above 4; the list traversals ignore "
+        "it)",
     )
     p.add_argument("--bh-group-size", type=int, default=0,
                    help="Barnes-Hut bodies per traversal group (0 = auto: "
@@ -244,6 +265,29 @@ def robust_ratio(pos: np.ndarray) -> float:
     return float(np.abs(pos).max() / max(d_k, 1e-30))
 
 
+def read_softening_per_body(path: str, n: int, algo: str, dtype: str,
+                            backend: str) -> np.ndarray:
+    """The per-body softening lengths of ``--softening-per-body`` (one per
+    line, f64), or ValueError with JAX's message where the run cannot take
+    them (cli/main.py:372-400): a tree algorithm, a count other than n, or
+    f64 on the kernel backend (K4 has no per-body mode, as JAX's
+    ``pallas-df`` has none)."""
+    if algo != "exhaustive":
+        raise ValueError(f"--softening-per-body requires --algo exhaustive (got algo="
+                         f"{algo}); tree paths need per-node softening classes")
+    if dtype == "f64" and backend == "cuda":
+        raise ValueError("--softening-per-body has no fp64 kernel (K4 takes no per-body "
+                         "softening, nor does JAX's pallas-df): use --backend torch for "
+                         "f64 per-body softening")
+    try:
+        eps = np.loadtxt(path, dtype=np.float64).reshape(-1)
+    except OSError as e:
+        raise ValueError(f"--softening-per-body: {e}") from e
+    if eps.shape[0] != n:
+        raise ValueError(f"--softening-per-body: {eps.shape[0]} values for {n} bodies")
+    return eps
+
+
 def fused_kwargs(args) -> dict:
     """Knobs of the fused traversal from flags (0 = auto, omitted)."""
     flags = {"group_size": args.bh_group_size, "leaf_cap": args.bh_leaf_cap,
@@ -263,9 +307,11 @@ def list_kwargs(args) -> dict:
 def build_force_fn(backend: str, G: float, softening_sq: float,
                    algo: str = "exhaustive", theta: float = constants.THETA,
                    bh_kw: dict | None = None, dtype: str = "f32",
-                   traversal: str = "fused"):
+                   traversal: str = "fused", robust: bool = False,
+                   eps2_per_body=None):
     """The force function of a run; `traversal` is a resolved Barnes-Hut
-    engine (fused, flat or padded)."""
+    engine (fused, flat or padded), `robust` the resolved ``--bh-robust``
+    of the fused traversal, `eps2_per_body` the all-pairs per-body ε²."""
     if algo == "barnes-hut" and traversal != "fused":
         from nbody_tpu_torch.ops import barneshut, cuda_lists
 
@@ -280,28 +326,40 @@ def build_force_fn(backend: str, G: float, softening_sq: float,
                        **(bh_kw or {}))
     if algo == "barnes-hut":
         from nbody_tpu_torch.ops import bh_fused, bh_fused_df
+        from nbody_tpu_torch.ops.cuda_exhaustive import (
+            cuda_rect_accelerations,
+            rect_accelerations_reference,
+        )
+        from nbody_tpu_torch.ops.cuda_fp64 import cuda_rect_accelerations_f64
 
         if dtype == "f64":
-            fn, kernel, plain = (bh_fused_df.barneshut_fused_df,
-                                 bh_fused_df.fused_group_forces_df,
-                                 bh_fused_df.fused_group_forces_df_reference)
+            fn = (bh_fused_df.barneshut_fused_robust_df if robust
+                  else bh_fused_df.barneshut_fused_df)
+            kernel, plain = (bh_fused_df.fused_group_forces_df,
+                             bh_fused_df.fused_group_forces_df_reference)
+            rect = cuda_rect_accelerations_f64
         else:
-            fn, kernel, plain = (bh_fused.barneshut_fused, bh_fused.fused_group_forces,
-                                 bh_fused.fused_group_forces_reference)
-        group_forces = kernel if backend == "cuda" else plain
-        return partial(fn, G=G, softening_sq=softening_sq, theta=theta,
-                       group_forces=group_forces, **(bh_kw or {}))
+            fn = bh_fused.barneshut_fused_robust if robust else bh_fused.barneshut_fused
+            kernel, plain = bh_fused.fused_group_forces, bh_fused.fused_group_forces_reference
+            rect = cuda_rect_accelerations
+        kw = dict(bh_kw or {}, group_forces=kernel if backend == "cuda" else plain)
+        if robust:  # the outliers' rectangle: K1 / K4, or their plain version
+            kw["rect_forces"] = rect if backend == "cuda" else rect_accelerations_reference
+        return partial(fn, G=G, softening_sq=softening_sq, theta=theta, **kw)
+    per_body = {} if eps2_per_body is None else {"eps2_per_body": eps2_per_body}
     if backend == "cuda" and dtype == "f64":
         from nbody_tpu_torch.ops.cuda_fp64 import cuda_accelerations_f64
 
+        if per_body:
+            raise ValueError("K4 takes no per-body softening")
         return partial(cuda_accelerations_f64, G=G, softening_sq=softening_sq)
     if backend == "cuda":
         from nbody_tpu_torch.ops.cuda_exhaustive import cuda_accelerations
 
-        return partial(cuda_accelerations, G=G, softening_sq=softening_sq)
+        return partial(cuda_accelerations, G=G, softening_sq=softening_sq, **per_body)
     from nbody_tpu_torch.ops.exhaustive import exhaustive_accelerations
 
-    return partial(exhaustive_accelerations, G=G, softening_sq=softening_sq)
+    return partial(exhaustive_accelerations, G=G, softening_sq=softening_sq, **per_body)
 
 
 def main(argv=None) -> int:
@@ -342,9 +400,13 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     traversal = resolve_traversal(args.bh_traversal, backend)
+    robust = False
     if algo == "barnes-hut":
         why = unported_bh_option(args, backend, traversal)
-        if why is None and args.bh_robust != "off":
+        if why is not None:
+            print(f"error: {why}", file=sys.stderr)
+            return 2
+        if args.bh_robust != "off":
             # --bh-robust auto resolves as cli/main.py:642-666
             ratio = robust_ratio(arr[:, 0:3])
             robust = args.bh_robust == "on" or ratio > 4.0
@@ -356,16 +418,20 @@ def main(argv=None) -> int:
                 # JAX's list path never reads the flag (cli/main.py:311-320)
                 print(f"note: --bh-robust applies to the fused traversal only; "
                       f"--bh-traversal {traversal} runs without it", file=sys.stderr)
-            elif robust:
-                why = ("the robust Barnes-Hut hybrid (barneshut_fused_robust, "
-                       "ROADMAP queue 1 item 5) is not ported yet, and "
-                       + ("--bh-robust on asks for it" if args.bh_robust == "on"
-                          else f"--bh-robust auto resolves to on for this input "
-                          f"(full/robust border ratio {ratio:.0f} > 4)")
-                       + "; --bh-robust off runs the plain fused path")
-        if why is not None:
-            print(f"error: {why}", file=sys.stderr)
-            return 2
+                robust = False
+        if robust and not args.bh_ld and arr.shape[0] > BH_AUTO_MIN_N:
+            # data-adaptive grid depth for the robust run (cli/main.py:668-699)
+            from nbody_tpu_torch.ops.bh_autold import choose_ld_cached
+
+            args.bh_ld, was_cached = choose_ld_cached(
+                arr[:, 0:3], arr[:, 6], robust=True, theta=args.theta,
+                leaf_cap=args.bh_leaf_cap or 64, group_size=args.bh_group_size or 1024,
+                persistent=args.resort_every > 0,
+            )
+            print(f"note: data-adaptive grid depth picked --bh-ld {args.bh_ld} "
+                  + ("(cached probe; " if was_cached else
+                     "(measured-cost pricing of the Morton occupancy histogram; ")
+                  + "override with --bh-ld)", file=sys.stderr)
     if args.resort_every > 0 and not wants_persistent(args, algo, traversal):
         # cli/main.py:935-957
         print("warning: --resort-every requires the fused Barnes-Hut path with "
@@ -375,6 +441,15 @@ def main(argv=None) -> int:
               + "; ignoring", file=sys.stderr)
     dtype = torch.float64 if args.dtype == "f64" else torch.float32
     device = torch.device(args.device)
+    eps2_per_body = None
+    if args.softening_per_body:
+        try:
+            eps = read_softening_per_body(args.softening_per_body, arr.shape[0], algo,
+                                          args.dtype, backend)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        eps2_per_body = torch.as_tensor(eps * eps, dtype=dtype, device=device)
     bodies = Bodies.from_numpy(arr, dtype=dtype, device=device)
 
     # Reference semantics: dt parsed as C float, n_steps truncated float div
@@ -385,11 +460,11 @@ def main(argv=None) -> int:
     listed = algo == "barnes-hut" and traversal != "fused"
     bh_kw = list_kwargs(args) if listed else fused_kwargs(args)
     force = build_force_fn(backend, args.G, args.softening2, algo, args.theta, bh_kw,
-                           args.dtype, traversal)
+                           args.dtype, traversal, robust, eps2_per_body)
     backend_label = backend
     if algo == "barnes-hut":
         if not listed:
-            backend_label = f"{backend}/fused"
+            backend_label = f"{backend}/fused" + ("/robust" if robust else "")
         if not args.no_capacity_check:
             # startup capacity probe, one force evaluation through the run's
             # own traversal and evaluator (cli/main.py:728-775)
@@ -400,7 +475,7 @@ def main(argv=None) -> int:
             )
             from nbody_tpu_torch.ops.bh_fused import check_fused
 
-            probe = check_capacities if listed else check_fused
+            probe = check_capacities if listed else partial(check_fused, robust=robust)
             try:
                 probe(bodies.pos, bodies.mass, **force.keywords)
             except CapacityError as e:

@@ -63,10 +63,10 @@ def find_nvcc() -> str:
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of the kernel library's entry points."""
-    lib.nbody_allpairs_f32.restype = _I
-    lib.nbody_allpairs_f32.argtypes = [
-        _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _P, _P,
-    ]
+    for name in ("nbody_allpairs_f32", "nbody_allpairs_mma_f32"):
+        fn = getattr(lib, name)
+        fn.restype = _I
+        fn.argtypes = [_P, _P, _P, _P, _P, _F, _I, _I, _P, _P]
     lib.nbody_potential_partials.restype = _I
     lib.nbody_potential_partials.argtypes = [_I]
     lib.nbody_potential_f32.restype = _I

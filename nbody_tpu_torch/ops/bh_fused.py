@@ -49,7 +49,7 @@ from nbody_tpu_torch.ops.barneshut import (
     group_ranges,
 )
 from nbody_tpu_torch.ops.bh_grid import GridTree, build_grid, grid_offsets
-from nbody_tpu_torch.ops.cuda_exhaustive import check_tensor
+from nbody_tpu_torch.ops.cuda_exhaustive import check_tensor, cuda_rect_accelerations
 from nbody_tpu_torch.ops.morton import morton_sort
 
 FRONTIER_CAP = 2048  # cells per level per group (runtime overflow-checked)
@@ -447,12 +447,15 @@ def summarize_stats(stats: torch.Tensor, trimmed: torch.Tensor) -> dict:
     }
 
 
-def check_fused(pos, mass, **kw):
+def check_fused(pos, mass, robust: bool = False, **kw):
     """Fail-fast probe for the fused path: one force evaluation, raising
     CapacityError if the frontier overflowed or occupied groups were
     trimmed — the only two capacities the path has.  The message
-    prescribes the flag value that fits.  Returns the stats dict."""
-    _, stats = barneshut_fused(pos, mass, return_stats=True, **kw)
+    prescribes the flag value that fits.  `robust` probes through
+    ``barneshut_fused_robust``, so an outlier-heavy run is checked against
+    the cube it will use.  Returns the stats dict."""
+    fn = barneshut_fused_robust if robust else barneshut_fused
+    _, stats = fn(pos, mass, return_stats=True, **kw)
     fovf = int(stats["frontier_overflow"])
     trimmed = int(stats["trimmed_groups"])
     fixes = []
@@ -474,6 +477,89 @@ def check_fused(pos, mass, **kw):
     if fixes:
         raise CapacityError("fused Barnes-Hut capacity overflow: " + "; ".join(fixes))
     return stats
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """Column medians of `x` (n, d) as ``jnp.median``: the mean of the two
+    middle values for even n (``torch.median`` takes the lower one, and
+    ``torch.quantile`` refuses more than 16M elements)."""
+    n = x.shape[0]
+    lo = torch.kthvalue(x, (n + 1) // 2, dim=0).values
+    if n % 2:
+        return lo
+    return (lo + torch.kthvalue(x, n // 2 + 1, dim=0).values) * 0.5
+
+
+def robust_box(pos: torch.Tensor, outlier_slots: int = 0):
+    """The robust hybrid's box (``nbody_tpu/ops/bh_fused.py:1500-1508``),
+    in f32 whatever pos's dtype: (centre (3,), the coordinate-wise median;
+    border (0-dim), 2 * the (K+1)-th largest L-inf distance from it *
+    1.0001; out_idx (K,), the K farthest bodies), with K =
+    `outlier_slots` or max(128, n // 512), at most n - 1."""
+    n = pos.shape[0]
+    k = min(int(outlier_slots) or max(128, n // 512), n - 1)
+    pos32 = pos.to(torch.float32)
+    center = _median(pos32)
+    d = (pos32 - center).abs().amax(dim=1)
+    vals, idx = torch.topk(d, k + 1)
+    return center, 2.0 * vals[k] * 1.0001, idx[:k]
+
+
+def outlier_rect(targets, src, mass_src, *, G: float, softening_sq: float, rect_forces):
+    """The robust hybrid's exact (M, K) rectangle of the outliers' pull
+    (``bh_fused.py:1425-1444``) through `rect_forces`: K1
+    (``cuda_rect_accelerations``) in f32, K4 in f64, or their plain
+    version.  Both are the displacement form, which stays exact at outlier
+    coordinates where the expanded |r|^2 form loses ~4 digits."""
+    return rect_forces(targets, src.contiguous(), mass_src.contiguous(), G=G,
+                       softening_sq=softening_sq)
+
+
+def barneshut_fused_robust(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    *,
+    G: float = constants.BIG_G,
+    softening_sq: float = constants.SOFTENING_SQ,
+    outlier_slots: int = 0,
+    return_stats: bool = False,
+    rect_forces=cuda_rect_accelerations,
+    **kw,
+):
+    """Outlier-robust fused Barnes-Hut, the exact hybrid of
+    ``nbody_tpu/ops/bh_fused.py:1447-1523`` (ForceFn signature).
+
+    A few escapers inflate the root cube until one terminal cell holds
+    nearly every body, and the near field degenerates to ~O(N^2).  Here:
+    the root cube is sized by the (K+1)-th largest L-inf distance from the
+    median (``robust_box``), so at most K bodies fall outside; those K ride
+    the tree zero-massed (clipped into edge cells, they move no centre of
+    mass, and as targets they are still exact: their group boxes use true
+    positions); their pull as sources is added back by one exact (N, K)
+    rectangle (``outlier_rect``).  The grid deepens to ld = min(8, auto_ld
+    + 2) unless `ld` is given.
+
+    f32 bodies take the f32 tree; f64 bodies the df tree (with a df
+    evaluator as `group_forces`), with the box in f32 as in JAX
+    (``bh_fused_df.py:226-273``).  `rect_forces` is the rectangle's
+    function: K1's wrapper by default, K4's in f64
+    (``bh_fused_df.barneshut_fused_robust_df``), or
+    ``rect_accelerations_reference`` (``--backend torch``).  The other
+    options are ``barneshut_fused``'s."""
+    df = pos.dtype == torch.float64
+    if not kw.get("ld"):
+        kw["ld"] = min(MAX_LD, auto_ld(pos.shape[0]) + 2)
+    center, border, out_idx = robust_box(pos, outlier_slots)
+    targets = pos if df else pos.to(torch.float32)
+    rel = targets - center.to(targets.dtype)
+    mass_bh = mass.index_fill(0, out_idx, 0.0)
+    res = barneshut_fused(rel, mass_bh, G=G, softening_sq=softening_sq, border=border,
+                          return_stats=return_stats, **kw)
+    acc = res[0] if return_stats else res
+    side = outlier_rect(targets, targets[out_idx], mass[out_idx].to(targets.dtype), G=G,
+                        softening_sq=softening_sq, rect_forces=rect_forces)
+    acc = acc + side.to(acc.dtype)
+    return (acc, res[1]) if return_stats else acc
 
 
 def state_from_numpy(tree_fields, gstart, gcount, device=None):

@@ -20,6 +20,9 @@ The TPU kernel reaches fp64 grade with double-float f32 pairs; Hopper has
 fp64 units, so K6's df mode is native fp64.
 
 * ``barneshut_fused_df`` — the entry point (ForceFn signature), f64 out.
+* ``barneshut_fused_robust_df`` — the exact outlier hybrid in fp64
+  (``bh_fused_df.py:226-273``): the box in f32, the tree through K6's df
+  mode, the outliers' rectangle through K4.
 * ``fused_group_forces_df`` — the K6 df wrapper: a CPU tensor goes to
   the plain version, a CUDA tensor launches the kernel or raises.
   ``fused_group_forces_df.launches`` counts kernel launches.
@@ -37,10 +40,12 @@ from nbody_tpu_torch.ops.bh_fused import (
     FRONTIER_CAP,
     MAX_LD,
     barneshut_fused,
+    barneshut_fused_robust,
     fused_group_forces_reference,
     kernel_forces,
 )
 from nbody_tpu_torch.ops.bh_grid import GridTree
+from nbody_tpu_torch.ops.cuda_fp64 import cuda_rect_accelerations_f64
 
 fused_group_forces_df_reference = fused_group_forces_reference
 
@@ -101,4 +106,28 @@ def barneshut_fused_df(
         theta=theta, ld=ld, leaf_cap=leaf_cap, group_size=group_size,
         keep_groups=keep_groups, frontier_cap=frontier_cap, return_stats=return_stats,
         border=border, group_forces=group_forces,
+    )
+
+
+def barneshut_fused_robust_df(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    *,
+    G: float = constants.BIG_G,
+    softening_sq: float = constants.SOFTENING_SQ,
+    outlier_slots: int = 0,
+    return_stats: bool = False,
+    group_forces=fused_group_forces_df,
+    rect_forces=cuda_rect_accelerations_f64,
+    **kw,
+):
+    """Outlier-robust fp64 Barnes-Hut (ForceFn signature), f64 out: the
+    hybrid of ``bh_fused.barneshut_fused_robust`` with both halves fp64,
+    the tree through `group_forces` (the K6 df wrapper, or its plain
+    version) and the outliers' rectangle through `rect_forces` (K4's
+    wrapper by default, or ``rect_accelerations_reference``)."""
+    return barneshut_fused_robust(
+        pos.to(torch.float64), mass.to(torch.float64), G=G, softening_sq=softening_sq,
+        outlier_slots=outlier_slots, return_stats=return_stats, group_forces=group_forces,
+        rect_forces=rect_forces, **kw,
     )

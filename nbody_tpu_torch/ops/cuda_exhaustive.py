@@ -1,13 +1,20 @@
-"""All-pairs force through the hand-written CUDA kernel.
+"""All-pairs force through the hand-written CUDA kernels.
 
-Counterpart of ``nbody_tpu/ops/pallas_exhaustive.py``: the wrapper of the
-kernel in ``nbody_tpu_torch/csrc/allpairs.cu`` (which replaces the Pallas
-``_kernel`` there).  A CPU tensor goes to the plain version,
-``rect_accelerations_reference``; a CUDA tensor launches the kernel or
-raises.  Nothing falls back.
+Counterpart of ``nbody_tpu/ops/pallas_exhaustive.py``:
 
-``cuda_rect_accelerations.launches`` counts kernel launches, so a run can
-show that it went through the kernel.
+* ``cuda_rect_accelerations`` / ``cuda_accelerations`` wrap K1,
+  ``nbody_tpu_torch/csrc/allpairs.cu`` (which replaces the Pallas
+  ``_kernel``); its plain version is ``rect_accelerations_reference``,
+  the displacement form (``rect_accelerations`` with ``mode="chunked"``).
+* With ``use_mxu=True`` they go to ``cuda_rect_accelerations_mxu``, the
+  wrapper of K2, ``nbody_tpu_torch/csrc/allpairs_mma.cu`` (which replaces
+  the Pallas ``_kernel_mxu``): the same force with the j-sum as a
+  tensor-core product W @ [x y z 1]; its plain version is
+  ``rect_accelerations_mxu_reference``.
+
+A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
+or raises.  Nothing falls back.  Each kernel wrapper's ``launches``
+counts its kernel's launches, so a run can show that it went through it.
 """
 
 from __future__ import annotations
@@ -15,14 +22,53 @@ from __future__ import annotations
 import torch
 
 from nbody_tpu_torch.core import constants
-from nbody_tpu_torch.ops.exhaustive import rect_accelerations
-
-# The plain PyTorch version of the kernel, same arguments, same result
-# within the kernel's f32 tolerance.
-rect_accelerations_reference = rect_accelerations
-
+from nbody_tpu_torch.ops.exhaustive import _inv_r3, _pair_eps2, rect_accelerations
 
 _INT_MAX = 2**31 - 1  # the kernels take sizes as C int
+MXU_BLOCK_J = 256  # sources per j-block of K2's plain version: K2's tile
+
+
+def rect_accelerations_reference(pos_i, pos_j, mass_j, **kw) -> torch.Tensor:
+    """K1's (and K4's) plain version: ``rect_accelerations`` in the
+    displacement form (``mode="chunked"``), same arguments."""
+    return rect_accelerations(pos_i, pos_j, mass_j, mode="chunked", **kw)
+
+
+def rect_accelerations_mxu_reference(
+    pos_i: torch.Tensor,
+    pos_j: torch.Tensor,
+    mass_j: torch.Tensor,
+    *,
+    G: float = constants.BIG_G,
+    softening_sq: float = constants.SOFTENING_SQ,
+    eps2_i: torch.Tensor | None = None,
+    eps2_all: torch.Tensor | None = None,
+    chunk: int = 4096,
+    block_j: int = MXU_BLOCK_J,
+) -> torch.Tensor:
+    """K2's plain version, ``_kernel_mxu``'s arithmetic in plain torch: per
+    j-block, exact r^2 and w = G m_j (r^2 + eps2_ij)^(-3/2), the product
+    W @ [x_j y_j z_j 1] in full f32, and a_i += partial[:, :3] - p_i *
+    partial[:, 3], with K2's tile of 256 sources as the j-block (JAX's
+    kernel takes ``block_j``)."""
+    if (eps2_i is None) != (eps2_all is None):
+        raise ValueError("eps2_i and eps2_all must be given together")
+    torch.backends.cuda.matmul.allow_tf32 = False  # JAX: Precision.HIGHEST
+    gm = G * mass_j
+    ones = torch.ones_like(pos_j[:, :1])
+    pjt = torch.cat([pos_j, ones], dim=1)  # (N, 4) columns [x y z 1]
+    out = torch.zeros_like(pos_i)
+    for s in range(0, pos_i.shape[0], chunk):
+        pi = pos_i[s:s + chunk]
+        for k in range(0, pos_j.shape[0], block_j):
+            d = pos_j[None, k:k + block_j] - pi[:, None]  # (C, BJ, 3)
+            e = None if eps2_i is None else eps2_i[s:s + chunk]
+            e_j = None if eps2_all is None else eps2_all[k:k + block_j]
+            r2 = (d * d).sum(-1) + _pair_eps2(softening_sq, e, e_j, pos_i.dtype)
+            w = _inv_r3(r2) * gm[None, k:k + block_j]
+            partial = w @ pjt[k:k + block_j]  # (C, 4)
+            out[s:s + chunk] += partial[:, :3] - pi * partial[:, 3:4]
+    return out
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
@@ -45,19 +91,7 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
         raise ValueError(f"{name}: {t.shape[0]} rows exceed the kernels' C int")
 
 
-def cuda_rect_accelerations(
-    pos_i: torch.Tensor,
-    pos_j: torch.Tensor,
-    mass_j: torch.Tensor,
-    *,
-    G: float = constants.BIG_G,
-    softening_sq: float = constants.SOFTENING_SQ,
-    eps2_i: torch.Tensor | None = None,
-    eps2_all: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """f32 accelerations of pos_i (M, 3) targets against pos_j (N, 3) /
-    mass_j (N,) sources.  `eps2_i` (M,) / `eps2_all` (N,) switch on
-    symmetric-mean per-body softening and must be given together."""
+def _check_rect(pos_i, pos_j, mass_j, eps2_i, eps2_all) -> torch.device:
     if (eps2_i is None) != (eps2_all is None):
         raise ValueError("eps2_i and eps2_all must be given together")
     device = pos_i.device
@@ -68,28 +102,83 @@ def cuda_rect_accelerations(
     if eps2_i is not None:
         check_tensor("eps2_i", eps2_i, (m,), device)
         check_tensor("eps2_all", eps2_all, (n,), device)
-    if device.type == "cpu":
-        return rect_accelerations_reference(
-            pos_i, pos_j, mass_j, G=G, softening_sq=softening_sq,
-            eps2_i=eps2_i, eps2_all=eps2_all,
-        )
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no all-pairs kernel for device {device}")
+    return device
 
+
+def _launch(entry: str, what: str, pos_i, pos_j, mass_j, G, softening_sq, eps2_i,
+            eps2_all) -> torch.Tensor:
+    """Launch the f32 all-pairs kernel `entry` of the library on checked
+    CUDA tensors; raise on a launch error."""
     from nbody_tpu_torch.ops import _cuda
 
+    device = pos_i.device
     kernels = _cuda.library()
     gm = G * mass_j  # G folded into the source weights (pallas_exhaustive.py:165)
-    out = torch.empty((m, 3), dtype=torch.float32, device=device)
+    out = torch.empty((pos_i.shape[0], 3), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        err = kernels.lib.nbody_allpairs_f32(
+        err = getattr(kernels.lib, entry)(
             pos_i.data_ptr(), pos_j.data_ptr(), gm.data_ptr(),
             None if eps2_i is None else eps2_i.data_ptr(),
             None if eps2_all is None else eps2_all.data_ptr(),
-            float(softening_sq), m, n, out.data_ptr(),
+            float(softening_sq), pos_i.shape[0], pos_j.shape[0], out.data_ptr(),
             _cuda.stream_handle(device),
         )
-    kernels.check(err, "allpairs kernel")
+    kernels.check(err, what)
+    return out
+
+
+def cuda_rect_accelerations_mxu(
+    pos_i: torch.Tensor,
+    pos_j: torch.Tensor,
+    mass_j: torch.Tensor,
+    *,
+    G: float = constants.BIG_G,
+    softening_sq: float = constants.SOFTENING_SQ,
+    eps2_i: torch.Tensor | None = None,
+    eps2_all: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """K2: f32 accelerations of pos_i (M, 3) against pos_j (N, 3) / mass_j
+    (N,), the j-sum on the tensor cores in 3xTF32.  `eps2_i` (M,) /
+    `eps2_all` (N,) switch on per-body softening, given together."""
+    device = _check_rect(pos_i, pos_j, mass_j, eps2_i, eps2_all)
+    if device.type == "cpu":
+        return rect_accelerations_mxu_reference(
+            pos_i, pos_j, mass_j, G=G, softening_sq=softening_sq,
+            eps2_i=eps2_i, eps2_all=eps2_all,
+        )
+    out = _launch("nbody_allpairs_mma_f32", "tensor-core allpairs kernel", pos_i,
+                  pos_j, mass_j, G, softening_sq, eps2_i, eps2_all)
+    cuda_rect_accelerations_mxu.launches += 1
+    return out
+
+
+cuda_rect_accelerations_mxu.launches = 0
+
+
+def cuda_rect_accelerations(
+    pos_i: torch.Tensor,
+    pos_j: torch.Tensor,
+    mass_j: torch.Tensor,
+    *,
+    G: float = constants.BIG_G,
+    softening_sq: float = constants.SOFTENING_SQ,
+    eps2_i: torch.Tensor | None = None,
+    eps2_all: torch.Tensor | None = None,
+    use_mxu: bool = False,
+) -> torch.Tensor:
+    """f32 accelerations of pos_i (M, 3) targets against pos_j (N, 3) /
+    mass_j (N,) sources through K1, or K2 with `use_mxu`.  `eps2_i` (M,) /
+    `eps2_all` (N,) switch on symmetric-mean per-body softening and must be
+    given together."""
+    kw = dict(G=G, softening_sq=softening_sq, eps2_i=eps2_i, eps2_all=eps2_all)
+    if use_mxu:
+        return cuda_rect_accelerations_mxu(pos_i, pos_j, mass_j, **kw)
+    device = _check_rect(pos_i, pos_j, mass_j, eps2_i, eps2_all)
+    if device.type == "cpu":
+        return rect_accelerations_reference(pos_i, pos_j, mass_j, **kw)
+    out = _launch("nbody_allpairs_f32", "allpairs kernel", pos_i, pos_j, mass_j, **kw)
     cuda_rect_accelerations.launches += 1
     return out
 
@@ -104,9 +193,10 @@ def cuda_accelerations(
     G: float = constants.BIG_G,
     softening_sq: float = constants.SOFTENING_SQ,
     eps2_per_body: torch.Tensor | None = None,
+    use_mxu: bool = False,
 ) -> torch.Tensor:
-    """Square all-pairs accelerations (ForceFn signature)."""
+    """Square all-pairs accelerations (ForceFn signature), K1 or K2."""
     return cuda_rect_accelerations(
         pos, pos, mass, G=G, softening_sq=softening_sq,
-        eps2_i=eps2_per_body, eps2_all=eps2_per_body,
+        eps2_i=eps2_per_body, eps2_all=eps2_per_body, use_mxu=use_mxu,
     )

@@ -12,7 +12,8 @@ kernels — counterpart of ``nbody_tpu/ops/pallas_df.py``.
 
 The TPU kernels reach fp64 grade with double-float f32 pairs because the
 TPU has no fp64 units; Hopper has them, so both kernels are native fp64.
-A CPU tensor goes to the plain version (``rect_accelerations`` and
+A CPU tensor goes to the plain version (``rect_accelerations_reference``,
+the displacement form of ``rect_accelerations``, and
 ``potential_energy_reference``, which compute in the inputs' dtype); a
 CUDA tensor launches the kernel or raises.  Nothing falls back.  Each
 wrapper's ``launches`` counts kernel launches.
@@ -24,8 +25,10 @@ import torch
 
 from nbody_tpu_torch.core import constants
 from nbody_tpu_torch.diag.energy import potential_energy_reference
-from nbody_tpu_torch.ops.cuda_exhaustive import check_tensor
-from nbody_tpu_torch.ops.exhaustive import rect_accelerations
+from nbody_tpu_torch.ops.cuda_exhaustive import (
+    check_tensor,
+    rect_accelerations_reference,
+)
 
 F64 = torch.float64
 
@@ -46,7 +49,8 @@ def cuda_rect_accelerations_f64(
     check_tensor("pos_j", pos_j, (n, 3), device, F64)
     check_tensor("mass_j", mass_j, (n,), device, F64)
     if device.type == "cpu":
-        return rect_accelerations(pos_i, pos_j, mass_j, G=G, softening_sq=softening_sq)
+        return rect_accelerations_reference(pos_i, pos_j, mass_j, G=G,
+                                            softening_sq=softening_sq)
     if device.type != "cuda":
         raise ValueError(f"no fp64 all-pairs kernel for device {device}")
 

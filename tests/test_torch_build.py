@@ -15,11 +15,11 @@ def _no_cached_library(monkeypatch, tmp_path):
 
 def test_sources_are_the_two_kernels():
     """The build takes every kernel source: all-pairs and potential energy
-    in f32 (the first slice) and fp64, the fused Barnes-Hut kernel and the
-    group x interaction-list kernel."""
+    in f32 (the first slice) and fp64, the tensor-core all-pairs kernel, the
+    fused Barnes-Hut kernel and the group x interaction-list kernel."""
     names = [os.path.basename(s) for s in _cuda.sources()]
-    assert names == ["allpairs.cu", "allpairs_f64.cu", "bh_fused.cu", "group_lists.cu",
-                     "potential.cu", "potential_f64.cu"]
+    assert names == ["allpairs.cu", "allpairs_f64.cu", "allpairs_mma.cu", "bh_fused.cu",
+                     "group_lists.cu", "potential.cu", "potential_f64.cu"]
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

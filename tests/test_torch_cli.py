@@ -14,6 +14,7 @@ from nbody_tpu_torch.cli.main import (
     BH_AUTO_MIN_N,
     build_force_fn,
     main,
+    read_softening_per_body,
     resolve_algo,
     resolve_backend,
     resolve_traversal,
@@ -119,16 +120,17 @@ def test_cli_end_before_start_runs_zero_steps(tmp_path):
 @pytest.mark.parametrize("algo", ["barnes-hut", "auto"])
 def test_cli_refuses_unported_algo(tmp_path, capsys, algo):
     """A Barnes-Hut run that needs a part not ported yet exits 2 and names
-    it: --timers on the list-based path (K7's pipeline), and the robust
-    hybrid of the fused traversal, here on the Barnes-Hut side of --algo
-    auto (> 32,768 bodies)."""
+    it: --timers on the list-based path (K7's pipeline), and the persistent
+    layout under the robust hybrid of the fused traversal, here on the
+    Barnes-Hut side of --algo auto (> 32,768 bodies), refused before the
+    depth pricer runs."""
     if algo == "barnes-hut":
         src, flags, missing = TEN, ["--bh-traversal", "flat", "--timers"], "K7"
     else:
         src = tmp_path / "big.csv"
         write_fixture(src, random_cloud(BH_AUTO_MIN_N + 1, seed=1))
-        flags = ["--bh-robust", "on", "--bh-traversal", "fused"]
-        missing = "robust Barnes-Hut hybrid"
+        flags = ["--bh-robust", "on", "--bh-traversal", "fused", "--resort-every", "4"]
+        missing = "persistent Morton layout"
     out = tmp_path / "o.csv"
     assert main([str(src), "0", "1", "0.1", str(out), "--device", "cpu",
                  "--algo", algo, *flags]) == 2
@@ -211,14 +213,20 @@ def _outlier_cloud(tmp_path):
 
 def test_cli_robust_auto_resolves_on_and_refuses(tmp_path, capsys):
     """--bh-robust auto on an outlier-dominated cloud resolves to on
-    (cli/main.py:642-666), which the fused traversal has not ported: exit
-    2, never the plain path in its place; --bh-robust off runs."""
+    (cli/main.py:642-666) and runs the exact hybrid; --bh-robust off runs
+    the plain fused path; with --resort-every the hybrid still refuses (the
+    persistent layout is not ported): exit 2, never another path in its
+    place."""
     argv = [str(_outlier_cloud(tmp_path)), "0", "0.1", "0.1", str(tmp_path / "o.csv"),
             "--device", "cpu", "--algo", "barnes-hut", "--bh-traversal", "fused"]
-    assert main(argv) == 2
-    err = capsys.readouterr().err
-    assert "robust" in err and "resolves to on" in err
+    assert main(argv) == 0
+    captured = capsys.readouterr()
+    assert "enabling --bh-robust on" in captured.err
+    assert "backend: torch/fused/robust" in captured.out
     assert main([*argv, "--bh-robust", "off"]) == 0
+    assert "backend: torch/fused," in capsys.readouterr().out
+    assert main([*argv, "--resort-every", "2"]) == 2
+    assert "persistent Morton layout" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags,fix", [
@@ -416,3 +424,113 @@ def test_cli_list_path_warns_and_runs(tmp_path, capsys, flags, said):
     assert "backend: torch, dtype: f32" in captured.out
     rows, _ = read_trajectory(out)
     assert np.isfinite(rows).all()
+
+
+def _eps_file(tmp_path, values):
+    path = tmp_path / "eps.txt"
+    path.write_text("\n".join(repr(float(v)) for v in values) + "\n")
+    return str(path)
+
+
+def test_cli_softening_per_body_flag(tmp_path, capsys):
+    """test_softening.py::test_cli_flag's twin: the flag runs; a wrong count
+    and a tree algorithm exit with JAX's messages."""
+    out = tmp_path / "out.csv"
+    argv = [TEN, "0", "1", "0.1", str(out), "--device", "cpu", "--algo", "exhaustive"]
+    assert main([*argv, "--softening-per-body", _eps_file(tmp_path, [0.05] * 10)]) == 0
+    assert out.exists()
+    capsys.readouterr()
+    assert main([*argv, "--softening-per-body", _eps_file(tmp_path, [0.05] * 2)]) != 0
+    assert "2 values for 10 bodies" in capsys.readouterr().err
+    argv[argv.index("exhaustive")] = "barnes-hut"
+    assert main([*argv, "--softening-per-body", _eps_file(tmp_path, [0.05] * 10)]) != 0
+    assert "requires --algo exhaustive" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_cli_softening_per_body_matches_oracle(tmp_path, dtype):
+    """One KDK step with per-body softening against the same step from the
+    fp64 per-body oracle (test_softening.py:34-39), within the frames'
+    %lf resolution (f64) or the f32 kernel bound."""
+    arr = read_bodies(os.path.join(DATA_DIR, "100_bodies_g1.csv"))
+    eps = np.random.default_rng(4).uniform(0.01, 0.1, 100)
+    out = tmp_path / "o.csv"
+    assert main([os.path.join(DATA_DIR, "100_bodies_g1.csv"), "0", "0.01", "0.01", str(out),
+                 "--device", "cpu", "--dtype", dtype, "--G", "1",
+                 "--softening-per-body", _eps_file(tmp_path, eps)]) == 0
+    pos, vel, mass = arr[:, :3], arr[:, 3:6], arr[:, 6]
+    e2 = eps * eps
+    d = pos[None] - pos[:, None]
+    r2 = (d * d).sum(-1) + 0.5 * (e2[:, None] + e2[None, :])
+    acc = np.einsum("ij,ijk->ik", r2 ** -1.5 * mass[None], d)
+    dt = float(np.float32(0.01))
+    want = pos + (vel + acc * (dt * 0.5)) * dt
+    rows = np.loadtxt(out, delimiter=",").reshape(2, 100, 5)
+    np.testing.assert_allclose(rows[1, :, 1:4], want, atol=1.1e-6 if dtype == "f64" else 2e-6,
+                               rtol=0)
+
+
+def test_softening_per_body_refusals(tmp_path):
+    """f64 on the kernel backend refuses, as JAX's pallas-df does
+    (cli/main.py:396-400); the plain backend reads the file."""
+    path = _eps_file(tmp_path, [0.05] * 10)
+    with pytest.raises(ValueError, match="no fp64 kernel"):
+        read_softening_per_body(path, 10, "exhaustive", "f64", "cuda")
+    np.testing.assert_array_equal(read_softening_per_body(path, 10, "exhaustive", "f64",
+                                                          "torch"), np.full(10, 0.05))
+    np.testing.assert_array_equal(read_softening_per_body(path, 10, "exhaustive", "f32",
+                                                          "cuda"), np.full(10, 0.05))
+    with pytest.raises(ValueError, match="requires --algo exhaustive"):
+        read_softening_per_body(path, 10, "barnes-hut", "f32", "torch")
+
+
+@pytest.mark.parametrize("backend,dtype", [("cuda", "f32"), ("torch", "f32"),
+                                           ("torch", "f64")])
+def test_per_body_routing(backend, dtype):
+    """ε² per body reaches K1's wrapper or the plain function."""
+    e2 = torch.full((10,), 0.01)
+    force = build_force_fn(backend, 1.0, 0.01, dtype=dtype, eps2_per_body=e2)
+    assert force.func is (cuda_accelerations if backend == "cuda"
+                          else exhaustive_accelerations)
+    assert force.keywords["eps2_per_body"] is e2
+    with pytest.raises(ValueError, match="per-body"):
+        build_force_fn("cuda", 1.0, 0.01, dtype="f64", eps2_per_body=e2)
+
+
+@pytest.mark.parametrize("backend,dtype", [("cuda", "f32"), ("cuda", "f64"),
+                                           ("torch", "f32"), ("torch", "f64")])
+def test_backend_routing_robust(backend, dtype):
+    """The robust hybrid: K6 (or its df mode) and K1 (or K4) with the cuda
+    backend, both plain versions with torch."""
+    from nbody_tpu_torch.ops.bh_fused import barneshut_fused_robust
+    from nbody_tpu_torch.ops.bh_fused_df import barneshut_fused_robust_df
+    from nbody_tpu_torch.ops.cuda_exhaustive import (
+        cuda_rect_accelerations,
+        rect_accelerations_reference,
+    )
+    from nbody_tpu_torch.ops.cuda_fp64 import cuda_rect_accelerations_f64
+
+    force = build_force_fn(backend, 1.0, 0.01, "barnes-hut", dtype=dtype, robust=True)
+    assert force.func is (barneshut_fused_robust_df if dtype == "f64"
+                          else barneshut_fused_robust)
+    kernels = {"f32": (bh_fused.fused_group_forces, cuda_rect_accelerations),
+               "f64": (fused_group_forces_df, cuda_rect_accelerations_f64)}
+    plain = (bh_fused.fused_group_forces_reference, rect_accelerations_reference)
+    want = kernels[dtype] if backend == "cuda" else plain
+    assert (force.keywords["group_forces"], force.keywords["rect_forces"]) == want
+
+
+def test_cli_backend_torch_takes_the_mxu_mode_above_2048(tmp_path):
+    """--backend torch is exhaustive_accelerations in JAX's auto mode: mxu
+    above 2,048 bodies, as JAX's --backend jnp (exhaustive.py:191-192)."""
+    arr = random_cloud(2100, seed=8)
+    src, out = tmp_path / "in.csv", tmp_path / "o.csv"
+    write_fixture(src, arr)
+    assert main([str(src), "0", "0.01", "0.01", str(out), "--device", "cpu"]) == 0
+    b = Bodies.from_numpy(read_bodies(str(src)), dtype=torch.float32)
+    acc = exhaustive_accelerations(b.pos, b.mass, mode="mxu")
+    dt = np.float32(0.01)
+    want = b.pos + (b.vel + acc * (dt * 0.5)) * dt
+    rows, n = read_trajectory(out)
+    np.testing.assert_allclose(rows.reshape(2, n, 5)[1, :, 1:4], want.numpy(), atol=1.1e-6,
+                               rtol=0)

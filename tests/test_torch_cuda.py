@@ -21,6 +21,8 @@ from nbody_tpu_torch.ops import barneshut, bh_fused, bh_fused_df, cuda_lists
 from nbody_tpu_torch.ops.cuda_exhaustive import (
     cuda_accelerations,
     cuda_rect_accelerations,
+    cuda_rect_accelerations_mxu,
+    rect_accelerations_mxu_reference,
     rect_accelerations_reference,
 )
 from nbody_tpu_torch.ops.cuda_fp64 import (
@@ -28,8 +30,7 @@ from nbody_tpu_torch.ops.cuda_fp64 import (
     cuda_potential_energy_f64,
     cuda_rect_accelerations_f64,
 )
-from nbody_tpu_torch.ops.exhaustive import rect_accelerations
-from nbody_tpu_torch.utils.fixtures import random_cloud, write_fixture
+from nbody_tpu_torch.utils.fixtures import plummer_cloud, random_cloud, write_fixture
 
 pytestmark = pytest.mark.cuda
 
@@ -164,7 +165,7 @@ def test_allpairs_f64_kernel_matches_plain(dev, m, n):
     got = cuda_rect_accelerations_f64(pos[:m], pos[:n], mass[:n], G=0.7)
     torch.cuda.synchronize()
     assert cuda_rect_accelerations_f64.launches == before + 1
-    want = rect_accelerations(pos[:m], pos[:n], mass[:n], G=0.7)
+    want = rect_accelerations_reference(pos[:m], pos[:n], mass[:n], G=0.7)
     assert got.dtype == torch.float64 and torch.isfinite(got).all()
     if m > 1:
         assert _rel(got, want) < 1e-12
@@ -309,3 +310,85 @@ def test_cli_flat_runs_through_k7(dev, tmp_path, capsys, dtype):
     assert f"backend: cuda, dtype: {dtype}" in capsys.readouterr().out
     rows, n_out = read_trajectory(str(out))
     assert n_out == 5000 and np.isfinite(rows).all()
+
+
+# ---- K2, the tensor-core j-sum, and the robust hybrid ---------------------
+
+
+@pytest.mark.parametrize("m,n,per_body", [(4096, 4096, False), (3001, 257, False),
+                                          (1, 9, False), (2000, 2000, True)])
+def test_allpairs_mma_kernel_matches_plain(dev, m, n, per_body):
+    """K2 within K1's bound of its plain version and of K1, one launch
+    counted, bit-identical reruns; unaligned shapes check the fragment
+    layout; per-body ε² in [1e-3, 1e-2]."""
+    pos, mass = _cloud(m + n, dev, seed=m + n)
+    # targets apart from sources: at these force scales a softened
+    # self-term's weight G m / eps^3, which the W @ [x 1] - x * sum(w) form
+    # cancels in 3xTF32, sets the error (chip_smoke.py [24] holds K2 with
+    # self-terms to K1's bound at 100k)
+    pi, pj, mj = pos[:m], pos[m:], mass[m:]
+    kw = {}
+    if per_body:
+        e = torch.as_tensor(np.random.default_rng(m).uniform(1e-3, 1e-2, m + n),
+                            dtype=torch.float32, device=dev)
+        kw = dict(eps2_i=e[:m].contiguous(), eps2_all=e[m:].contiguous())
+    before = cuda_rect_accelerations_mxu.launches
+    got = cuda_rect_accelerations(pi, pj, mj, G=0.7, use_mxu=True, **kw)
+    torch.cuda.synchronize()
+    assert cuda_rect_accelerations_mxu.launches == before + 1
+    _assert_f32_close(got, rect_accelerations_mxu_reference(pi, pj, mj, G=0.7, **kw))
+    _assert_f32_close(got, cuda_rect_accelerations(pi, pj, mj, G=0.7, **kw))
+    assert torch.equal(got, cuda_rect_accelerations(pi, pj, mj, G=0.7, use_mxu=True, **kw))
+
+
+def _plummer_with_escapers(n, dev, dtype=torch.float32):
+    """plummer_cloud with 8 bodies flung out to r 300-1000 (the manner of
+    test_bh_robust.py:20-28)."""
+    arr = plummer_cloud(n, seed=0)
+    rng = np.random.default_rng(1)
+    u = rng.normal(size=(8, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    arr[:8, :3] = u * rng.uniform(300.0, 1000.0, (8, 1))
+    return (torch.as_tensor(arr[:, :3], dtype=dtype, device=dev),
+            torch.as_tensor(arr[:, 6], dtype=dtype, device=dev), arr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_robust_against_exact_forces(dev, dtype):
+    """The robust hybrid through K6 (or its df mode) and K1 (or K4), one
+    launch of each, within 0.02 of exact forces, the escapers within 0.02
+    of their own force scale."""
+    from nbody_tpu_torch.ops.bh_fused import barneshut_fused_robust
+    from nbody_tpu_torch.ops.bh_fused_df import barneshut_fused_robust_df
+
+    pos, mass, _ = _plummer_with_escapers(50_000, dev, dtype)
+    f64 = dtype == torch.float64
+    counters = ((bh_fused_df.fused_group_forces_df, cuda_rect_accelerations_f64) if f64
+                else (bh_fused.fused_group_forces, cuda_rect_accelerations))
+    before = [c.launches for c in counters]
+    fn = barneshut_fused_robust_df if f64 else barneshut_fused_robust
+    acc = fn(pos, mass, G=1.0)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    exact = (cuda_accelerations_f64 if f64 else cuda_accelerations)(pos, mass, G=1.0)
+    assert _rel(acc, exact) < 0.02
+    own = exact[:8].abs().amax(dim=1)
+    assert ((acc[:8] - exact[:8]).abs().amax(dim=1) / own).max().item() < 0.02
+
+
+def test_cli_robust_runs_through_k6_and_k1(dev, tmp_path, capsys):
+    """--algo auto on an outlier-dominated 40k cloud: the robust hybrid
+    (note, banner), K6 and K1 launched by the probe and 3 evaluations."""
+    _, _, arr = _plummer_with_escapers(40_000, "cpu")
+    src, out = tmp_path / "in.csv", tmp_path / "o.csv"
+    write_fixture(str(src), arr)
+    counters = (bh_fused.fused_group_forces, cuda_rect_accelerations,
+                cuda_rect_accelerations_mxu)
+    for c in counters:
+        c.launches = 0
+    assert main([str(src), "0", "0.002", "0.001", str(out), "--algo", "auto",
+                 "--bh-ld", "6"]) == 0
+    assert [c.launches for c in counters] == [4, 4, 0]
+    captured = capsys.readouterr()
+    assert "enabling --bh-robust on" in captured.err
+    assert "backend: cuda/fused/robust, dtype: f32" in captured.out

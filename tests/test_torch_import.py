@@ -44,6 +44,7 @@ def test_every_module_imports_clean_and_builds_nothing():
         "nbody_tpu_torch.integrate.leapfrog, nbody_tpu_torch.io.csv, "
         "nbody_tpu_torch.ops.bh_tree, nbody_tpu_torch.ops.bh_traverse, "
         "nbody_tpu_torch.ops.bh_traverse_flat, nbody_tpu_torch.ops.cuda_lists, "
-        "nbody_tpu_torch.diag.treedump, nbody_tpu_torch.__main__; " + CHECK
+        "nbody_tpu_torch.diag.treedump, nbody_tpu_torch.ops.bh_autold, "
+        "nbody_tpu_torch.__main__; " + CHECK
     )
     assert _kernel_libs() == before

@@ -21,7 +21,10 @@ import torch
 from conftest import random_cloud
 from nbody_tpu_torch.diag.energy import potential_energy_reference
 from nbody_tpu_torch.ops import _cuda, barneshut, bh_fused, cuda_lists
-from nbody_tpu_torch.ops.cuda_exhaustive import rect_accelerations_reference
+from nbody_tpu_torch.ops.cuda_exhaustive import (
+    rect_accelerations_mxu_reference,
+    rect_accelerations_reference,
+)
 from nbody_tpu_torch.ops.exhaustive import rect_accelerations
 
 
@@ -40,15 +43,19 @@ EMU_HEADER = r"""// CPU emulation of the CUDA features the port's kernels use.  
 // thread is a std::thread; the blocks of a grid (x fastest, then y) run one
 // after another, so
 // `static` stands in for __shared__ and one buffer per launch for `extern
-// __shared__`; __syncthreads is a barrier over the block.
-// It checks the kernels' indexing, masking and reductions, not the card's
-// arithmetic: rsqrtf and rsqrt here are 1/sqrt, and nothing is timed.
+// __shared__`; __syncthreads is a barrier over the block.  The 32 lanes of
+// each warp share an exchange buffer and a warp barrier, for __shfl_sync and
+// the twin of allpairs_mma.cu's tensor-core helper mma_3xtf32.
+// It checks the kernels' indexing, masking, fragment mapping and reductions,
+// not the card's arithmetic: rsqrtf and rsqrt here are 1/sqrt, and nothing
+// is timed.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -71,6 +78,8 @@ inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c,
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, sizeof f); return f; }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, sizeof f); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, sizeof u); return u; }
 // round-to-nearest single operations: plain operators (g++ does not contract
 // them into FMAs for the x86-64 baseline)
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -83,6 +92,63 @@ inline std::barrier<>* emu_block_barrier = nullptr;
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 // `extern __shared__` dynamic shared memory of the running block
 inline unsigned char* emu_dynamic_smem = nullptr;
+
+// The running thread's warp: its lanes' exchange slots and barrier.
+struct EmuWarp {
+  std::barrier<> bar;
+  float a[32][4], b[32][2], v[32];
+  explicit EmuWarp(int lanes) : bar(lanes) {}
+};
+inline thread_local EmuWarp* emu_warp = nullptr;
+
+inline float __shfl_sync(unsigned, float v, int src_lane) {
+  const unsigned lane = threadIdx.x & 31;
+  emu_warp->v[lane] = v;
+  emu_warp->bar.arrive_and_wait();
+  const float got = emu_warp->v[src_lane & 31];
+  emu_warp->bar.arrive_and_wait();
+  return got;
+}
+
+// cvt.rna.tf32.f32: round to 10 mantissa bits, to nearest, ties away from 0
+inline float emu_tf32(float v) {
+  return __uint_as_float((__float_as_uint(v) + 0x1000u) & ~0x1fffu);
+}
+
+// Twin of allpairs_mma.cu's mma_3xtf32, c += a @ b over the warp's
+// m16n8k8 fragments (PTX ISA layout for .tf32): lane (g, t) = (lane / 4,
+// lane % 4) holds A's a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+// t + 4), B's b0 (t, g), b1 (t + 4, g), and C's c0 (g, 2t), c1 (g, 2t + 1),
+// c2 (g + 8, 2t), c3 (g + 8, 2t + 1).  Each lane posts its fragments, the
+// warp meets, each lane computes its four C entries in 3xTF32 (lo·hi, hi·lo,
+// then hi·hi added to c, as the three mma.sync of the helper), and the warp
+// meets again before the slots are reused.
+#define NBODY_EMULATED_MMA 1
+inline void mma_3xtf32(float c[4], const float a[4], const float b[2]) {
+  EmuWarp& w = *emu_warp;
+  const unsigned lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int q = 0; q < 4; ++q) w.a[lane][q] = a[q];
+  w.b[lane][0] = b[0];
+  w.b[lane][1] = b[1];
+  w.bar.arrive_and_wait();
+  auto A = [&](int row, int k) { return w.a[(row & 7) * 4 + (k & 3)][(row >> 3) + 2 * (k >> 2)]; };
+  auto B = [&](int k, int col) { return w.b[col * 4 + (k & 3)][k >> 2]; };
+  for (int q = 0; q < 4; ++q) {
+    const int row = g + 8 * (q >> 1), col = 2 * t + (q & 1);
+    float lh = 0.f, hl = 0.f, hh = 0.f;
+    for (int k = 0; k < 8; ++k) {
+      const float ah = emu_tf32(A(row, k)), bh = emu_tf32(B(k, col));
+      const float al = emu_tf32(A(row, k) - ah), bl = emu_tf32(B(k, col) - bh);
+      lh += al * bh;
+      hl += ah * bl;
+      hh += ah * bh;
+    }
+    c[q] += lh;
+    c[q] += hl;
+    c[q] += hh;
+  }
+  w.bar.arrive_and_wait();
+}
 
 typedef struct CUstream_st* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -101,9 +167,13 @@ void emu_launch(dim3 grid, int block, size_t smem_bytes, F body) {
     for (unsigned b = 0; b < grid.x; ++b) {
       std::barrier<> bar(block);
       emu_block_barrier = &bar;
+      std::vector<std::unique_ptr<EmuWarp>> warps;
+      for (int w = 0; w < block; w += 32)
+        warps.push_back(std::make_unique<EmuWarp>(std::min(32, block - w)));
       std::vector<std::thread> threads;
       for (int t = 0; t < block; ++t) {
         threads.emplace_back([&, t, b, by] {
+          emu_warp = warps[t / 32].get();
           threadIdx.x = t;
           blockIdx.x = b;
           blockIdx.y = by;
@@ -195,6 +265,44 @@ def test_allpairs_kernel_source(emu, m, n, per_body):
     got = _emu_allpairs(emu, pos_i, pos_j, mass_j, 0.01, kw.get("eps2_i"),
                         kw.get("eps2_all"))
     want = rect_accelerations_reference(pos_i, pos_j, mass_j, **kw)
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale,
+                               rtol=2e-4)
+
+
+def _emu_allpairs_mma(lib, pos_i, pos_j, mass_j, eps2, eps2_i=None, eps2_j=None):
+    out = torch.full((pos_i.shape[0], 3), float("nan"))
+    err = lib.nbody_allpairs_mma_f32(
+        pos_i.data_ptr(), pos_j.data_ptr(), mass_j.data_ptr(),  # G = 1
+        None if eps2_i is None else eps2_i.data_ptr(),
+        None if eps2_j is None else eps2_j.data_ptr(),
+        eps2, pos_i.shape[0], pos_j.shape[0], out.data_ptr(), None,
+    )
+    assert err == 0
+    return out
+
+
+@pytest.mark.parametrize("m,n", [(1, 9), (137, 300), (300, 517)])
+@pytest.mark.parametrize("per_body", [False, True])
+def test_allpairs_mma_kernel_source(emu, m, n, per_body):
+    """K2 (tensor-core j-sum) within K1's bound of its plain version, on
+    unaligned, asymmetric rectangles (m not a multiple of the 16-row tile,
+    n not of the 8-source k-step or the 256-row tile), so a wrong lane to
+    fragment (row, column) map cannot pass.  The targets are not sources:
+    at these tiny force scales the softened self-term's weight G m / eps^3,
+    which the W @ [x 1] - x * sum(w) form cancels in 3xTF32, would set the
+    error (the card checks that case at the main path's scale)."""
+    arr = random_cloud(m + n, seed=3 * m + n)
+    arr[:, :3] += np.array([0.5, -0.25, 0.125])  # off the origin, asymmetric
+    pos_j, mass_j = _f32(arr[m:, :3]), _f32(arr[m:, 6])
+    pos_i = _f32(arr[:m, :3])
+    kw = {}
+    if per_body:
+        e = np.random.default_rng(m).uniform(1e-3, 1e-2, m + n)
+        kw = dict(eps2_i=_f32(e[:m]), eps2_all=_f32(e[m:]))
+    got = _emu_allpairs_mma(emu, pos_i, pos_j, mass_j, 0.01, kw.get("eps2_i"),
+                            kw.get("eps2_all"))
+    want = rect_accelerations_mxu_reference(pos_i, pos_j, mass_j, G=1.0, **kw)
     scale = want.abs().max().item()
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale,
                                rtol=2e-4)
