@@ -89,7 +89,15 @@ prints no result):
     box, depth probe, set-up, K6 and the K1 rectangle; the depth pricer's
     unit costs on this card (K6 time against its stats lanes, set-up time
     against the dense-grid nodes); --no-output s/step of the uniform 1M run
-    with --bh-robust off, on, on, off.
+    with --bh-robust off, on, on, off;
+29. K6's stage cuts (the JAX kernel's debug_mode) and its redesign: the
+    registers and spills of every instantiation; on the 100k bodies, the
+    1M uniform cloud and the robust input (ld as picked, and 8), every f32
+    cut with stats equal to full's (zero in none) and zero forces short of
+    full, the full cut bit-identical to the production entry and to the
+    heaviest-first launch; ms per cut and the increments, real and issued
+    pairs, the source-weighted lane fill, K6's bound and its pairs at K1's
+    rate; the df mode's cuts at 100k and 1M.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
@@ -883,28 +891,136 @@ TF32_PEAK = 495e12  # dense TF32 tensor-core FLOP/s
 OFFSET = (8.0, -8.0, 8.0)  # [24]'s cloud off the origin
 
 
-def with_escapers(arr: np.ndarray) -> np.ndarray:
-    """`arr` with its first 8 bodies moved out to r 300-1000, in the manner
-    of tests/test_bh_robust.py:20-28."""
-    out = arr.copy()
-    rng = np.random.default_rng(1)
-    u = rng.normal(size=(8, 3))
-    u /= np.linalg.norm(u, axis=1, keepdims=True)
-    out[:8, :3] = u * rng.uniform(300.0, 1000.0, (8, 1))
+def fit_unit_costs(points) -> tuple[float, float]:
+    """(ns per staged source, ns per 128 classified cells) from (K6 ms,
+    staged sources, classified cells, the pops cut's ms less the none
+    cut's) over several inputs and depths: the classification cost from
+    the stage cuts, their increment against the cells classified; then the
+    source cost from K6's time less that; both by least squares through 0."""
+    cells = np.array([c / 128.0 for _, _, c, _ in points])
+    inc = np.array([d * 1e6 for _, _, _, d in points])
+    ns_pop = float(cells @ inc / (cells @ cells))
+    staged = np.array([s for _, s, _, _ in points])
+    rest = np.array([ms * 1e6 for ms, _, _, _ in points]) - ns_pop * cells
+    return float(staged @ rest / (staged @ staged)), ns_pop
+
+
+def k6_instantiations(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill bytes) of each K6 instantiation in the
+    ptxas report `log`: the mode and the stage cut."""
+    from nbody_tpu_torch.ops.bh_fused import CUTS
+
+    lines = log.splitlines()
+    name_re = re.compile(r"entry function '\S*?bh_fused_(warp|df)_kernelILi(\d)E")
+    out = []
+    for i, line in enumerate(lines):
+        m = name_re.search(line)
+        if not m:
+            continue
+        near = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", near)
+        spill = re.search(r"(\d+) bytes spill stores", near)
+        kind = "f32" if m.group(1) == "warp" else "df"
+        out.append((f"{kind} {CUTS[int(m.group(2))]}",
+                    int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else -1))
     return out
 
 
-def fit_unit_costs(points) -> tuple[float, float]:
-    """(ns per staged source, ns per 128 classified cells) by least squares
-    over (K6 ms, staged sources, classified cells), each cost kept >= 0."""
-    a = np.array([[s, c / 128.0] for _, s, c in points])
-    t = np.array([ms * 1e6 for ms, _, _ in points])
-    x = np.linalg.lstsq(a, t, rcond=None)[0]
-    if x[1] < 0:
-        x = np.array([float(a[:, 0] @ t / (a[:, 0] @ a[:, 0])), 0.0])
-    if x[0] < 0:
-        x = np.array([0.0, float(a[:, 1] @ t / (a[:, 1] @ a[:, 1]))])
-    return float(x[0]), float(x[1])
+def stage_phase(torch, dev, card: str, b100k, k1_rate: float) -> dict:
+    """Phase [29]: K6's stage cuts on the card, on the 100k main-path
+    bodies, the 1M uniform cloud and the robust input (ld as the pricer
+    picks it, and ld 8 where it picks another).  Returns K6's entry of the
+    JSON line, on the robust input."""
+    from nbody_tpu_torch.diag import fused_stages as fs
+    from nbody_tpu_torch.ops import _cuda, bh_fused, bh_fused_df
+    from nbody_tpu_torch.utils.fixtures import random_cloud
+
+    f32 = torch.float32
+    print(f"[29] K6 stage cuts and redesign (nbody_tpu_torch/csrc/bh_fused.cu) [{card}]")
+    for kernel, regs, spill in k6_instantiations(_cuda.library().build_log):
+        print(f"  {kernel}: {regs} registers, {spill} bytes spilled")
+        if kernel.startswith("f32"):
+            check(0 <= regs <= 64 and spill == 0, f"{kernel}: at most 64 registers, no spills")
+    print("  K6 launches per f32 evaluation: 2 (the pops cut that prices the groups, then "
+          "the full kernel heaviest group first)")
+    inputs = [("100k", fs.k6_args(bh_fused.prepare_fused(b100k.pos, b100k.mass))),
+              ("1M uniform", fs.uniform_inputs(BH_N, dev))]
+    robust = fs.robust_inputs(BH_N, dev)
+    inputs.append((f"robust ld {robust[1]['ld']}", robust))
+    if robust[1]["ld"] != 8:
+        inputs.append(("robust ld 8", fs.robust_inputs(BH_N, dev, ld=8)))
+    entry = None
+    for label, (args, kw) in inputs:
+        prod, st = bh_fused.fused_group_forces(*args, **kw)
+        slot, st_slot = bh_fused.kernel_forces(f32, *args, **kw)
+        check(torch.equal(prod, slot) and torch.equal(st, st_slot),
+              f"{label}: heavy-first order gives slot order's bits")
+        for cut in bh_fused.CUTS:
+            got, s_ = bh_fused.kernel_forces(f32, *args, **kw, debug_mode=cut,
+                                             cut_entry=True)
+            ok = not bool(s_.any()) if cut == "none" else bool(torch.equal(s_, st))
+            check(ok, f"{label} {cut}: stats equal full's (zero in none)")
+            check(cut == "full" or not bool(got.any()), f"{label} {cut}: "
+                  "zero forces short of full")
+        check(torch.equal(got, prod), f"{label}: the full cut is bit-identical to "
+              "the production entry point")
+        real, warp_issued, block_issued = fs.pair_counts(st, args[2], kw["group_size"])
+        print(f"  {label} (ld {kw['ld']}, {args[1].shape[0]} group slots): all 7 cuts "
+              "ran; stats equal full's lane by lane (zero in none), forces zero "
+              "short of full; full cut == production entry, heavy-first == slot order: "
+              f"True; real pairs {real:.4e}, issued pairs {block_issued:.4e} (whole "
+              f"blocks) / {warp_issued:.4e} (live warps), source-weighted lane fill "
+              f"{real / block_issued:.4f} / {real / warp_issued:.4f}")
+        if label == "100k":
+            continue
+        order = bh_fused.heavy_first(st, args[2])
+        times = fs.profile(args, kw, fs.MODES, order)
+        print(fs.report(times, f"  {label} heavy-first order [{card}]"))
+        t = fs.profile(args, kw, fs.SPLIT_MODES, order)
+        print(fs.report(t, f"  {label} split stage, heavy-first order [{card}]"))
+        slot_ms = fs.best_ms(lambda: bh_fused.kernel_forces(f32, *args, **kw))
+        pricing_ms = fs.best_ms(lambda: bh_fused.kernel_forces(f32, *args, **kw,
+                                                               debug_mode="pops"))
+        wrapper_ms = fs.best_ms(lambda: bh_fused.fused_group_forces(*args, **kw))
+        nbytes, ops = fused_work(args, st, 4)
+        kb = bound(nbytes, ops, FP32_PEAK)
+        print(f"  {label}: full in slot order {slot_ms:.4f} ms; the pricing pass (pops, "
+              f"slot order) {pricing_ms:.4f} ms; the wrapper (pricing pass + ordered "
+              f"kernel) {wrapper_ms:.4f} ms; bound {kb[0]:.4f} ms "
+              f"({kb[1]}: {real:.4e} real pairs x {FORCE_OPS} operations at 67 TFLOP/s); "
+              f"the pairs at K1's rate in this call ({k1_rate:.4e} pairs/s) "
+              f"{real / k1_rate * 1e3:.4f} ms [{card}]")
+        if label.startswith("robust") and entry is None:
+            (want, _), plain_ms = timed_once(
+                torch, lambda: bh_fused.fused_group_forces_reference(*args, **kw))
+            err = f32_close(torch, prod, want, f"{label} against the plain version")
+            entry = {"name": "bh_fused_f32", "route": "cuda",
+                     "source": "nbody_tpu_torch/csrc/bh_fused.cu",
+                     "replaces": "nbody_tpu/ops/bh_fused.py:130",
+                     "max_abs_err": err, "ms": wrapper_ms, "plain_ms": plain_ms,
+                     "bound_ms": kb[0], "bound_by": kb[1], "library_ms": None}
+            print(f"  K6 on the robust input: {wrapper_ms:.4f} ms (target 40 ms; the "
+                  "kernel before the redesign: 56.03 ms, PERF.md); plain "
+                  f"{plain_ms:.4f} ms (one run); within 40 ms: {wrapper_ms <= 40.0} [{card}]")
+        if label == "1M uniform":
+            print(f"  K6 on the uniform cloud: {wrapper_ms:.4f} ms (target 7.56 ms; the "
+                  "kernel before the redesign: 7.34 ms, PERF.md); within 7.56 ms: "
+                  f"{wrapper_ms <= 7.56} [{card}]")
+    # the df mode's cuts
+    for n_ in (100_000, BH_N):
+        c = torch.as_tensor(random_cloud(n_, seed=0), device=dev)
+        fi = bh_fused.prepare_fused(c[:, :3].contiguous(), c[:, 6].contiguous())
+        args, kw = fs.k6_args(fi)
+        full, st = bh_fused_df.fused_group_forces_df(*args, **kw)
+        for cut in bh_fused.CUTS:
+            got, s_ = bh_fused.kernel_forces(torch.float64, *args, **kw, debug_mode=cut,
+                                             cut_entry=True)
+            ok = not bool(s_.any()) if cut == "none" else bool(torch.equal(s_, st))
+            check(ok and (cut == "full" or not bool(got.any())), f"df {n_} {cut}")
+        check(torch.equal(got, full), f"df {n_}: the full cut == the production entry")
+        print(f"  df mode, random_cloud({n_}): all 7 cuts ran, stats equal full's (zero in "
+              "none), full cut == production entry: True")
+    return entry
 
 
 def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> dict:
@@ -925,7 +1041,12 @@ def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> 
         cuda_potential_energy_f64,
         cuda_rect_accelerations_f64,
     )
-    from nbody_tpu_torch.utils.fixtures import plummer_cloud, random_cloud, write_fixture
+    from nbody_tpu_torch.utils.fixtures import (
+        plummer_cloud,
+        random_cloud,
+        with_escapers,
+        write_fixture,
+    )
 
     f32, f64 = torch.float32, torch.float64
     n = arr.shape[0]
@@ -981,11 +1102,13 @@ def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> 
     counters = (bh_fused.fused_group_forces, cuda_rect_accelerations)
     for cnt in counters:
         cnt.launches = 0
+    bh_fused.fused_group_forces.evaluations = 0
     acc_r, st_r = bh_fused.barneshut_fused_robust(br.pos, br.mass, return_stats=True)
     exact_r = cuda_accelerations(br.pos, br.mass)
     torch.cuda.synchronize()
-    check([cnt.launches for cnt in counters] == [1, 2], "one K6 and one K1 launch "
-          "(and K1 for the exact forces)")
+    check([cnt.launches for cnt in counters] == [2, 2]
+          and bh_fused.fused_group_forces.evaluations == 1, "one K6 evaluation (two "
+          "launches) and one K1 launch (and K1 for the exact forces)")
     dmax_r = (acc_r - exact_r).abs().max().item()
     rel_r = dmax_r / exact_r.abs().max().item()
     own = ((acc_r[:8] - exact_r[:8]).abs().amax(dim=1) / exact_r[:8].abs().amax(dim=1))
@@ -1013,6 +1136,7 @@ def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> 
     def main_path(argv):
         for cnt in counters:
             cnt.launches = 0
+        bh_fused.fused_group_forces.evaluations = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc, text, err = run_cli_rc(argv)
@@ -1024,14 +1148,17 @@ def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> 
     text, err, wall, launches = main_path([csv_r, *BH_WINDOW, out_r, "--energy",
                                            "--write-every", "5", "--algo", "auto"])
     k6_l, k6df_l, k1_l, k4_l, k2_l, k3_l, k5_l = launches
-    print(f"  launches: K6 {k6_l}, K1 {k1_l} (want {BH_STEPS + 2} each: probe + "
-          f"{BH_STEPS + 1} evaluations), potential {k3_l} (want 2), K6 df {k6df_l}, K4 "
-          f"{k4_l}, K2 {k2_l}, K5 {k5_l} (want 0); whole CLI call {wall:.4f} s")
+    k6_e = bh_fused.fused_group_forces.evaluations
+    print(f"  launches: K6 {k6_l} in {k6_e} evaluations, K1 {k1_l} (want {BH_STEPS + 2} "
+          f"evaluations: probe + {BH_STEPS + 1}, K6 two launches each), potential {k3_l} "
+          f"(want 2), K6 df {k6df_l}, K4 {k4_l}, K2 {k2_l}, K5 {k5_l} (want 0); whole CLI "
+          f"call {wall:.4f} s")
     check("enabling --bh-robust on" in err and "data-adaptive grid depth picked" in err,
           "the robust hybrid and the depth pricer engaged")
     check("Algorithm: barnes-hut, backend: cuda/fused/robust, dtype: f32" in text,
           "the banner names the robust hybrid")
-    check(k6_l == k1_l == BH_STEPS + 2 and k3_l == 2, "K6 / K1 / K3 launches")
+    check(k6_e == k1_l == BH_STEPS + 2 and k6_l == 2 * k6_e and k3_l == 2,
+          "K6 / K1 / K3 launches")
     check(k6df_l == k4_l == k2_l == k5_l == 0, "no other kernel")
     frames_r = load_frames(out_r, BH_N, frames=2)
     drift_r = cli_number(text, "Relative energy drift:")
@@ -1114,33 +1241,39 @@ def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> 
           f"{k6_ms:.4f} ms + K1 rectangle ({BH_N} x {out_idx.numel()}) {rect_ms:.4f} ms "
           f"(parts timed apart); the depth probe (host, once per input) {probe_s:.4f} s "
           f"[{card}]")
-    # unit costs: K6 time against its stats lanes, set-up time against the
-    # dense-grid nodes, over depths of this input and of the uniform cloud
+    # unit costs: K6 time and its pops - none stage-cut increment against its
+    # stats lanes, set-up time against the dense-grid nodes, over depths of
+    # this input and of the uniform cloud
+    from nbody_tpu_torch.diag.fused_stages import best_ms
     points, builds = [], []
     b1m = Bodies.from_numpy(random_cloud(BH_N, seed=0), dtype=f32, device=dev)
     for label, (p_, m_, bd_), lds in (("robust", (rel, mass_bh, border), (5, 6, 7, 8)),
                                        ("uniform", (b1m.pos, b1m.mass, None), (4, 5, 6, 7))):
         for ld in lds:
             fi = bh_fused.prepare_fused(p_, m_, ld=ld, border=bd_)
-            kw = dict(theta=0.5, eps2=0.01, leaf_cap=64, ld=ld, group_size=fi.group_size)
+            kw = dict(theta=0.5, eps2=0.01, leaf_cap=64, ld=ld, group_size=fi.group_size,
+                      frontier_cap=bh_fused.FRONTIER_CAP)
             a_ = (fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq)
             _, st = bh_fused.fused_group_forces(*a_, **kw)
             ms = cuda_ms(torch, lambda: bh_fused.fused_group_forces(*a_, **kw), 3)
+            cut = {c: best_ms(lambda: bh_fused.kernel_forces(f32, *a_, **kw, debug_mode=c))
+                   for c in ("none", "pops")}
             pm = cuda_ms(torch, lambda: bh_fused.prepare_fused(p_, m_, ld=ld, border=bd_), 3)
             staged = float(st[:, bh_fused.S_SRC].double().sum().item())
             classified = 8.0 * float(st[:, bh_fused.S_POPS].double().sum().item())
             nodes = (8 ** (ld + 1) - 1) // 7
-            points.append((ms, staged, classified))
+            points.append((ms, staged, classified, cut["pops"] - cut["none"]))
             builds.append((label, nodes, pm))
-            print(f"  {label} ld {ld}: K6 {ms:.4f} ms, staged sources {staged:.4e}, classified "
-                  f"cells (8 x pops) {classified:.4e}; set-up {pm:.4f} ms over {nodes} nodes")
+            print(f"  {label} ld {ld}: K6 {ms:.4f} ms, cuts none {cut['none']:.4f} ms, pops "
+                  f"{cut['pops']:.4f} ms; staged sources {staged:.4e}, classified cells "
+                  f"(8 x pops) {classified:.4e}; set-up {pm:.4f} ms over {nodes} nodes")
     ns_src, ns_pop = fit_unit_costs(points)
     rb = [(nd, pm) for label, nd, pm in builds if label == "robust"]
     ns_node = max(0.0, float(np.polyfit([nd for nd, _ in rb], [pm * 1e6 for _, pm in rb],
                                         1)[0]))
     print(f"  H100 unit costs: NS_PER_SOURCE {ns_src:.4f}, NS_PER_POP {ns_pop:.4f} (per 128 "
-          f"classified cells), NS_PER_BUILD_NODE {ns_node:.4f} (the port's now: "
-          f"{bh_autold.NS_PER_SOURCE}, {bh_autold.NS_PER_POP}, "
+          f"classified cells, from the pops - none cuts), NS_PER_BUILD_NODE {ns_node:.4f} "
+          f"(the port's now: {bh_autold.NS_PER_SOURCE}, {bh_autold.NS_PER_POP}, "
           f"{bh_autold.NS_PER_BUILD_NODE}) [{card}]")
     del fi, k6args, points
     rc, text, _ = run_cli_rc([csv_r, *BH_WINDOW, os.path.join(tmp, "x.csv"), "--no-output",
@@ -1352,7 +1485,6 @@ def main() -> int:
             check(torch.equal(again_s, got_s) and torch.equal(again_stats, stats_k),
                   "K6 reruns are bit-identical")
             print("  two kernel runs bit-identical: True")
-        k6_err = k6[BH_N][2]
 
         # 8. the whole fused call against exact forces at 1M
         print(f"[8] barneshut_fused against exact all-pairs forces, {BH_N} "
@@ -1382,21 +1514,24 @@ def main() -> int:
         cuda_rect_accelerations.launches = 0
         cuda_potential_energy.launches = 0
         bh_fused.fused_group_forces.launches = 0
+        bh_fused.fused_group_forces.evaluations = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         text_bh = run_cli([*bh_argv, "--algo", "auto"])
         torch.cuda.synchronize()
         wall_bh = time.perf_counter() - t0
         k6_launches = bh_fused.fused_group_forces.launches
+        k6_evals = bh_fused.fused_group_forces.evaluations
         k3_bh = cuda_potential_energy.launches
         k1_bh = cuda_rect_accelerations.launches
-        print(f"  launches: fused Barnes-Hut {k6_launches} (want "
-              f"{BH_STEPS + 2}: probe + {BH_STEPS + 1} evaluations), potential "
-              f"{k3_bh} (want 2), all-pairs {k1_bh} (want 0); whole CLI call "
+        print(f"  launches: fused Barnes-Hut {k6_launches} in {k6_evals} evaluations (want "
+              f"{BH_STEPS + 2} evaluations: probe + {BH_STEPS + 1}, two launches each), "
+              f"potential {k3_bh} (want 2), all-pairs {k1_bh} (want 0); whole CLI call "
               f"{wall_bh:.4f} s")
         check("Algorithm: barnes-hut, backend: cuda/fused" in text_bh,
               "--algo auto took the fused Barnes-Hut kernel")
-        check(k6_launches == BH_STEPS + 2, "fused Barnes-Hut launches")
+        check(k6_evals == BH_STEPS + 2 and k6_launches == 2 * k6_evals,
+              "fused Barnes-Hut evaluations and launches")
         check(k3_bh == 2 and k1_bh == 0, "potential / all-pairs launches")
         frames_bh = load_frames(out_bh, BH_N, frames=2)
 
@@ -1426,6 +1561,12 @@ def main() -> int:
         (args100k, kw100k, _, _), (args1m, kw1m, _, stats1m) = k6[n], k6[BH_N]
         k6_ms_100k = cuda_ms(torch, lambda: bh_fused.fused_group_forces(
             *args100k, **kw100k), 10)
+        kw_k = dict(kw100k, frontier_cap=bh_fused.FRONTIER_CAP)
+        pricing_100k = cuda_ms(torch, lambda: bh_fused.kernel_forces(
+            torch.float32, *args100k, **kw_k, debug_mode="pops"), 10)
+        order100k = bh_fused.heavy_first(k6[n][3], args100k[2])
+        ordered_100k = cuda_ms(torch, lambda: bh_fused.kernel_forces(
+            torch.float32, *args100k, **kw_k, order=order100k), 10)
         k6_plain_ms_100k = cuda_ms(torch, lambda: bh_fused.fused_group_forces_reference(
             *args100k, **kw100k), 2)
         k6_ms = cuda_ms(torch, lambda: bh_fused.fused_group_forces(*args1m, **kw1m), 10)
@@ -1436,8 +1577,9 @@ def main() -> int:
         prep_ms = cuda_ms(torch, lambda: bh_fused.prepare_fused(b1m.pos, b1m.mass), 10)
         scatter_ms = cuda_ms(torch, lambda: bh_fused.scatter_back(acc1m_s, perm1m), 10)
         whole_ms = cuda_ms(torch, lambda: bh_fused.barneshut_fused(b1m.pos, b1m.mass), 10)
-        print(f"  K6 at {n}: kernel {k6_ms_100k:.4f} ms, plain {k6_plain_ms_100k:.4f} ms "
-              f"[{card}]")
+        print(f"  K6 at {n}: kernel {k6_ms_100k:.4f} ms (timed apart: the pricing pass "
+              f"{pricing_100k:.4f} ms, the ordered full kernel {ordered_100k:.4f} ms), plain "
+              f"{k6_plain_ms_100k:.4f} ms [{card}]")
         print(f"  K6 at {BH_N} (ld {kw1m['ld']}, {args1m[1].shape[0]} group slots): "
               f"kernel {k6_ms:.4f} ms, plain {k6_plain_ms:.4f} ms (one run) [{card}]")
         print(f"  barneshut_fused at {BH_N}: whole {whole_ms:.4f} ms = sort+build+"
@@ -1456,11 +1598,11 @@ def main() -> int:
                                    frames_ex, drift_ex, drift_bh)
         del exact
         k2_entry = robust_phases(torch, dev, card, arr, got, tmp, csv1m)
+        k6_entry = stage_phase(torch, dev, card, b, pairs / k1_ms * 1e3)
 
     small = (2 * n * 3 + n + n * 3) * 4  # pos_i, pos_j, mass, out (f32)
     k1_bound = bound(small, pairs * FORCE_OPS, FP32_PEAK)
     k3_bound = bound((n * 4 + 2) * 4, pairs * PE_OPS, FP32_PEAK)
-    k6_bound = bound(*fused_work(args1m, stats1m, 4), FP32_PEAK)
     print(json.dumps({"kernels": [
         {"name": "allpairs_f32", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/allpairs.cu",
@@ -1475,12 +1617,7 @@ def main() -> int:
          "launches": k3_launches, "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None},
-        {"name": "bh_fused_f32", "route": "cuda",
-         "source": "nbody_tpu_torch/csrc/bh_fused.cu",
-         "replaces": "nbody_tpu/ops/bh_fused.py:130",
-         "launches": k6_launches, "max_abs_err": k6_err,
-         "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
-         "bound_by": k6_bound[1], "library_ms": None},
+        {**k6_entry, "launches": k6_launches, "evaluations": k6_evals},
         *fp64_kernels,
         *list_kernels,
     ]}))

@@ -79,12 +79,17 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nbody_potential_f64.argtypes = [_P, _P, _I, _P, _P, _P]
     lib.nbody_bh_fused_smem_bytes.restype = _I
     lib.nbody_bh_fused_smem_bytes.argtypes = [_I, _I, _I]
-    for name, eps2 in (("nbody_bh_fused_f32", _F), ("nbody_bh_fused_f64", _D)):
+    # the f32 entries take the slot order after gcount; the cut entries
+    # take the cut last
+    for name, eps2, order, extra in (
+            ("nbody_bh_fused_f32", _F, [_P], []), ("nbody_bh_fused_f64", _D, [], []),
+            ("nbody_bh_fused_f32_cut", _F, [_P], [_I]),
+            ("nbody_bh_fused_f64_cut", _D, [], [_I])):
         fn = getattr(lib, name)
         fn.restype = _I
         fn.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-            _F, eps2, _I, _I, _I, _I, _P, _P, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, *order, _I, _P, _P,
+            _F, eps2, _I, _I, _I, _I, _P, _P, _P, *extra,
         ]
     for name, eps2 in (("nbody_group_lists_f32", _F), ("nbody_group_lists_f64", _D)):
         fn = getattr(lib, name)

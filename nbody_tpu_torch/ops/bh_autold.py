@@ -34,21 +34,26 @@ import os
 import numpy as np
 
 # Unit costs measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py
-# [28], PR 5): K6's time against its stats lanes over ld 5-8 of a 1M
-# Plummer sphere with escapers (robust box) and ld 4-7 of the 1M uniform
-# cloud, by least squares: 0.6833 ns per staged source and 775.0933 ns per
-# 128 classified cells (K6 classifies the 8 children of each popped cell;
-# the estimate below counts the occupied ones); the set-up's time per
-# dense-grid node, the slope over ld 5-8 (its ~6-9 ms are per-body work).
-NS_PER_SOURCE = 0.6833
-NS_PER_POP = 775.0933
+# [28]) over ld 5-8 of a 1M Plummer sphere with escapers (robust box) and
+# ld 4-7 of the 1M uniform cloud, on K6 launched heaviest group first.
+# Per 128 classified cells: the "pops" stage cut's time less the "none"
+# cut's, timed on the card, against the cells classified (K6 classifies
+# the 8 children of each popped cell; the estimate below counts the
+# occupied ones), by least squares: 2.8972 ns.  Per staged source: K6's
+# time less that, against the staged sources: 0.6271 ns.  The set-up's
+# time per dense-grid node, the slope over ld 5-8 (its ~3-6 ms are
+# per-body work), is kept from the fit that set it: the set-up has not
+# changed since, and later fits of the same slope scatter between 0 and
+# 0.1227.
+NS_PER_SOURCE = 0.6271
+NS_PER_POP = 2.8972
 NS_PER_BUILD_NODE = 0.1120
 # The persistent rebuild's cost per node, not ported: the JAX package's
 # value (TPU v5e, nbody_tpu/ops/bh_autold.py:52), used only when
 # `persistent` is asked for.
 NS_PER_TABLE_NODE = 9.7
 
-_CACHE_SCHEMA = 2  # bump when pricing constants / probe semantics change
+_CACHE_SCHEMA = 3  # bump when pricing constants / probe semantics change
 
 
 def _np_spread3(v: np.ndarray) -> np.ndarray:

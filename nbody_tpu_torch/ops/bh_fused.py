@@ -9,7 +9,8 @@ every body of the group against those sources.  A CPU tensor goes to the
 plain PyTorch version, ``fused_group_forces_reference``, which makes the
 same decisions in the same f32 arithmetic; a CUDA tensor launches the
 kernel or raises.  Nothing falls back.  ``fused_group_forces.launches``
-counts kernel launches.
+counts kernel launches, ``fused_group_forces.evaluations`` the calls
+that launched.
 
 The contract is the JAX package's; the TPU mechanics (128-lane octet
 packing of the tables, planar (G, 4, B) group blocks, burst rows,
@@ -17,6 +18,17 @@ groups per program, interpret mode, the far-vector staging switch) are
 not carried over: the kernel reads the ``GridTree`` arrays directly, and
 a group's bodies are the contiguous sorted range
 [gstart, gstart + gcount).
+
+Stage cuts (the JAX kernel's ``debug_mode``, ``nbody_tpu/ops/bh_fused.py:
+201-214``): ``debug_mode`` is one of ``CUTS``.  "full" is production;
+"none" launches the kernel and writes zero stats; "pops" traverses and
+classifies; "stage" also writes the staging entries ("stagefar" /
+"stagenear" one branch only); "dma" also loads the near rows.  Every cut
+but "none" returns the stats of "full" and, short of "full", zero forces.
+``diag/fused_stages.py`` times them on the card.
+
+The f32 wrapper prices the groups with the "pops" cut first and launches
+the heaviest first (``heavy_first``): two kernel launches an evaluation.
 
 Stats lanes per group (int32): pops (frontier cells classified),
 staged sources (far children + near bodies: actual sources, where the
@@ -54,12 +66,15 @@ from nbody_tpu_torch.ops.morton import morton_sort
 
 FRONTIER_CAP = 2048  # cells per level per group (runtime overflow-checked)
 MAX_LD = 8  # deepest dense grid the kernel takes (robust mode's depth)
-MAX_GROUP_SIZE = 1024  # the kernel runs one thread per body, one block per group
+MAX_GROUP_SIZE = 1024  # the kernel runs one block per group, two bodies a thread
 MORTON_DEPTH = 10
 
 # stats lanes (per group)
 S_POPS, S_SRC, S_NEAR, S_OVF, S_FAR = 0, 1, 2, 3, 4
 N_STATS = 5
+
+# the JAX kernel's debug_mode cuts, in the kernel's numbering
+CUTS = ("none", "pops", "stage", "stagefar", "stagenear", "dma", "full")
 
 # (bodies x sources) pairs the plain version evaluates at once
 _PAIR_BLOCK = 1 << 22
@@ -89,6 +104,14 @@ def _theta_sq(theta: float) -> float:
     return float(np.float32(float(theta) * float(theta)))
 
 
+def check_debug_mode(debug_mode: str) -> int:
+    """The kernel's number of stage cut `debug_mode`; raises on any other
+    string."""
+    if debug_mode not in CUTS:
+        raise ValueError(f"debug_mode must be one of {CUTS}, got {debug_mode!r}")
+    return CUTS.index(debug_mode)
+
+
 def _check_kernel_inputs(tree: GridTree, gstart, gcount, src, bsq, ld: int,
                          dtype: torch.dtype):
     device = src.device
@@ -113,33 +136,54 @@ def _check_kernel_inputs(tree: GridTree, gstart, gcount, src, bsq, ld: int,
 
 
 def launch(lib, tree: GridTree, gstart, gcount, src, bsq, stream, *, theta: float,
-           eps2: float, leaf_cap: int, ld: int, group_size: int, frontier_cap: int):
+           eps2: float, leaf_cap: int, ld: int, group_size: int, frontier_cap: int,
+           debug_mode: str = "full", cut_entry: bool = False, order=None):
     """Call K6's launcher in `lib` on checked tensors, in the f32 mode or,
-    for f64 `src` and tables, the df mode; returns (cudaError_t,
-    accelerations (n, 3) in src's dtype, stats (G, N_STATS)).  The tensors'
+    for f64 `src` and tables, the df mode, at stage cut `debug_mode`;
+    returns (cudaError_t, accelerations (n, 3) in src's dtype, stats (G,
+    N_STATS)).  "full" goes through the production entry point unless
+    `cut_entry`.  `order` (f32 only; int32 (G,), a permutation of the
+    slots, or None for slot order) is the order in which the blocks take
+    the group slots.  The tensors'
     pointers are handed to the kernel as they are, so the CPU emulation of
     the kernel source takes the same call."""
+    cut = check_debug_mode(debug_mode)
     n, n_groups = src.shape[0], gstart.shape[0]
     out = torch.zeros((n, 3), dtype=src.dtype, device=src.device)
     stats = torch.empty((n_groups, N_STATS), dtype=torch.int32, device=src.device)
-    fn = lib.nbody_bh_fused_f64 if src.dtype == torch.float64 else lib.nbody_bh_fused_f32
+    df = src.dtype == torch.float64
+    slots, extra = (), ()
+    if df:
+        if order is not None:
+            raise ValueError("the df mode takes the group slots in order")
+        fn = lib.nbody_bh_fused_f64
+        if debug_mode != "full" or cut_entry:
+            fn, extra = lib.nbody_bh_fused_f64_cut, (cut,)
+    else:
+        slots = (None if order is None else order.data_ptr(),)
+        fn = lib.nbody_bh_fused_f32
+        if debug_mode != "full" or cut_entry:
+            fn, extra = lib.nbody_bh_fused_f32_cut, (cut,)
     err = fn(
         tree.cx.data_ptr(), tree.cy.data_ptr(), tree.cz.data_ptr(),
         tree.gm.data_ptr(), tree.cnt.data_ptr(), tree.start.data_ptr(),
-        gstart.data_ptr(), gcount.data_ptr(), n_groups, src.data_ptr(),
+        gstart.data_ptr(), gcount.data_ptr(), *slots, n_groups, src.data_ptr(),
         bsq.data_ptr(), _theta_sq(theta), float(eps2),
         int(leaf_cap), int(ld), _round_cap(frontier_cap), int(group_size),
-        out.data_ptr(), stats.data_ptr(), stream,
+        out.data_ptr(), stats.data_ptr(), stream, *extra,
     )
     return err, out, stats
 
 
 def kernel_forces(dtype: torch.dtype, tree: GridTree, gstart, gcount, src, bsq, *,
                   theta: float, eps2: float, leaf_cap: int, ld: int, group_size: int,
-                  frontier_cap: int):
+                  frontier_cap: int, debug_mode: str = "full", order=None,
+                  cut_entry: bool = False):
     """Check the inputs and launch K6 on the card, in the mode of `dtype`
-    (f32, or f64 for the df mode); raises on anything the kernel does not
-    take and on a launch error.  Returns (accelerations, stats)."""
+    (f32, or f64 for the df mode), at stage cut `debug_mode`, taking the
+    group slots in `order` (f32 only, None for slot order), through the cut
+    entry point if `cut_entry`; raises on anything the kernel does not take
+    and on a launch error.  Returns (accelerations, stats)."""
     device = src.device
     if device.type != "cuda":
         raise ValueError(f"no fused Barnes-Hut kernel for device {device}")
@@ -147,6 +191,9 @@ def kernel_forces(dtype: torch.dtype, tree: GridTree, gstart, gcount, src, bsq, 
         raise ValueError(f"group_size must be in [1, {MAX_GROUP_SIZE}] (the kernel "
                          f"runs one block per group), got {group_size}")
     _check_kernel_inputs(tree, gstart, gcount, src, bsq, ld, dtype)
+    if order is not None and (order.dtype != torch.int32 or order.device != device
+                              or order.shape != gcount.shape):
+        raise ValueError(f"order: expected int32 {tuple(gcount.shape)} on {device}")
 
     from nbody_tpu_torch.ops import _cuda
 
@@ -155,15 +202,16 @@ def kernel_forces(dtype: torch.dtype, tree: GridTree, gstart, gcount, src, bsq, 
         err, out, stats = launch(
             kernels.lib, tree, gstart, gcount, src, bsq, _cuda.stream_handle(device),
             theta=theta, eps2=eps2, leaf_cap=leaf_cap, ld=ld, group_size=group_size,
-            frontier_cap=frontier_cap,
+            frontier_cap=frontier_cap, debug_mode=debug_mode, order=order,
+            cut_entry=cut_entry,
         )
     if err != 0:
         fcap = _round_cap(frontier_cap)
         smem = kernels.lib.nbody_bh_fused_smem_bytes(
             int(group_size), fcap, int(dtype == torch.float64))
-        kernels.check(err, f"bh_fused kernel ({dtype}, group_size {group_size}, "
-                           f"frontier cap {fcap}: {smem} bytes of shared memory "
-                           "per block)")
+        kernels.check(err, f"bh_fused kernel ({dtype}, cut {debug_mode}, group_size "
+                           f"{group_size}, frontier cap {fcap}: {smem} bytes of shared "
+                           "memory per block)")
     return out, stats
 
 
@@ -180,24 +228,50 @@ def fused_group_forces(
     ld: int,
     group_size: int,
     frontier_cap: int = FRONTIER_CAP,
+    debug_mode: str = "full",
 ):
     """f32 accelerations (n, 3) in sorted order and stats (G, N_STATS)
     int32 for the groups (gstart, gcount) of the sorted f32 sources `src`
     (n, 4) [x y z G·m] against the f32 dense grid `tree` of depth `ld`,
     with f32 bsq[l] = (border / 2^l)^2.  Groups hold at most `group_size`
-    bodies.  Bodies of no group (trimmed groups) get zero acceleration."""
+    bodies.  Bodies of no group (trimmed groups) get zero acceleration.
+    `debug_mode` is a stage cut of ``CUTS`` (zero forces short of
+    "full")."""
     if not 1 <= ld <= MAX_LD:
         raise ValueError(f"ld must be in [1, {MAX_LD}], got {ld}")
+    check_debug_mode(debug_mode)
     kw = dict(theta=theta, eps2=eps2, leaf_cap=leaf_cap, ld=ld,
-              group_size=group_size, frontier_cap=frontier_cap)
+              group_size=group_size, frontier_cap=frontier_cap, debug_mode=debug_mode)
     if src.device.type == "cpu":
         return fused_group_forces_reference(tree, gstart, gcount, src, bsq, **kw)
-    out, stats = kernel_forces(torch.float32, tree, gstart, gcount, src, bsq, **kw)
+    order = None
+    if debug_mode == "full":
+        kw["debug_mode"] = "pops"
+        _, est = kernel_forces(torch.float32, tree, gstart, gcount, src, bsq, **kw)
+        fused_group_forces.launches += 1
+        kw["debug_mode"] = "full"
+        order = heavy_first(est, gcount)
+    out, stats = kernel_forces(torch.float32, tree, gstart, gcount, src, bsq, **kw,
+                               order=order)
     fused_group_forces.launches += 1
+    fused_group_forces.evaluations += 1
     return out, stats
 
 
+# At "full" an evaluation is two launches of K6: the "pops" cut that prices
+# the groups, then the full kernel in heavy-first order.
 fused_group_forces.launches = 0
+fused_group_forces.evaluations = 0
+
+
+def heavy_first(stats: torch.Tensor, gcount: torch.Tensor) -> torch.Tensor:
+    """The group slots (int32) in descending order of their pairs, staged
+    sources x bodies, ties in slot order.  A block per group leaves the
+    card waiting on the heaviest groups when they start last (a dense core
+    holds groups of ~9x the mean work); starting them first lets the light
+    groups fill the tail."""
+    work = stats[:, S_SRC].long() * gcount.long()
+    return torch.argsort(work, descending=True, stable=True).to(torch.int32)
 
 
 def fused_group_forces_reference(
@@ -213,6 +287,7 @@ def fused_group_forces_reference(
     ld: int,
     group_size: int = MAX_GROUP_SIZE,
     frontier_cap: int = FRONTIER_CAP,
+    debug_mode: str = "full",
 ):
     """The plain PyTorch version of K6 in both modes: the same decisions in
     the same arithmetic, the same stats.  The MAC is f32, each operation
@@ -221,8 +296,10 @@ def fused_group_forces_reference(
     all groups at once over a tensor of (group, cell) frontier pairs, level
     by level, then evaluates each group's sources in blocks so that memory
     stays bounded.  `group_size` is taken for the kernel's signature; the
-    groups' own counts rule."""
+    groups' own counts rule.  At a stage cut `debug_mode` short of "full"
+    the forces are zero (and the stats too in "none"), as the kernel's."""
     del group_size
+    check_debug_mode(debug_mode)
     device, dtype = src.device, src.dtype
     f32 = torch.float32
     n, n_groups = src.shape[0], gstart.shape[0]
@@ -234,7 +311,7 @@ def fused_group_forces_reference(
     out = torch.zeros((n, 3), dtype=dtype, device=device)
     live = torch.nonzero(gcount > 0).flatten()
     n_live = live.shape[0]
-    if n_live == 0:
+    if n_live == 0 or debug_mode == "none":
         return out, stats.to(torch.int32)
     gs = gstart[live].long()
     gc = gcount[live].long()
@@ -289,6 +366,8 @@ def fused_group_forces_reference(
     n_near = torch.zeros(n_live, dtype=torch.int64, device=device)
     n_near.index_add_(0, near_g, near_cnt)
     stats[live] = torch.stack([pops, n_far + n_near, n_near, ovf, n_far], dim=1)
+    if debug_mode != "full":
+        return out, stats.to(torch.int32)
 
     # every source row of every group: far COMs, then near bodies, grouped
     nb_g = torch.repeat_interleave(near_g, near_cnt)

@@ -41,6 +41,7 @@ from nbody_tpu_torch.ops.bh_fused import (
     MAX_LD,
     barneshut_fused,
     barneshut_fused_robust,
+    check_debug_mode,
     fused_group_forces_reference,
     kernel_forces,
 )
@@ -63,14 +64,17 @@ def fused_group_forces_df(
     ld: int,
     group_size: int,
     frontier_cap: int = FRONTIER_CAP,
+    debug_mode: str = "full",
 ):
     """fp64 accelerations (n, 3) in sorted order and stats (G, N_STATS)
     int32, as ``bh_fused.fused_group_forces``, from f64 tables `tree` and
-    f64 sources `src` (n, 4) [x y z G·m]; bsq stays f32 (the MAC is f32)."""
+    f64 sources `src` (n, 4) [x y z G·m]; bsq stays f32 (the MAC is f32).
+    `debug_mode` is a stage cut of ``bh_fused.CUTS``."""
     if not 1 <= ld <= MAX_LD:
         raise ValueError(f"ld must be in [1, {MAX_LD}], got {ld}")
+    check_debug_mode(debug_mode)
     kw = dict(theta=theta, eps2=eps2, leaf_cap=leaf_cap, ld=ld,
-              group_size=group_size, frontier_cap=frontier_cap)
+              group_size=group_size, frontier_cap=frontier_cap, debug_mode=debug_mode)
     if src.device.type == "cpu":
         return fused_group_forces_df_reference(tree, gstart, gcount, src, bsq, **kw)
     out, stats = kernel_forces(torch.float64, tree, gstart, gcount, src, bsq, **kw)

@@ -63,6 +63,18 @@ def plummer_cloud(
     return np.concatenate([pos, vel, m[:, None]], axis=1)
 
 
+def with_escapers(arr: np.ndarray) -> np.ndarray:
+    """`arr` with its first 8 bodies moved out to r 300-1000 (directions
+    and radii from ``default_rng(1)``), in the manner of
+    tests/test_bh_robust.py:20-28: the outlier input of the robust hybrid."""
+    out = arr.copy()
+    rng = np.random.default_rng(1)
+    u = rng.normal(size=(8, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    out[:8, :3] = u * rng.uniform(300.0, 1000.0, (8, 1))
+    return out
+
+
 def write_fixture(path: str, arr: np.ndarray) -> None:
     """Write bodies in the reference input format: 7 comma-separated floats
     per line, no header (serial/exhaustive.c:130-132), each as ``repr`` of

@@ -3,7 +3,7 @@ CPU, where K6's wrapper takes its plain version, held against
 tests/oracle.py and against the JAX package's fused kernel.
 
 The JAX kernel runs once, in Pallas interpret mode, in a module-scoped
-fixture: every interpret-mode call costs ~30 s on this host.
+fixture, at one group per program: its interpreted body is traced once.
 """
 
 import jax.numpy as jnp
@@ -66,10 +66,11 @@ def test_fused_plain_within_oracle_bound(name):
     """(a) The port's whole pipeline, plain version, within the JAX tests'
     0.02 of fp64 direct summation (test_bh_fused.py:51)."""
     pos, mass, b = _jax_fixture(name)
-    before = tf.fused_group_forces.launches
+    before = (tf.fused_group_forces.launches, tf.fused_group_forces.evaluations)
     acc, stats = tf.barneshut_fused(_t(pos), _t(mass), G=G, softening_sq=EPS2,
                                     theta=THETA, group_size=b, return_stats=True)
-    assert tf.fused_group_forces.launches == before  # CPU: no kernel launch
+    # CPU: no kernel launch, no evaluation counted
+    assert (tf.fused_group_forces.launches, tf.fused_group_forces.evaluations) == before
     assert int(stats["frontier_overflow"]) == 0
     assert int(stats["trimmed_groups"]) == 0
     assert acc.dtype == torch.float32 and acc.shape == (len(pos), 3)
@@ -104,16 +105,17 @@ N_B, B_B, LD_B, LC_B = 1000, 64, 3, 8
 
 @pytest.fixture(scope="module")
 def jax_run():
-    """One JAX interpret-mode fused call, plus the JAX-built tables and
-    groups it used (rebuilt with the same plain XLA steps as
-    nbody_tpu/ops/bh_fused.py:1272-1327)."""
+    """The JAX kernel's forces and stats for these bodies, and the JAX-built
+    tables and groups it used: the plain XLA steps of
+    nbody_tpu/ops/bh_fused.py:1272-1327 and :1350-1363, with one
+    interpret-mode fused_group_forces call over the occupied group slots
+    at one group per program (JAX's default of 8 unrolls the interpreted
+    body 8 times; programs per group are TPU mechanics, the same kernel)."""
     rng = np.random.default_rng(5)
     pos = rng.uniform(-2, 2, (N_B, 3)).astype(np.float32)
     mass = rng.uniform(0.1, 1, N_B).astype(np.float32)
     kw = dict(G=G, softening_sq=EPS2, theta=THETA, group_size=B_B, ld=LD_B,
               leaf_cap=LC_B)
-    acc, stats = jf.barneshut_fused(jnp.asarray(pos), jnp.asarray(mass),
-                                    interpret=True, return_stats=True, **kw)
 
     perm, keys, border = jm.morton_sort(jnp.asarray(pos), 10)
     pos_s = jnp.asarray(pos)[perm]
@@ -122,11 +124,29 @@ def jax_run():
     tree = jg.build_grid(pos_s, gm_s, keys_s, 10, LD_B)
     groups = jb.group_bodies(keys_s, N_B, 10, B_B, jf.auto_split_level(N_B, B_B))
     keep = jcap.auto_keep(N_B, B_B, groups[0].shape[0], jcap.budget_bytes())
-    gstart, gcount, _, _, trimmed = jb.compact_groups(*groups, keep)
+    gstart, gcount, gidx, gvalid, trimmed = jb.compact_groups(*groups, keep)
     bsq = (border.astype(jnp.float32) / jnp.exp2(jnp.arange(16, dtype=jnp.float32))) ** 2
+
+    live = np.flatnonzero(np.asarray(gcount) > 0)
+    pg = jnp.concatenate([jnp.transpose(pos_s[gidx[live]], (0, 2, 1)),
+                          jnp.zeros((len(live), 1, B_B), jnp.float32)], axis=1)
+    ps = jnp.concatenate([pos_s.T, gm_s[None, :]], axis=0)
+    ps = jnp.pad(ps, ((0, 0), (0, -(-N_B // 128) * 128 - N_B)))
+    ft, it = jf.pack_tables(tree, LD_B)
+    acc_g, jstats = jf.fused_group_forces(
+        gcount[live], pg, ft, it, ps, bsq, jf.aux_octet_offsets(), theta=THETA,
+        eps2=EPS2, leaf_cap=LC_B, ld=LD_B, frontier_cap=jf.FRONTIER_CAP,
+        interpret=True, groups_per_program=1)
+    dest = np.where(np.asarray(gvalid[live]),
+                    np.asarray(perm)[np.clip(np.asarray(gidx[live]), 0, N_B - 1)], N_B)
+    acc = np.zeros((N_B + 1, 3), np.float32)
+    acc[dest.reshape(-1)] = np.transpose(np.asarray(acc_g), (0, 2, 1)).reshape(-1, 3)
+    js = np.asarray(jstats).astype(np.float64)
+    stats = {"pops": js[:, jf.S_POPS].sum(), "near_bodies": js[:, jf.S_NEAR].sum(),
+             "far_children": js[:, jf.S_FAR].sum(),
+             "frontier_overflow": js[:, jf.S_OVF].max()}
     return dict(
-        pos=pos, mass=mass, kw=kw, acc=np.asarray(acc),
-        stats={k: float(v) for k, v in stats.items()},
+        pos=pos, mass=mass, kw=kw, acc=acc[:N_B], stats=stats,
         perm=np.asarray(perm), pos_s=np.asarray(pos_s), gm_s=np.asarray(gm_s),
         tree={k: np.asarray(v) for k, v in tree._asdict().items()},
         gstart=np.asarray(gstart), gcount=np.asarray(gcount),
@@ -183,6 +203,40 @@ def test_state_from_numpy_types(jax_run):
     assert tree.cx.dtype == torch.float32 and tree.cnt.dtype == torch.int32
     assert gstart.dtype == gcount.dtype == torch.int32
     assert int(gcount.sum()) == N_B
+
+
+def test_heavy_first_orders_slots_by_pairs():
+    """K6's launch order: slots by staged sources x bodies, heaviest first,
+    ties (and empty slots) in slot order."""
+    stats = torch.zeros((5, tf.N_STATS), dtype=torch.int32)
+    stats[:, tf.S_SRC] = torch.tensor([10, 300, 0, 40, 75], dtype=torch.int32)
+    gcount = torch.tensor([30, 1, 0, 75, 40], dtype=torch.int32)
+    order = tf.heavy_first(stats, gcount)
+    assert order.dtype == torch.int32
+    assert order.tolist() == [3, 4, 0, 1, 2]  # work 3000, 3000, 300, 300, 0
+
+
+def test_fused_stages_pair_counts():
+    """The stage profiler's pair counts: real pairs are staged sources x
+    bodies; a live warp issues 64 body slots, a whole block the warps of
+    the group size (here 100 bodies: two warps, 128 slots)."""
+    from nbody_tpu_torch.diag import fused_stages
+
+    stats = torch.zeros((3, tf.N_STATS), dtype=torch.int32)
+    stats[:, tf.S_SRC] = torch.tensor([10, 20, 5], dtype=torch.int32)
+    gcount = torch.tensor([100, 1, 0], dtype=torch.int32)
+    real, live, whole = fused_stages.pair_counts(stats, gcount, 100)
+    assert (real, live, whole) == (1020.0, 10 * 128 + 20 * 64, 35 * 128)
+
+
+def test_fused_stages_profiler_needs_a_card(monkeypatch, capsys):
+    """The stage profiler times the card and nothing else: with no card it
+    exits 1 and says why."""
+    from nbody_tpu_torch.diag import fused_stages
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert fused_stages.main(["1000", "--robust"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 def _overflow_bodies():

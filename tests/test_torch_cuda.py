@@ -108,21 +108,65 @@ def test_kernels_refuse_f64_on_the_card(dev):
                                              (4000, 128, 8, 1)])
 def test_bh_fused_kernel_matches_twin(dev, n, b, ld, leaf_cap):
     """K6 against its plain version on the same tables and groups: equal
-    stats, K1's bound, bit-identical reruns, one launch counted."""
+    stats, K1's bound, bit-identical reruns, one evaluation of two kernel
+    launches counted (the pricing pass, then the full kernel)."""
     pos, mass = _cloud(n, dev, seed=n)
     fi = bh_fused.prepare_fused(pos, mass, ld=ld, group_size=b)
     kw = dict(theta=0.5, eps2=0.01, leaf_cap=leaf_cap, ld=fi.ld, group_size=b)
     args = (fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq)
-    before = bh_fused.fused_group_forces.launches
+    before = (bh_fused.fused_group_forces.launches, bh_fused.fused_group_forces.evaluations)
     got, stats = bh_fused.fused_group_forces(*args, **kw)
     torch.cuda.synchronize()
-    assert bh_fused.fused_group_forces.launches == before + 1
+    assert (bh_fused.fused_group_forces.launches,
+            bh_fused.fused_group_forces.evaluations) == (before[0] + 2, before[1] + 1)
     want, want_stats = bh_fused.fused_group_forces_reference(*args, **kw)
     assert torch.equal(stats, want_stats)
     assert int(stats[:, bh_fused.S_FAR].sum()) > 0
     _assert_f32_close(got, want)
     again, _ = bh_fused.fused_group_forces(*args, **kw)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("case", ["one", "odd", "full1024", "longrun", "uniform"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bh_fused_stage_cuts_on_the_card(dev, case, dtype):
+    """Every stage cut of K6 (f32, or the df mode) on the card: the stats
+    of "full" in every cut but "none" (zero there), zero forces short of
+    "full", the cut entry's "full" bit-identical to the production entry,
+    the f32 slots taken heaviest first bit-identical to slot order; a
+    1-body group, odd groups, 1,024-body groups, a near run longer than a
+    ring stage, and 1,024-body uniform groups."""
+    rng = np.random.default_rng(21)
+    b, n = {"one": (16, 151), "odd": (97, 500), "full1024": (1024, 2500),
+            "longrun": (256, 760), "uniform": (1024, 20_000)}[case]
+    pos = rng.uniform(-2, 2, (n, 3))
+    if case == "one":
+        pos[-1] = 40.0
+    if case == "longrun":
+        pos[:700] = rng.normal(0, 1e-4, (700, 3))
+    pos = torch.as_tensor(pos, dtype=dtype, device=dev)
+    mass = torch.as_tensor(rng.uniform(0.1, 1, n), dtype=dtype, device=dev)
+    fi = bh_fused.prepare_fused(pos, mass, ld=3 if n < 5000 else 0, group_size=b)
+    kw = dict(theta=0.5, eps2=0.01, leaf_cap=8, ld=fi.ld, group_size=b,
+              frontier_cap=bh_fused.FRONTIER_CAP)
+    args = (fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq)
+    prod, stats = bh_fused.kernel_forces(dtype, *args, **kw)
+    for cut in bh_fused.CUTS:
+        got, st = bh_fused.kernel_forces(dtype, *args, **kw, debug_mode=cut, cut_entry=True)
+        if cut == "none":
+            assert not st.any()
+        else:
+            assert torch.equal(st, stats), cut
+        assert cut == "full" or not got.any(), cut
+    assert torch.equal(got, prod)
+    if dtype == torch.float32:
+        wrapped, st = bh_fused.fused_group_forces(*args, **kw)  # heaviest first
+        assert torch.equal(wrapped, prod) and torch.equal(st, stats)
+    gcount = fi.gcount.cpu()
+    assert {"one": (gcount == 1).any(), "odd": (gcount % 2 == 1).any(),
+            "full1024": (gcount == 1024).sum() >= 2,
+            "longrun": stats[:, bh_fused.S_NEAR].max() > 700,
+            "uniform": (gcount == 1024).any()}[case]
 
 
 def test_bh_fused_against_exact_forces(dev):
@@ -356,8 +400,9 @@ def _plummer_with_escapers(n, dev, dtype=torch.float32):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_robust_against_exact_forces(dev, dtype):
     """The robust hybrid through K6 (or its df mode) and K1 (or K4), one
-    launch of each, within 0.02 of exact forces, the escapers within 0.02
-    of their own force scale."""
+    evaluation of each (K6 f32 is two launches: the pricing pass and the
+    full kernel), within 0.02 of exact forces, the escapers within 0.02 of
+    their own force scale."""
     from nbody_tpu_torch.ops.bh_fused import barneshut_fused_robust
     from nbody_tpu_torch.ops.bh_fused_df import barneshut_fused_robust_df
 
@@ -367,9 +412,11 @@ def test_robust_against_exact_forces(dev, dtype):
                 else (bh_fused.fused_group_forces, cuda_rect_accelerations))
     before = [c.launches for c in counters]
     fn = barneshut_fused_robust_df if f64 else barneshut_fused_robust
+    evals = bh_fused.fused_group_forces.evaluations
     acc = fn(pos, mass, G=1.0)
     torch.cuda.synchronize()
-    assert [c.launches for c in counters] == [b + 1 for b in before]
+    assert [c.launches for c in counters] == [before[0] + (1 if f64 else 2), before[1] + 1]
+    assert bh_fused.fused_group_forces.evaluations == evals + (0 if f64 else 1)
     exact = (cuda_accelerations_f64 if f64 else cuda_accelerations)(pos, mass, G=1.0)
     assert _rel(acc, exact) < 0.02
     own = exact[:8].abs().amax(dim=1)
@@ -378,7 +425,8 @@ def test_robust_against_exact_forces(dev, dtype):
 
 def test_cli_robust_runs_through_k6_and_k1(dev, tmp_path, capsys):
     """--algo auto on an outlier-dominated 40k cloud: the robust hybrid
-    (note, banner), K6 and K1 launched by the probe and 3 evaluations."""
+    (note, banner), K6 and K1 run by the probe and 3 evaluations (K6 two
+    launches each)."""
     _, _, arr = _plummer_with_escapers(40_000, "cpu")
     src, out = tmp_path / "in.csv", tmp_path / "o.csv"
     write_fixture(str(src), arr)
@@ -386,9 +434,11 @@ def test_cli_robust_runs_through_k6_and_k1(dev, tmp_path, capsys):
                 cuda_rect_accelerations_mxu)
     for c in counters:
         c.launches = 0
+    bh_fused.fused_group_forces.evaluations = 0
     assert main([str(src), "0", "0.002", "0.001", str(out), "--algo", "auto",
                  "--bh-ld", "6"]) == 0
-    assert [c.launches for c in counters] == [4, 4, 0]
+    assert [c.launches for c in counters] == [8, 4, 0]
+    assert bh_fused.fused_group_forces.evaluations == 4
     captured = capsys.readouterr()
     assert "enabling --bh-robust on" in captured.err
     assert "backend: cuda/fused/robust, dtype: f32" in captured.out

@@ -20,7 +20,7 @@ import torch
 
 from conftest import random_cloud
 from nbody_tpu_torch.diag.energy import potential_energy_reference
-from nbody_tpu_torch.ops import _cuda, barneshut, bh_fused, cuda_lists
+from nbody_tpu_torch.ops import _cuda, barneshut, bh_fused, bh_fused_df, cuda_lists
 from nbody_tpu_torch.ops.cuda_exhaustive import (
     rect_accelerations_mxu_reference,
     rect_accelerations_reference,
@@ -44,8 +44,10 @@ EMU_HEADER = r"""// CPU emulation of the CUDA features the port's kernels use.  
 // after another, so
 // `static` stands in for __shared__ and one buffer per launch for `extern
 // __shared__`; __syncthreads is a barrier over the block.  The 32 lanes of
-// each warp share an exchange buffer and a warp barrier, for __shfl_sync and
-// the twin of allpairs_mma.cu's tensor-core helper mma_3xtf32.
+// each warp share an exchange buffer and a warp barrier, for the shuffles,
+// __ballot_sync and the twin of allpairs_mma.cu's tensor-core helper
+// mma_3xtf32.  bh_fused.cu's asynchronous near-row copies have twins that
+// copy synchronously, with a block barrier for the wait.
 // It checks the kernels' indexing, masking, fragment mapping and reductions,
 // not the card's arithmetic: rsqrtf and rsqrt here are 1/sqrt, and nothing
 // is timed.
@@ -64,7 +66,7 @@ EMU_HEADER = r"""// CPU emulation of the CUDA features the port's kernels use.  
 #define __host__
 #define __forceinline__ inline
 #define __shared__ static
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 
 struct uint3_ { unsigned x = 0, y = 0, z = 0; };
 inline thread_local uint3_ threadIdx, blockIdx, blockDim;
@@ -73,7 +75,7 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-struct float4 { float x, y, z, w; };
+struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
@@ -96,19 +98,62 @@ inline unsigned char* emu_dynamic_smem = nullptr;
 // The running thread's warp: its lanes' exchange slots and barrier.
 struct EmuWarp {
   std::barrier<> bar;
-  float a[32][4], b[32][2], v[32];
+  float a[32][4], b[32][2];
+  unsigned u[2][32];  // exchange slots, alternating from one exchange to the next
   explicit EmuWarp(int lanes) : bar(lanes) {}
 };
 inline thread_local EmuWarp* emu_warp = nullptr;
+inline thread_local unsigned emu_exchanges = 0;  // this lane's exchanges so far
 
-inline float __shfl_sync(unsigned, float v, int src_lane) {
-  const unsigned lane = threadIdx.x & 31;
-  emu_warp->v[lane] = v;
+// The warp's slots for this exchange: every lane posts, the warp meets once,
+// every lane reads.  A lane can post the next exchange while another still
+// reads this one, because the two use other slots, and the one after meets
+// first.
+inline unsigned* emu_post(unsigned bits) {
+  unsigned* slots = emu_warp->u[emu_exchanges++ & 1];
+  slots[threadIdx.x & 31] = bits;
   emu_warp->bar.arrive_and_wait();
-  const float got = emu_warp->v[src_lane & 31];
-  emu_warp->bar.arrive_and_wait();
+  return slots;
+}
+
+// Every lane posts `v`; the lane gets lane `src_lane`'s.
+template <class T>
+T emu_exchange(T v, int src_lane) {
+  unsigned bits;
+  std::memcpy(&bits, &v, sizeof bits);
+  bits = emu_post(bits)[src_lane & 31];
+  T got;
+  std::memcpy(&got, &bits, sizeof got);
   return got;
 }
+inline float __shfl_sync(unsigned, float v, int src_lane) { return emu_exchange(v, src_lane); }
+inline int __shfl_sync(unsigned, int v, int src_lane) { return emu_exchange(v, src_lane); }
+inline float __shfl_xor_sync(unsigned, float v, int mask) {
+  return emu_exchange(v, static_cast<int>(threadIdx.x & 31) ^ mask);
+}
+// lanes below `delta` keep their own value, as on the card
+inline int __shfl_up_sync(unsigned, int v, unsigned delta) {
+  const int lane = threadIdx.x & 31;
+  return emu_exchange(v, lane >= static_cast<int>(delta) ? lane - static_cast<int>(delta) : lane);
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const unsigned* slots = emu_post(pred ? 1u : 0u);
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m |= slots[l] << l;
+  return m;
+}
+inline int __popc(unsigned m) { return __builtin_popcount(m); }
+
+// Twins of bh_fused.cu's near-row ring: the copy is synchronous, and the
+// wait, which every thread of the block calls, is a block barrier that
+// publishes the rows the other threads copied.
+#define NBODY_EMULATED_ASYNC_COPY 1
+inline void ring_init(unsigned long long*) {}
+inline void ring_expect(unsigned long long*, unsigned) {}
+inline void ring_copy(float4* dst, const float4* src, int rows, unsigned long long*) {
+  std::memcpy(dst, src, sizeof(float4) * rows);
+}
+inline void ring_wait(unsigned long long*, unsigned) { __syncthreads(); }
 
 // cvt.rna.tf32.f32: round to 10 mantissa bits, to nearest, ties away from 0
 inline float emu_tf32(float v) {
@@ -356,36 +401,93 @@ def _bh_case(name):
         pos = np.vstack([rng.normal(0, 1e-4, (100, 3)),
                          rng.uniform(-1, 1, (20, 3)) * 50])
         return pos, rng.uniform(0.1, 1, 120), 64, 3, 8, 2048
+    if name == "one":  # a lone body far out makes a 1-body group
+        pos = np.vstack([rng.uniform(-1, 1, (150, 3)), [[40.0, 40.0, 40.0]]])
+        return pos, rng.uniform(0.1, 1, 151), 16, 3, 8, 2048
+    if name == "odd":  # B = 97: two warps, odd group sizes
+        pos = rng.uniform(-2, 2, (500, 3))
+        return pos, rng.uniform(0.1, 1, 500), 97, 3, 8, 2048
+    if name == "full1024":  # 1,024-body groups: 512 threads x 2 bodies
+        pos = rng.uniform(-2, 2, (2500, 3))
+        return pos, rng.uniform(0.1, 1, 2500), 1024, 3, 8, 2048
+    if name == "longrun":  # a 700-body terminal cell: a run over two stages
+        pos = np.vstack([rng.normal(0, 1e-4, (700, 3)),
+                         rng.uniform(-1, 1, (60, 3)) * 50])
+        return pos, rng.uniform(0.1, 1, 760), 256, 3, 8, 2048
     # a frontier wider than the 128-cell cap: the overflow lane reports it
     pos = rng.uniform(-2, 2, (2000, 3))
     return pos, rng.uniform(0.1, 1, 2000), 64, 4, 1, 128
 
 
-@pytest.mark.parametrize("name", ["uniform", "cluster", "overflow"])
+def _bh_check_cuts(lib, fi, kw, bound):
+    """Every stage cut of K6's source (f32, or the df mode for f64 tables)
+    against the plain version on the same tables and groups: the
+    stats of "full" in every cut but "none" (zero there), zero forces short
+    of "full"; "full" through the cut entry bit-identical to the production
+    entry (a rerun of the same instantiation) and, in f32, to the
+    production entry taking the slots in reverse order; within `bound`(got,
+    want) of the plain version.  Returns the stats."""
+    want, want_stats = bh_fused.fused_group_forces_reference(
+        fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq, **kw)
+    args = (lib, fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq, None)
+    for cut in bh_fused.CUTS:
+        err, got, stats = bh_fused.launch(*args, debug_mode=cut, cut_entry=True, **kw)
+        assert err == 0
+        if cut == "none":
+            assert not stats.any()
+        else:
+            np.testing.assert_array_equal(stats.numpy(), want_stats.numpy(), cut)
+        if cut != "full":
+            assert not got.any(), cut
+    err, prod, prod_stats = bh_fused.launch(*args, **kw)
+    assert err == 0
+    assert torch.equal(prod, got) and torch.equal(prod_stats, stats)
+    if fi.src.dtype == torch.float32:  # slots taken in reverse: the same bits
+        order = torch.arange(len(fi.gcount) - 1, -1, -1, dtype=torch.int32)
+        err, ordered, ordered_stats = bh_fused.launch(*args, order=order, **kw)
+        assert err == 0
+        assert torch.equal(ordered, got) and torch.equal(ordered_stats, stats)
+    if int(stats[:, bh_fused.S_OVF].max()) <= kw["frontier_cap"]:
+        bound(got, want)  # past the cap both drop the same cells; forces are moot
+    return stats
+
+
+def _f32_bound(got, want):
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale, rtol=2e-4)
+
+
+def _f64_bound(got, want):
+    assert (got - want).abs().max().item() <= 1e-12 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("name", ["uniform", "cluster", "overflow", "one", "odd",
+                                  "full1024", "longrun"])
 def test_bh_fused_kernel_source(emu, name):
-    """K6 against its plain version on the same tables and groups: equal
-    stats lanes (the MAC is written without contraction, so the decisions
-    match), accelerations within K1's bound."""
+    """K6 f32 against its plain version on the same tables and groups, at
+    every stage cut: equal stats lanes (the MAC is written without contraction,
+    so the decisions match), accelerations within K1's bound."""
     pos, mass, b, ld, leaf_cap, fcap = _bh_case(name)
     fi = bh_fused.prepare_fused(_f32(pos), _f32(mass), ld=ld, group_size=b)
     kw = dict(theta=0.5, eps2=0.01, leaf_cap=leaf_cap, ld=ld, group_size=b,
               frontier_cap=fcap)
-    err, got, stats = bh_fused.launch(emu, fi.tree, fi.gstart, fi.gcount,
-                                      fi.src, fi.bsq, None, **kw)
-    assert err == 0
-    want, want_stats = bh_fused.fused_group_forces_reference(
-        fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq, **kw)
-    np.testing.assert_array_equal(stats.numpy(), want_stats.numpy())
-    assert int((fi.gcount == 0).sum()) > 0  # empty groups took part
+    stats = _bh_check_cuts(emu, fi, kw, _f32_bound)
+    gcount = fi.gcount.numpy()
+    if name in ("uniform", "cluster", "overflow"):
+        assert (gcount == 0).sum() > 0  # empty groups took part
     if name == "uniform":
         assert int(stats[:, bh_fused.S_FAR].sum()) > 0
-        assert int((fi.gcount % b != 0).sum()) > 1  # partial groups
+        assert ((gcount % b != 0) & (gcount > 0)).sum() > 1  # partial groups
+    if name == "one":
+        assert (gcount == 1).sum() >= 1
+    if name == "odd":
+        assert (gcount % 2 == 1).sum() >= 1 and gcount.max() > 64
+    if name == "full1024":
+        assert (gcount == 1024).sum() >= 2
+    if name == "longrun":  # one staged run outgrows a 512-row stage
+        assert int(stats[:, bh_fused.S_NEAR].max()) > 700
     if name == "overflow":
         assert int(stats[:, bh_fused.S_OVF].max()) > 128
-        return  # past the cap both drop the same cells; forces are moot
-    scale = want.abs().max().item()
-    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale,
-                               rtol=2e-4)
 
 
 @pytest.mark.parametrize("m,n", [(1, 1), (137, 300), (300, 517)])
@@ -426,27 +528,33 @@ def test_potential_f64_kernel_source(emu, n):
 @pytest.mark.parametrize("name", ["uniform", "cluster", "overflow"])
 def test_bh_fused_df_kernel_source(emu, name):
     """K6's df mode (two bodies per thread) against its plain version on the
-    same f64 tables and groups: equal stats lanes, accelerations within
-    1e-12 of the force scale."""
+    same f64 tables and groups, at every stage cut: equal stats lanes,
+    accelerations within 1e-12 of the force scale."""
     pos, mass, b, ld, leaf_cap, fcap = _bh_case(name)
     fi = bh_fused.prepare_fused(_f64(pos), _f64(mass), ld=ld, group_size=b)
     assert fi.src.dtype == fi.tree.cx.dtype == torch.float64
     assert fi.bsq.dtype == torch.float32
     kw = dict(theta=0.5, eps2=0.01, leaf_cap=leaf_cap, ld=ld, group_size=b,
               frontier_cap=fcap)
-    err, got, stats = bh_fused.launch(emu, fi.tree, fi.gstart, fi.gcount,
-                                      fi.src, fi.bsq, None, **kw)
-    assert err == 0 and got.dtype == torch.float64
-    want, want_stats = bh_fused.fused_group_forces_reference(
-        fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq, **kw)
-    np.testing.assert_array_equal(stats.numpy(), want_stats.numpy())
+    stats = _bh_check_cuts(emu, fi, kw, _f64_bound)
     if name == "uniform":
         assert int(stats[:, bh_fused.S_FAR].sum()) > 0
     if name == "overflow":
         assert int(stats[:, bh_fused.S_OVF].max()) > 128
-        return
-    scale = want.abs().max().item()
-    assert (got - want).abs().max().item() <= 1e-12 * scale
+
+
+def test_bh_fused_unknown_debug_mode_raises():
+    """A stage cut the JAX kernel does not have is refused, by the wrappers
+    and by the plain version, before anything runs."""
+    fi = bh_fused.prepare_fused(_f32(np.eye(3)), _f32(np.ones(3)), ld=2, group_size=64)
+    kw = dict(theta=0.5, eps2=0.01, leaf_cap=8, ld=2, group_size=64, debug_mode="eval")
+    args = (fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq)
+    for fn in (bh_fused.fused_group_forces, bh_fused.fused_group_forces_reference,
+               bh_fused_df.fused_group_forces_df):
+        with pytest.raises(ValueError, match="debug_mode"):
+            fn(*args, **kw)
+    with pytest.raises(ValueError, match="debug_mode"):
+        bh_fused.launch(None, *args, None, frontier_cap=128, **kw)
 
 
 def _lists_case(dtype):
