@@ -37,13 +37,15 @@ prints no result):
     energy drift must agree;
 11. K6 and its twin at 100k and 1M, the 1M call split into sort+build, K6
     and scatter, and s/step of both algorithms at 1M with --no-output;
-12. the fp64 all-pairs kernel (K4) against its plain version at 100k x 100k
-    and against the fp64 formula on a subset of targets, bit-identical
-    reruns;
+12. the fp64 all-pairs kernel (K4) against its plain version at 100k x 100k,
+    at 100,003 x 4,099 and at 1M x 1,953 (one source slice a block), and
+    against the fp64 formula on a subset of targets, bit-identical reruns;
 13. the fp64 potential-energy kernel (K5) against its plain version at
     100k, bit-identical reruns;
 14. K6's df mode against its plain version on the same f64 tables and
-    groups, at 100k and 1M: equal stats, bit-identical reruns;
+    groups, at 100k, 1M and on the robust input at ld 8: equal stats,
+    bit-identical reruns; the base pieces in slot order and heaviest
+    first give the wrapper's bits, a group running as several pieces;
 15. the f64 all-pairs main path: 100k x 10 KDK steps, --dtype f64
     --energy, counters reset just before and read just after; then the
     same steps in-process through the kernel and through the plain
@@ -52,7 +54,11 @@ prints no result):
     over 5 steps, counters reset just before and read just after; the df
     forces against K4's exact ones; s/step beside the f32 run's;
 17. the fp64 sun-earth run (SI units, 8640 steps) through K4: drift;
-18. fp64 kernel times beside the plain versions, and f64 s/step at 100k;
+18. fp64 kernel times beside the plain versions, the times before the
+    redesign and the bounds (K6 df on the robust input too), the SM clock
+    and power draw under K4, K4 at every number of source slices, K6 df's
+    unpriced full kernel over the base pieces in slot order, and f64
+    s/step at 100k;
 19. the group x interaction-list kernel (K7, both entry points) against its
     plain version on the lists the flat traversal builds: f32 at 100k and
     1M, fp64 at 100k and 1M; bit-identical reruns; issued thread-pairs;
@@ -74,7 +80,8 @@ prints no result):
 24. the tensor-core all-pairs kernel (K2) against its plain version at
     100k x 100k, at 100,003 x 4,099, in per-body mode and on a cloud offset
     from the origin; against K1, and against the fp64 formula on 256
-    targets; bit-identical reruns;
+    targets and, with self-terms, on 2,000 bodies with per-body eps2;
+    bit-identical reruns;
 25. the robust Barnes-Hut hybrid (barneshut_fused_robust: K6 + K1) against
     exact forces on a 1M Plummer sphere with 8 escapers at r 300-1000, the
     escapers against their own force scale; near bodies of the plain fused
@@ -88,8 +95,9 @@ prints no result):
 28. K2 beside K1 at 100k with K2's bound; one robust evaluation split into
     box, depth probe, set-up, K6 and the K1 rectangle; the depth pricer's
     unit costs on this card (K6 time against its stats lanes, set-up time
-    against the dense-grid nodes); --no-output s/step of the uniform 1M run
-    with --bh-robust off, on, on, off;
+    against the dense-grid nodes); one robust f64 evaluation and K6 df at ld
+    5-8; --no-output s/step of the uniform 1M run with --bh-robust off, on,
+    on, off;
 29. K6's stage cuts (the JAX kernel's debug_mode) and its redesign: the
     registers and spills of every instantiation; on the 100k bodies, the
     1M uniform cloud and the robust input (ld as picked, and 8), every f32
@@ -97,7 +105,7 @@ prints no result):
     full, the full cut bit-identical to the production entry and to the
     heaviest-first launch; ms per cut and the increments, real and issued
     pairs, the source-weighted lane fill, K6's bound and its pairs at K1's
-    rate; the df mode's cuts at 100k and 1M.
+    rate; the df mode's cuts at 100k, 1M and on the robust input, timed.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
@@ -142,6 +150,12 @@ FP64_PEAK = 34e12  # FLOP/s outside the tensor cores
 # for |d|^2 + eps2; rsqrt; 2 mul for r^-3; 1 mul by G·m; 3 multiply-adds),
 # and the potential energy (3 sub; 3 mul + 2 add; rsqrt; 2 mul; 1 add)
 FORCE_OPS, PE_OPS = 19, 12
+# K4's and K6 df's times before their redesign (four targets a thread,
+# pieces of groups), on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): this
+# script and diag/fp64_kernels.py (the rectangles, and K6 df on the robust
+# input in slot order) on the tree before it
+BEFORE_MS = {"K4 100k": 15.956, "K4 100003x4099": 0.6608, "K4 1000000x1953": 2.7433,
+             "K6 df 100k": 2.3316, "K6 df 1M uniform": 16.1761, "K6 df robust ld 8": 129.2723}
 
 
 def check(ok: bool, what: str) -> None:
@@ -647,14 +661,18 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
         potential_energy_reference,
     )
     from nbody_tpu_torch.integrate.leapfrog import simulate
-    from nbody_tpu_torch.ops import bh_fused, bh_fused_df
+    from nbody_tpu_torch.diag import fused_stages as fs
+    from nbody_tpu_torch.diag.fp64_kernels import clock_and_power
+    from nbody_tpu_torch.ops import _cuda, bh_fused, bh_fused_df
     from nbody_tpu_torch.ops.cuda_exhaustive import cuda_rect_accelerations
     from nbody_tpu_torch.ops.cuda_fp64 import (
         cuda_accelerations_f64,
         cuda_potential_energy_f64,
         cuda_rect_accelerations_f64,
+        k4_split,
     )
     from nbody_tpu_torch.ops.cuda_exhaustive import rect_accelerations_reference
+    from nbody_tpu_torch.utils.fixtures import random_cloud
 
     f64 = torch.float64
     n = arr.shape[0]
@@ -681,7 +699,25 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
     check(rel < F64_BOUND, "K4 against the fp64 formula")
     check(torch.equal(cuda_accelerations_f64(b64.pos, b64.mass), got),
           "K4 reruns are bit-identical")
-    print("  two kernel runs bit-identical: True")
+    sms = _cuda.sm_count(dev)
+    print(f"  two kernel runs bit-identical: True; source slices a block {k4_split(n, sms)} "
+          f"({sms} SMs)")
+    # a ragged rectangle, and the robust path's 1M x 1,953 outlier rectangle,
+    # where M fills the card and the split is 1
+    c = torch.as_tensor(random_cloud(BH_N, seed=0), device=dev)
+    rects = {}
+    for m_, n_ in ((100_003, 4_099), (BH_N, 1_953)):
+        pi, pj, mj = c[:m_, :3].contiguous(), c[:n_, :3].contiguous(), c[:n_, 6].contiguous()
+        got_r = cuda_rect_accelerations_f64(pi, pj, mj)
+        want_r = rect_accelerations_reference(pi, pj, mj)
+        torch.cuda.synchronize()
+        rel = (got_r - want_r).abs().max().item() / want_r.abs().max().item()
+        print(f"  {m_} x {n_} (source slices {k4_split(m_, sms)}) against the plain version: "
+              f"rel {rel:.3e} (bound {F64_BOUND:g}); reruns bit-identical")
+        check(rel <= F64_BOUND and torch.equal(cuda_rect_accelerations_f64(pi, pj, mj), got_r),
+              f"K4 {m_} x {n_} against its plain version, bit-identical reruns")
+        rects[m_, n_] = (pi, pj, mj)
+    del c, got_r, want_r
 
     # 13. fp64 potential-energy kernel
     print("[13] fp64 potential-energy kernel K5 (nbody_tpu_torch/csrc/potential_f64.cu)")
@@ -695,22 +731,27 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
           "K5 reruns are bit-identical")
     print("  two kernel runs bit-identical: True")
 
-    # 14. K6's df mode against its plain version, at 100k and 1M
+    # 14. K6's df mode against its plain version, at 100k, 1M and on the
+    # robust input; its base pieces heaviest first and in slot order
     print("[14] K6 df mode (nbody_tpu_torch/csrc/bh_fused.cu, nbody_bh_fused_f64)")
     b1m64 = Bodies.from_numpy(arr1m, dtype=f64, device=dev)
-    df = {}  # n -> (kernel arguments, keywords, max |err|, stats)
-    for bodies in (b64, b1m64):
-        fi = bh_fused.prepare_fused(bodies.pos, bodies.mass)
-        kw = dict(theta=0.5, eps2=0.01, leaf_cap=64, ld=fi.ld, group_size=fi.group_size)
-        args = (fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq)
+    df = {}  # label -> (kernel arguments, keywords, max |err|, stats, plain ms)
+    inputs = (("100k", lambda: fs.k6_args(bh_fused.prepare_fused(b64.pos, b64.mass))),
+              ("1M uniform", lambda: fs.k6_args(bh_fused.prepare_fused(b1m64.pos,
+                                                                       b1m64.mass))),
+              ("robust ld 8", lambda: fs.robust_inputs(BH_N, dev, ld=8, dtype=f64)))
+    for label, make in inputs:
+        args, kw = make()
+        gcount = args[2]
         got_s, stats_k = bh_fused_df.fused_group_forces_df(*args, **kw)
-        want_s, stats_p = bh_fused_df.fused_group_forces_df_reference(*args, **kw)
-        torch.cuda.synchronize()
+        (want_s, stats_p), plain_ms = timed_once(
+            torch, lambda: bh_fused_df.fused_group_forces_df_reference(*args, **kw))
         scale = want_s.abs().max().item()
         err = (got_s - want_s).abs().max().item()
-        print(f"  n={bodies.n}, ld {fi.ld}, {fi.gstart.shape[0]} group slots, B "
-              f"{fi.group_size}: max |err| {err:.3e}, force scale {scale:.4e}, rel "
-              f"{err / scale:.3e} (bound {F64_BOUND:g})")
+        del want_s
+        print(f"  {label}, ld {kw['ld']}, {gcount.shape[0]} group slots, B "
+              f"{kw['group_size']}: max |err| {err:.3e}, force scale {scale:.4e}, rel "
+              f"{err / scale:.3e} (bound {F64_BOUND:g}); plain {plain_ms:.1f} ms (one run)")
         check(err <= F64_BOUND * scale and bool(torch.isfinite(got_s).all()),
               "K6 df against its plain version")
         lanes = {name: int(stats_k[:, lane].long().sum())
@@ -726,8 +767,20 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
         again_s, again_stats = bh_fused_df.fused_group_forces_df(*args, **kw)
         check(torch.equal(again_s, got_s) and torch.equal(again_stats, stats_k),
               "K6 df reruns are bit-identical")
-        print("  two kernel runs bit-identical: True")
-        df[bodies.n] = (args, kw, err, stats_k)
+        est, pieces = bh_fused.df_launch_pieces(*args, **kw)
+        check(torch.equal(est, stats_k), "the pricing pass's stats are full's")
+        heavy, st_heavy = bh_fused.kernel_forces(f64, *args, **kw, pieces=pieces)
+        slot, st_slot = bh_fused.kernel_forces(f64, *args, **kw)  # base pieces, slot order
+        check(torch.equal(heavy, got_s) and torch.equal(st_heavy, stats_k)
+              and torch.equal(slot, got_s) and torch.equal(st_slot, stats_k),
+              f"{label}: the pieces heaviest first and in slot order give the wrapper's bits")
+        used = pieces[pieces[:, 2] > pieces[:, 1]]
+        n_pieces, most = used.shape[0], int(torch.bincount(used[:, 0].long()).max())
+        check(most > 1, f"{label}: a group runs as several pieces")
+        print(f"  two kernel runs bit-identical; the base pieces ({n_pieces}, up to {most} "
+              f"a group) heaviest first and in slot order bit-identical: True")
+        df[label] = (args, kw, err, stats_k, plain_ms)
+        del got_s, again_s, slot, heavy
 
     # 15. the f64 all-pairs main path
     print(f"[15] f64 main path: {n} bodies x {STEPS} KDK steps, --dtype f64 --energy")
@@ -779,6 +832,7 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
                 cuda_potential_energy)
     for c in counters:
         c.launches = 0
+    bh_fused_df.fused_group_forces_df.evaluations = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     text_bh = run_cli([csv1m, *BH_WINDOW, out_bh, "--energy", "--write-every", "5",
@@ -786,13 +840,16 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
     torch.cuda.synchronize()
     wall_bh = time.perf_counter() - t0
     k6, k6df_launches, k4_bh, k5_bh, k3_bh = (c.launches for c in counters)
-    print(f"  launches: K6 df {k6df_launches} (want {BH_STEPS + 2}: probe + "
-          f"{BH_STEPS + 1} evaluations), fp64 potential {k5_bh} (want 2), K6 f32 {k6}, "
-          f"fp64 all-pairs {k4_bh}, f32 potential {k3_bh} (want 0); whole CLI call "
+    k6df_evals = bh_fused_df.fused_group_forces_df.evaluations
+    print(f"  launches: K6 df {k6df_launches} in {k6df_evals} evaluations (want "
+          f"{BH_STEPS + 2} evaluations: probe + {BH_STEPS + 1}, two launches each: the "
+          f"pricing pass and the full kernel), fp64 potential {k5_bh} (want 2), K6 f32 "
+          f"{k6}, fp64 all-pairs {k4_bh}, f32 potential {k3_bh} (want 0); whole CLI call "
           f"{wall_bh:.4f} s")
     check("Algorithm: barnes-hut, backend: cuda/fused, dtype: f64" in text_bh,
           "--algo auto --dtype f64 took K6's df mode")
-    check(k6df_launches == BH_STEPS + 2 and k5_bh == 2, "K6 df / K5 launches")
+    check(k6df_evals == BH_STEPS + 2 and k6df_launches == 2 * k6df_evals and k5_bh == 2,
+          "K6 df / K5 launches")
     check(k6 == 0 and k4_bh == 0 and k3_bh == 0, "no other kernel on the path")
     load_frames(out_bh, BH_N, frames=2)
     drift_bh64 = cli_number(text_bh, "Relative energy drift:")
@@ -830,27 +887,49 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
     # 18. fp64 timing
     print(f"[18] fp64 timing on {card}")
     k4_ms = cuda_ms(torch, lambda: cuda_accelerations_f64(b64.pos, b64.mass), 10)
+    clocks = "; ".join(clock_and_power(lambda: cuda_accelerations_f64(b64.pos, b64.mass)))
     k4_plain_ms = cuda_ms(torch, lambda: rect_accelerations_reference(b64.pos, b64.pos,
                                                                      b64.mass), 2)
+    k4_rect_ms = {mn: cuda_ms(torch, lambda: cuda_rect_accelerations_f64(*r), 10)
+                  for mn, r in rects.items()}
     k5_ms = cuda_ms(torch, lambda: cuda_potential_energy_f64(b64.pos, b64.mass), 10)
     k5_plain_ms = cuda_ms(torch, lambda: potential_energy_reference(b64.pos, b64.mass), 2)
     k5_1m_ms = cuda_ms(torch, lambda: cuda_potential_energy_f64(b1m64.pos, b1m64.mass), 1)
-    (a100, kw100, _, _), (a1m, kw1m, k6df_err, st1m) = df[n], df[BH_N]
-    k6df_ms_100k = cuda_ms(torch, lambda: bh_fused_df.fused_group_forces_df(*a100, **kw100),
-                           10)
-    k6df_ms = cuda_ms(torch, lambda: bh_fused_df.fused_group_forces_df(*a1m, **kw1m), 10)
-    k6df_plain_ms = cuda_ms(
-        torch, lambda: bh_fused_df.fused_group_forces_df_reference(*a1m, **kw1m), 1)
+    k6df_ms = {label: cuda_ms(torch, lambda: bh_fused_df.fused_group_forces_df(*a_, **kw_),
+                              3 if label.startswith("robust") else 10)
+               for label, (a_, kw_, _, _, _) in df.items()}
+    slot_ms = {label: cuda_ms(torch, lambda: bh_fused.kernel_forces(f64, *a_, **kw_),
+                              3 if label.startswith("robust") else 10)
+               for label, (a_, kw_, _, _, _) in df.items()}
     whole_ms = cuda_ms(torch, lambda: bh_fused_df.barneshut_fused_df(b1m64.pos, b1m64.mass),
                        10)
     pairs = float(n) ** 2
-    print(f"  K4 {n}x{n}: kernel {k4_ms:.4f} ms ({pairs / k4_ms / 1e-3:.4e} pairs/s), "
-          f"plain {k4_plain_ms:.4f} ms [{card}]")
+    real = 8
+    print(f"  K4 {n}x{n}: kernel {k4_ms:.4f} ms ({pairs / k4_ms / 1e-3:.4e} pairs/s; before "
+          f"the redesign {BEFORE_MS['K4 100k']} ms), plain {k4_plain_ms:.4f} ms; SM clock and power draw "
+          f"while it runs: {clocks} [{card}]")
+    for (m_, n_), ms in k4_rect_ms.items():
+        kb = bound((m_ * 3 + n_ * 4 + m_ * 3) * real, float(m_) * n_ * FORCE_OPS, FP64_PEAK)
+        print(f"  K4 {m_}x{n_}: kernel {ms:.4f} ms (before {BEFORE_MS[f'K4 {m_}x{n_}']} ms), "
+              f"bound {kb[0]:.4f} ms ({kb[1]}) [{card}]")
     print(f"  K5 {n}x{n}: kernel {k5_ms:.4f} ms ({pairs / k5_ms / 1e-3:.4e} pairs/s), "
           f"plain {k5_plain_ms:.4f} ms; at {BH_N}: {k5_1m_ms:.4f} ms (one run) [{card}]")
-    print(f"  K6 df at {n}: kernel {k6df_ms_100k:.4f} ms; at {BH_N} (ld {kw1m['ld']}): "
-          f"kernel {k6df_ms:.4f} ms, plain {k6df_plain_ms:.4f} ms (one run); "
-          f"barneshut_fused_df whole {whole_ms:.4f} ms [{card}]")
+    for label, (a_, kw_, _, st_, plain_) in df.items():
+        kb = bound(*fused_work(a_, st_, real), FP64_PEAK)
+        before = BEFORE_MS["K6 df " + label]
+        print(f"  K6 df {label} (ld {kw_['ld']}): the wrapper (pricing pass + pieces "
+              f"heaviest first) {k6df_ms[label]:.4f} ms (before {before} ms, "
+              f"{k6df_ms[label] / before:.3f}x); the full kernel over the base pieces in "
+              f"slot order, unpriced, {slot_ms[label]:.4f} ms (the wrapper "
+              f"{k6df_ms[label] / slot_ms[label]:.3f}x it); bound {kb[0]:.4f} ms "
+              f"({kb[1]}), plain {plain_:.1f} ms (one run) [{card}]")
+    k4_shapes = {(n, n): (b64.pos, b64.pos, b64.mass), (BH_N, 1_953): rects[BH_N, 1_953]}
+    for split in (1, 2, 4, 8):
+        ms = {mn: cuda_ms(torch, lambda: cuda_rect_accelerations_f64(*r, _split=split), 5)
+              for mn, r in k4_shapes.items()}
+        print(f"  K4 with {split} source slices a block: {n}x{n} {ms[n, n]:.4f} ms, "
+              f"{BH_N}x1953 {ms[BH_N, 1_953]:.4f} ms [{card}]")
+    print(f"  barneshut_fused_df at {BH_N}: whole {whole_ms:.4f} ms [{card}]")
     for _ in range(2):
         text = run_cli([CSV_100K, *MAIN_WINDOW, os.path.join(tmp, "x.csv"), "--no-output",
                         "--dtype", "f64"])
@@ -858,12 +937,10 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
         print(f"  {n} --no-output --dtype f64 (K4): simulate {sim:.4f} s -> "
               f"{sim / STEPS:.4f} s/step, {(STEPS + 1) * pairs / sim:.4e} pairs/s [{card}]")
 
-    real = 8
     small = (2 * n * 3 + n + n * 3) * real  # pos_i, pos_j, mass, out
     k4_bound = bound(small, pairs * FORCE_OPS, FP64_PEAK)
     k5_bound = bound((n * 4 + 2) * real, pairs * PE_OPS, FP64_PEAK)
-    k6df_bound = bound(*fused_work(a1m, st1m, real), FP64_PEAK)
-    return [
+    entries = [
         {"name": "allpairs_f64", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/allpairs_f64.cu",
          "replaces": "nbody_tpu/ops/pallas_df.py:172",
@@ -876,13 +953,22 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
          "launches": k5_launches, "max_abs_err": k5_err, "ms": k5_ms,
          "plain_ms": k5_plain_ms, "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
          "library_ms": None},
-        {"name": "bh_fused_df", "route": "cuda",
-         "source": "nbody_tpu_torch/csrc/bh_fused.cu",
-         "replaces": "nbody_tpu/ops/bh_fused.py:130",
-         "launches": k6df_launches, "max_abs_err": k6df_err, "ms": k6df_ms,
-         "plain_ms": k6df_plain_ms, "bound_ms": k6df_bound[0], "bound_by": k6df_bound[1],
-         "library_ms": None},
     ]
+    # K6 df on the 1M uniform cloud (the --algo auto --dtype f64 main path,
+    # [16]) and on the robust input (the robust f64 main path, [27], which
+    # fills in its launches)
+    for name, label, launches, evals in (("bh_fused_df", "1M uniform", k6df_launches,
+                                          k6df_evals),
+                                         ("bh_fused_df_robust", "robust ld 8", None, None)):
+        a_, _, err_, st_, plain_ = df[label]
+        kb = bound(*fused_work(a_, st_, real), FP64_PEAK)
+        entries.append({"name": name, "route": "cuda",
+                        "source": "nbody_tpu_torch/csrc/bh_fused.cu",
+                        "replaces": "nbody_tpu/ops/bh_fused.py:130",
+                        "launches": launches, "evaluations": evals, "max_abs_err": err_,
+                        "ms": k6df_ms[label], "plain_ms": plain_, "bound_ms": kb[0],
+                        "bound_by": kb[1], "library_ms": None})
+    return entries
 
 
 K2_OPS = 13  # CUDA-core operations per pair of K2: the force's 19 less the 6 of the j-sum
@@ -933,7 +1019,6 @@ def stage_phase(torch, dev, card: str, b100k, k1_rate: float) -> dict:
     JSON line, on the robust input."""
     from nbody_tpu_torch.diag import fused_stages as fs
     from nbody_tpu_torch.ops import _cuda, bh_fused, bh_fused_df
-    from nbody_tpu_torch.utils.fixtures import random_cloud
 
     f32 = torch.float32
     print(f"[29] K6 stage cuts and redesign (nbody_tpu_torch/csrc/bh_fused.cu) [{card}]")
@@ -1006,27 +1091,34 @@ def stage_phase(torch, dev, card: str, b100k, k1_rate: float) -> dict:
             print(f"  K6 on the uniform cloud: {wrapper_ms:.4f} ms (target 7.56 ms; the "
                   "kernel before the redesign: 7.34 ms, PERF.md); within 7.56 ms: "
                   f"{wrapper_ms <= 7.56} [{card}]")
-    # the df mode's cuts
-    for n_ in (100_000, BH_N):
-        c = torch.as_tensor(random_cloud(n_, seed=0), device=dev)
-        fi = bh_fused.prepare_fused(c[:, :3].contiguous(), c[:, 6].contiguous())
-        args, kw = fs.k6_args(fi)
+    # the df mode's cuts, taking the pieces as the wrapper does
+    f64 = torch.float64
+    for label, make in (
+            ("random_cloud(100000)", lambda: fs.uniform_inputs(100_000, dev, dtype=f64)),
+            ("1M uniform", lambda: fs.uniform_inputs(BH_N, dev, dtype=f64)),
+            ("robust ld 8", lambda: fs.robust_inputs(BH_N, dev, ld=8, dtype=f64))):
+        args, kw = make()
         full, st = bh_fused_df.fused_group_forces_df(*args, **kw)
+        _, _, pieces = fs.production_launch(args, kw)
         for cut in bh_fused.CUTS:
-            got, s_ = bh_fused.kernel_forces(torch.float64, *args, **kw, debug_mode=cut,
+            got, s_ = bh_fused.kernel_forces(f64, *args, **kw, debug_mode=cut, pieces=pieces,
                                              cut_entry=True)
             ok = not bool(s_.any()) if cut == "none" else bool(torch.equal(s_, st))
-            check(ok and (cut == "full" or not bool(got.any())), f"df {n_} {cut}")
-        check(torch.equal(got, full), f"df {n_}: the full cut == the production entry")
-        print(f"  df mode, random_cloud({n_}): all 7 cuts ran, stats equal full's (zero in "
-              "none), full cut == production entry: True")
+            check(ok and (cut == "full" or not bool(got.any())), f"df {label} {cut}")
+        check(torch.equal(got, full), f"df {label}: the full cut == the production entry")
+        print(f"  df mode, {label}: all 7 cuts ran, stats equal full's (zero in none), full "
+              "cut == production entry: True")
+        if label != "random_cloud(100000)":
+            print(fs.report(fs.profile(args, kw, fs.MODES, pieces=pieces),
+                            f"  df {label}, pieces heaviest first [{card}]"))
     return entry
 
 
 def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> dict:
     """Phases [24]-[28]: K2 against its plain version and K1, and the robust
     Barnes-Hut hybrid (K6 + K1, K6 df + K4) at 1M bodies.  Returns K2's
-    entry of the JSON line."""
+    entry of the JSON line and K6 df's launches and evaluations on the
+    robust f64 main path ([27])."""
     from nbody_tpu_torch.core.types import Bodies
     from nbody_tpu_torch.diag.energy import cuda_potential_energy
     from nbody_tpu_torch.ops import bh_autold, bh_fused, bh_fused_df
@@ -1085,6 +1177,26 @@ def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> 
         f"per-body eps2 in [1e-3, 1e-2], {n} x {n}, against its plain version")
     f32_close(torch, got_pb, cuda_accelerations(b.pos, b.mass, eps2_per_body=e2),
               "per-body against K1")
+    # the self-term lead (ROADMAP §3): 2,000 bodies (positions +-2, masses
+    # 0.04-1, as tests/test_torch_cuda.py's _cloud), per-body eps2 in [1e-3,
+    # 1e-2], targets equal to sources, against the fp64 formula with the
+    # pair's softening (eps2_i + eps2_j) / 2, JAX's 2e-3 bound for its own
+    # _kernel_mxu with self-terms (tests/test_softening.py:145-163)
+    rng = np.random.default_rng(4000)
+    p_s, m_s = rng.uniform(-2.0, 2.0, (4000, 3))[:2000], rng.uniform(0.04, 1.0, 4000)[:2000]
+    e_s = np.random.default_rng(2000).uniform(1e-3, 1e-2, 4000)[:2000]
+    got_s = cuda_accelerations(torch.as_tensor(p_s, dtype=f32, device=dev),
+                               torch.as_tensor(m_s, dtype=f32, device=dev), G=0.7,
+                               eps2_per_body=torch.as_tensor(e_s, dtype=f32, device=dev),
+                               use_mxu=True).cpu().numpy()
+    d_s = p_s[None, :, :] - p_s[:, None, :]
+    r2_s = (d_s * d_s).sum(-1) + 0.5 * (e_s[:, None] + e_s[None, :])
+    want_s = ((0.7 * m_s[None, :] * r2_s ** -1.5)[..., None] * d_s).sum(1)
+    rel_s = float(np.abs(got_s - want_s).max() / np.abs(want_s).max())
+    print(f"  self-terms at a small force scale (2,000 bodies, per-body eps2 from 1e-3, "
+          f"targets = sources) against the fp64 formula: rel {rel_s:.3e} (bound 2e-3, "
+          f"tests/test_softening.py:163)")
+    check(rel_s < 2e-3, "K2 with self-terms against the fp64 formula")
     off = (b.pos + torch.tensor(OFFSET, dtype=f32, device=dev)).contiguous()
     got_o = cuda_accelerations(off, b.mass, use_mxu=True)
     f32_close(torch, got_o, rect_accelerations_mxu_reference(off, off, b.mass),
@@ -1137,6 +1249,7 @@ def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> 
         for cnt in counters:
             cnt.launches = 0
         bh_fused.fused_group_forces.evaluations = 0
+        bh_fused_df.fused_group_forces_df.evaluations = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc, text, err = run_cli_rc(argv)
@@ -1183,11 +1296,15 @@ def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> 
                                            "--energy", "--write-every", "5", "--algo", "auto",
                                            "--dtype", "f64"])
     k6_l, k6df_l, k1_l, k4_l, k2_l, k3_l, k5_l = launches
-    print(f"  launches: K6 df {k6df_l}, K4 {k4_l} (want {BH_STEPS + 2} each), fp64 potential "
-          f"{k5_l} (want 2), K6 {k6_l}, K1 {k1_l}, K2 {k2_l}, K3 {k3_l} (want 0); whole CLI "
-          f"call {wall:.4f} s")
+    k6df_e = bh_fused_df.fused_group_forces_df.evaluations
+    print(f"  launches: K6 df {k6df_l} in {k6df_e} evaluations, K4 {k4_l} (want "
+          f"{BH_STEPS + 2} evaluations and K4 launches, K6 df two launches each), fp64 "
+          f"potential {k5_l} (want 2), K6 {k6_l}, K1 {k1_l}, K2 {k2_l}, K3 {k3_l} (want 0); "
+          f"whole CLI call {wall:.4f} s")
     check("backend: cuda/fused/robust, dtype: f64" in text, "the f64 robust banner")
-    check(k6df_l == k4_l == BH_STEPS + 2 and k5_l == 2, "K6 df / K4 / K5 launches")
+    check(k6df_e == k4_l == BH_STEPS + 2 and k6df_l == 2 * k6df_e and k5_l == 2,
+          "K6 df / K4 / K5 launches")
+    k6df_r64, k6df_e64 = k6df_l, k6df_e
     check(k6_l == k1_l == k2_l == k3_l == 0, "no f32 kernel on the f64 path")
     drift_r64 = cli_number(text, "Relative energy drift:")
     print(f"  drift f64 {drift_r64:.6e} against the f32 run's {drift_r:.6e}, |diff| "
@@ -1241,6 +1358,21 @@ def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> 
           f"{k6_ms:.4f} ms + K1 rectangle ({BH_N} x {out_idx.numel()}) {rect_ms:.4f} ms "
           f"(parts timed apart); the depth probe (host, once per input) {probe_s:.4f} s "
           f"[{card}]")
+    # the f64 robust evaluation: K6 df over depths beside the K4 rectangle
+    # (the depth pricer's unit costs are K6 f32's: is ld 8 the df argmin too?)
+    from nbody_tpu_torch.diag import fused_stages as fs
+    br64 = Bodies.from_numpy(arr_r, dtype=f64, device=dev)
+    rect64_ms = cuda_ms(torch, lambda: cuda_rect_accelerations_f64(
+        br64.pos, br64.pos[out_idx].contiguous(), br64.mass[out_idx].contiguous()), 5)
+    whole64_ms = cuda_ms(torch, lambda: bh_fused_df.barneshut_fused_robust_df(
+        br64.pos, br64.mass, ld=ld_pick), 3)
+    print(f"  one f64 robust evaluation (ld {ld_pick}): whole {whole64_ms:.4f} ms; K4 "
+          f"rectangle ({BH_N} x {out_idx.numel()}) {rect64_ms:.4f} ms [{card}]")
+    for ld in (5, 6, 7, 8):
+        a_, kw_ = fs.robust_inputs(BH_N, dev, ld=ld, dtype=f64)
+        ms = cuda_ms(torch, lambda: bh_fused_df.fused_group_forces_df(*a_, **kw_), 3)
+        print(f"  f64 robust ld {ld}: K6 df {ms:.4f} ms [{card}]")
+    del br64, a_
     # unit costs: K6 time and its pops - none stage-cut increment against its
     # stats lanes, set-up time against the dense-grid nodes, over depths of
     # this input and of the uniform cloud
@@ -1294,7 +1426,7 @@ def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> 
             "replaces": "nbody_tpu/ops/pallas_exhaustive.py:80",
             "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
             "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-            "library_ms": None}
+            "library_ms": None}, {"launches": k6df_r64, "evaluations": k6df_e64}
 
 
 def main() -> int:
@@ -1597,7 +1729,8 @@ def main() -> int:
         list_kernels = list_phases(torch, dev, card, arr, arr1m, csv1m, tmp, exact,
                                    frames_ex, drift_ex, drift_bh)
         del exact
-        k2_entry = robust_phases(torch, dev, card, arr, got, tmp, csv1m)
+        k2_entry, robust_df = robust_phases(torch, dev, card, arr, got, tmp, csv1m)
+        fp64_kernels[-1].update(robust_df)
         k6_entry = stage_phase(torch, dev, card, b, pairs / k1_ms * 1e3)
 
     small = (2 * n * 3 + n + n * 3) * 4  # pos_i, pos_j, mass, out (f32)

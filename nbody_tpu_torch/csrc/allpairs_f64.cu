@@ -12,81 +12,129 @@
 // with gm_j = G * m_j folded in by the wrapper.  The self-term is zero
 // because the displacement is zero (eps2 > 0); there is no j == i branch.
 //
-// What bounds it on the card: fp64 issue.  Per pair, from the source: 3
-// DADD (displacement), 1 DMUL + 3 DFMA (r^2 + eps2), 2 DMUL (r^-3), 1 DMUL
-// (weight) and 3 DFMA (accumulate) = 13 fp64 instructions, plus the
-// software rsqrt: MUFU.RSQ64H seeds it and DFMA/DMUL refine it to fp64.
-// The SASS (sm_90a, nvcc 12.9; chip_smoke.py phase 1 counts it) holds 8
-// pair bodies with 29 DADD, 46 DMUL and 59 DFMA: 16.75 fp64 instructions
-// per pair, the rsqrt's refinement included.  The H100 SXM issues 64 fp64
+// What bounds it on the card: fp64 issue.  The H100 SXM issues 64 fp64
 // lanes per SM per clock, half the fp32 lanes, so at 132 SMs and 1980 MHz
-// 1e10 pairs take at least 10.0 ms (K1's FP32 issue bound: 3.9 ms).
-// Device-memory traffic is O(M + N) for O(M * N) work.
+// every fp64 instruction per pair costs 1e10 pairs 0.6 ms.  The pair term
+// (pair_f64.cuh) is 3 DADD, 3 DFMA for |d|^2 + eps2, the rsqrt seed, 7 fp64
+// instructions from the seed to the weight and 3 DFMA into the sums.
+// chip_smoke.py phase 1 counts the SASS.  Device-memory traffic is
+// O(M + N) for O(M * N) work.
 //
-// Design: K1's (allpairs.cu).  One thread per target, accumulating in fp64
-// registers; sources stream through shared memory in tiles of kBlock
-// [x y z gm] rows (32 bytes each), each thread of the block loading one.
-// The ragged edge is masked by the loop bound, not by padding.  Every
-// target sums its sources in the same order on every run, so reruns are
-// bit-identical.
+// Design.  A block of 256 threads holds kPer = 4 targets a thread, in fp64
+// registers (113 registers, two blocks an SM), and streams the sources
+// through shared memory in tiles of kTile [x y z gm] rows (32 bytes each).
+// Each staged row then feeds four independent fp64 chains, where K1's
+// design (one target a thread) had one.  Where M alone cannot fill the card
+// (at M = 100k, 98 blocks of 1,024 targets for 132 SMs), the block splits
+// the source range: `split` = S groups of 256 / S threads hold the same
+// targets and each sweeps its own slice of every tile, so the block covers
+// 1,024 / S targets and the grid has S times the blocks.  At the end the
+// groups' sums are added through shared memory in the fixed order s = 0,
+// 1, ..., S - 1: one launch, no global workspace, no atomics.  The wrapper
+// picks S from M and the SM count (ops/cuda_fp64.py::k4_split); S = 1 where
+// M fills the card.  Each target's sum order depends on S only, so reruns
+// are bit-identical.  The ragged edges are masked by the loop bounds, not
+// by padding.
 //
-// Left for later: at M = 100k there are ~760 targets per SM, so fp64 issue
-// is shared by few warps; two targets per thread would give each shared
-// load twice the work.
+// Two targets a thread (four blocks an SM), and CUDA's rsqrt(double) in
+// place of pair_f64.cuh's refinement, were each slower at 100k x 100k in a
+// trial on the card; chip_smoke.py [18] times this kernel at every split
+// (PERF.md).
 
 #include <cuda_runtime.h>
 
+#include "pair_f64.cuh"
+
 namespace {
 
-constexpr int kBlock = 256;
+constexpr int kThreads = 256;
+constexpr int kPer = 4;     // targets a thread
+constexpr int kTile = 512;  // source rows per shared tile
 
 struct alignas(16) Src64 {
   double x, y, z, w;
 };
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kThreads, 2)
 allpairs_f64_kernel(const double* __restrict__ pos_i, const double* __restrict__ pos_j,
-                    const double* __restrict__ gm_j, double eps2, int m, int n,
+                    const double* __restrict__ gm_j, double eps2, int m, int n, int split,
                     double* __restrict__ out) {
-  __shared__ Src64 src[kBlock];
+  // the source tile; after the last tile, the groups' partial sums
+  constexpr int kWords = kTile * 4 > kThreads * kPer * 3 ? kTile * 4 : kThreads * kPer * 3;
+  __shared__ __align__(16) double smem[kWords];
+  Src64* src = reinterpret_cast<Src64*>(smem);
 
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = i < m;
-  double xi = 0.0, yi = 0.0, zi = 0.0;
-  if (live) {
-    xi = pos_i[3 * (size_t)i + 0];
-    yi = pos_i[3 * (size_t)i + 1];
-    zi = pos_i[3 * (size_t)i + 2];
+  const int width = kThreads / split;  // threads of a group
+  const int s = threadIdx.x / width;   // this thread's group (source slice)
+  const int u = threadIdx.x % width;   // its place in the group
+  const int base = blockIdx.x * width * kPer;
+  double xi[kPer], yi[kPer], zi[kPer], ax[kPer], ay[kPer], az[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = base + u + k * width;
+    xi[k] = yi[k] = zi[k] = 0.0;
+    ax[k] = ay[k] = az[k] = 0.0;
+    if (i < m) {
+      xi[k] = pos_i[3 * (size_t)i + 0];
+      yi[k] = pos_i[3 * (size_t)i + 1];
+      zi[k] = pos_i[3 * (size_t)i + 2];
+    }
   }
 
-  double ax = 0.0, ay = 0.0, az = 0.0;
-  for (int t0 = 0; t0 < n; t0 += kBlock) {
-    const int j = t0 + threadIdx.x;
-    if (j < n) {
-      src[threadIdx.x] = Src64{pos_j[3 * (size_t)j + 0], pos_j[3 * (size_t)j + 1],
-                               pos_j[3 * (size_t)j + 2], gm_j[j]};
+  const int slice = kTile / split;
+  for (int t0 = 0; t0 < n; t0 += kTile) {
+    for (int r = threadIdx.x; r < kTile; r += kThreads) {
+      const int j = t0 + r;
+      if (j < n)
+        src[r] = Src64{pos_j[3 * (size_t)j + 0], pos_j[3 * (size_t)j + 1],
+                       pos_j[3 * (size_t)j + 2], gm_j[j]};
     }
     __syncthreads();
-    const int count = min(kBlock, n - t0);
+    const int lo = s * slice;
+    const int hi = min(lo + slice, n - t0);
 #pragma unroll 4
-    for (int k = 0; k < count; ++k) {
-      const Src64 s = src[k];
-      const double dx = s.x - xi;
-      const double dy = s.y - yi;
-      const double dz = s.z - zi;
-      const double r2 = dx * dx + dy * dy + dz * dz + eps2;
-      const double inv_r = rsqrt(r2);
-      const double w = s.w * (inv_r * inv_r * inv_r);
-      ax += w * dx;
-      ay += w * dy;
-      az += w * dz;
+    for (int q = lo; q < hi; ++q) {
+      const Src64 r = src[q];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        accumulate_f64(r, xi[k], yi[k], zi[k], eps2, ax[k], ay[k], az[k]);
     }
     __syncthreads();
   }
-  if (live) {
-    out[3 * (size_t)i + 0] = ax;
-    out[3 * (size_t)i + 1] = ay;
-    out[3 * (size_t)i + 2] = az;
+
+  // the groups' sums, added in the order s = 0, 1, ..., S - 1
+  if (split > 1) {
+    double* part = smem;  // [group - 1][u][k][axis]
+    if (s > 0) {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        double* p = part + (((size_t)(s - 1) * width + u) * kPer + k) * 3;
+        p[0] = ax[k];
+        p[1] = ay[k];
+        p[2] = az[k];
+      }
+    }
+    __syncthreads();
+    if (s > 0) return;
+#pragma unroll 1
+    for (int g = 1; g < split; ++g) {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const double* p = part + (((size_t)(g - 1) * width + u) * kPer + k) * 3;
+        ax[k] += p[0];
+        ay[k] += p[1];
+        az[k] += p[2];
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = base + u + k * width;
+    if (i < m) {
+      out[3 * (size_t)i + 0] = ax[k];
+      out[3 * (size_t)i + 1] = ay[k];
+      out[3 * (size_t)i + 2] = az[k];
+    }
   }
 }
 
@@ -95,13 +143,18 @@ allpairs_f64_kernel(const double* __restrict__ pos_i, const double* __restrict__
 extern "C" {
 
 // Launch on `stream`.  pos_i (m,3), pos_j (n,3), gm_j (n,), out (m,3): fp64,
-// contiguous, on the current device.  Returns the cudaError_t of the launch.
+// contiguous, on the current device.  `split` (1, 2, 4 or 8) is the number
+// of source slices a block sweeps for the same targets.  Returns the
+// cudaError_t of the launch.
 int nbody_allpairs_f64(const double* pos_i, const double* pos_j, const double* gm_j,
-                       double eps2, int m, int n, double* out, void* stream) {
+                       double eps2, int m, int n, int split, double* out, void* stream) {
+  if (split != 1 && split != 2 && split != 4 && split != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (m <= 0) return cudaSuccess;
-  const dim3 grid((m + kBlock - 1) / kBlock);
-  allpairs_f64_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      pos_i, pos_j, gm_j, eps2, m, n, out);
+  const int per_block = kThreads / split * kPer;
+  const dim3 grid((m + per_block - 1) / per_block);
+  allpairs_f64_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      pos_i, pos_j, gm_j, eps2, m, n, split, out);
   return static_cast<int>(cudaGetLastError());
 }
 

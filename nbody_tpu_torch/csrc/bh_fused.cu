@@ -3,9 +3,9 @@
 //
 // Replaces the TPU kernel nbody_tpu/ops/bh_fused.py::_fused_kernel, in its
 // f32 mode and its df mode (df=True, used by nbody_tpu/ops/bh_fused_df.py),
-// with its debug_mode stage cuts.  One thread block handles one Morton
-// group: the bodies [gstart, gstart + gcount) of the sorted source array.
-// For each group it
+// with its debug_mode stage cuts.  A thread block handles one Morton group
+// (f32), or one piece of one (df): the bodies [gstart, gstart + gcount) of
+// the sorted source array.  For each group it
 //
 //   1. takes the group's bounding box;
 //   2. runs a level-synchronous BFS over the dense grid (ops/bh_grid.py):
@@ -23,10 +23,9 @@
 //      — a body's own entry gives d = 0 and adds nothing.
 //
 // Two kernel bodies, one contract:
-//   * bh_fused_warp_kernel, the f32 mode (below);
-//   * bh_fused_df_kernel, the df mode: one block of two bodies a thread per
-//     group, block-wide scans through shared memory, near rows gathered
-//     synchronously.
+//   * bh_fused_warp_kernel, the f32 mode: a block per group (below);
+//   * bh_fused_df_kernel, the df mode: a 256-thread block per piece of a
+//     group, one body a thread (further below).
 // In df mode tables, sources, eps2 and accumulators are fp64, but the MAC
 // stays in f32, as the TPU kernel's df mode classifies on the f32 hi
 // halves: the box is taken over (float) of the body coordinates, each
@@ -64,8 +63,8 @@
 //
 // What bounds it on the card: the evaluation, one pair per (body, source),
 // ~20 FP32 operations and one rsqrt in f32 mode (K1's work); in df mode
-// allpairs_f64.cu's work, 17.9 fp64 instructions per pair in the SASS
-// (sm_90a, nvcc 12.9), at half the fp32 issue rate.  The stage cuts show
+// allpairs_f64.cu's pair term (pair_f64.cuh), at half the fp32 issue rate.
+// The stage cuts show
 // it (H100 80GB HBM3, 700 W, 1M bodies): traversal, staging and near-row
 // loads together take under 1 ms of the uniform cloud's ~7 ms and of the
 // robust input's ~56 ms; the rest is pairs.  And where the groups' work is
@@ -99,17 +98,43 @@
 //     chosen over cp.async 16 bytes a row because it needs no per-row
 //     instructions and no barrier to publish the rows; cp.async was not
 //     measured.
-// The df kernel's block body run in f32, one body a thread, with the same
-// pair loop and launch order, is ~5 % slower on the 1M uniform cloud and
-// ~5 % faster on the robust input, where a 1,024-thread block gives a
-// dense-core group the whole SM (PERF.md).
+// The earlier df body (a block of two bodies a thread per group, block-wide
+// scans) run in f32, one body a thread, with the same pair loop and launch
+// order, was ~5 % slower on the 1M uniform cloud and ~5 % faster on the
+// robust input, where a 1,024-thread block gives a dense-core group the
+// whole SM (PERF.md).
+//
+// The df design: one block of 256 threads per piece, one body a
+// thread; a piece is a run of whole warps of one group, at most 256 bodies
+// (ops/bh_fused.py::df_pieces), so a 1,024-body group is four blocks that
+// the card runs on up to four SMs:
+//   * every piece takes the whole group's box (it reads all the group's
+//     bodies) and traversal, and stages and evaluates for its own bodies.
+//     The classification round (256 children) and the flush thresholds do
+//     not depend on the piece, so each body sums the same sources in the
+//     same order however its group is cut and the pieces ordered: slot
+//     order, heaviest first and one-warp pieces give the same bits;
+//   * __launch_bounds__(256, 4) caps registers at 64 (one fp64 body, 64
+//     with no spills) and the buffers are sized for four blocks an SM: 512
+//     staged far sources, 1,024 near cells, a 256-row near tile (50,432
+//     bytes at a 2048-cell frontier), so 32 warps an SM, and one block's
+//     barriers hide behind three others' evaluation;
+//   * warp-level compaction as the warp design's, one barrier a round;
+//   * near rows gathered synchronously, a tile of 256 rows at a time (each
+//     thread binary-searches its row's run): the dma cut puts the gather at
+//     2.5 % of full on the uniform cloud and 2.6 % on the robust input (H100
+//     80GB HBM3, 700 W, PERF.md), so the warp design's TMA ring was
+//     not carried over;
+//   * the caller prices the groups with the pops cut (one piece a group)
+//     and launches the pieces heaviest first.
 //
 // Registers (ptxas, nvcc 12.9): chip_smoke.py phase 1 prints them for every
 // instantiation.  Shared memory per block at a 2048-cell frontier: the warp
-// kernel 83,732 bytes at any group size; the df kernel 121,216 bytes at
-// B = 1024.
+// kernel 83,732 bytes at any group size; the df kernel 50,432 bytes.
 
 #include <cuda_runtime.h>
+
+#include "pair_f64.cuh"
 
 namespace {
 
@@ -151,293 +176,6 @@ __device__ __forceinline__ int classify(float mx, float my, float mz, float lox,
       __fadd_rn(__fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy)), __fmul_rn(ddz, ddz));
   if (__fmul_rn(theta_sq, d2) > bsq_next) return 1;
   return count <= leaf_cap || terminal ? 2 : 3;
-}
-
-// ---------------------------------------------------------------------------
-// The df mode: two bodies a thread (bodies t and t + blockDim), a
-// power-of-two block, block-wide scans through shared memory, near rows
-// gathered synchronously a tile of blockDim rows at a time (each thread
-// binary-searches its row's run).
-
-// K1's pair term in fp64.
-__device__ __forceinline__ void accumulate_df(const Src64 s, double xi, double yi, double zi,
-                                              double eps2, double& ax, double& ay,
-                                              double& az) {
-  const double dx = s.x - xi;
-  const double dy = s.y - yi;
-  const double dz = s.z - zi;
-  const double r2 = dx * dx + dy * dy + dz * dz + eps2;
-  const double inv_r = rsqrt(r2);
-  const double w = s.w * (inv_r * inv_r * inv_r);
-  ax += w * dx;
-  ay += w * dy;
-  az += w * dz;
-}
-
-// Threads of a df block for `group_size` bodies: a power of two, at least
-// one warp, two bodies a thread.
-__host__ inline int df_threads(int group_size) {
-  int t = 32;
-  while (t * 2 < group_size) t <<= 1;
-  return t;
-}
-
-__host__ inline size_t df_smem_bytes(int threads, int fcap) {
-  return sizeof(Src64) * (kFarCap + threads)              // far sources, near tile
-         + sizeof(int) * 2 * kNearCap                     // near starts, offsets
-         + sizeof(unsigned long long) * (threads + 32)    // scan: flags
-         + sizeof(int) * (threads + 32)                   // scan: near counts
-         + sizeof(int) * 2 * fcap;                        // frontier, two levels
-}
-
-// Block-wide exclusive scan of (flags, count).  Flags pack three 16-bit
-// counters (far | near << 16 | open << 32); every thread gets its exclusive
-// prefix and the block totals.  Two barriers, no warp intrinsics; the
-// caller's barrier after it orders the next call's writes.
-__device__ void block_scan(unsigned long long f, int c, unsigned long long* sf, int* sc,
-                           unsigned long long& ex_f, int& ex_c, unsigned long long& tot_f,
-                           int& tot_c) {
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int w = t >> 5;
-  const int nw = blockDim.x >> 5;
-  unsigned long long* wf = sf + blockDim.x;
-  int* wc = sc + blockDim.x;
-  sf[t] = f;
-  sc[t] = c;
-  __syncthreads();
-  unsigned long long in_f = 0;
-  int in_c = 0;
-  for (int k = t - lane; k <= t; ++k) {
-    in_f += sf[k];
-    in_c += sc[k];
-  }
-  if (lane == 31) {
-    wf[w] = in_f;
-    wc[w] = in_c;
-  }
-  __syncthreads();
-  unsigned long long off_f = 0;
-  int off_c = 0;
-  tot_f = 0;
-  tot_c = 0;
-  for (int k = 0; k < nw; ++k) {
-    if (k < w) {
-      off_f += wf[k];
-      off_c += wc[k];
-    }
-    tot_f += wf[k];
-    tot_c += wc[k];
-  }
-  ex_f = off_f + in_f - f;
-  ex_c = off_c + in_c - c;
-}
-
-template <int kCut>
-__global__ void __launch_bounds__(kMaxBodies / 2)
-bh_fused_df_kernel(const double* __restrict__ cx, const double* __restrict__ cy,
-                   const double* __restrict__ cz, const double* __restrict__ cgm,
-                   const int* __restrict__ ccnt, const int* __restrict__ cstart,
-                   const int* __restrict__ gstart, const int* __restrict__ gcount,
-                   const Src64* __restrict__ src, const float* __restrict__ bsq,
-                   float theta_sq, double eps2, int leaf_cap, int ld, int fcap,
-                   double* __restrict__ out, int* __restrict__ stats) {
-  using R = double;
-  using Src = Src64;
-  using C = Cut<kCut>;
-  constexpr int kPer = 2;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int T = blockDim.x;
-  Src* far_buf = reinterpret_cast<Src*>(smem);
-  Src* tile = far_buf + kFarCap;
-  int* near_start = reinterpret_cast<int*>(tile + T);
-  int* near_off = near_start + kNearCap;
-  unsigned long long* scan_f = reinterpret_cast<unsigned long long*>(near_off + kNearCap);
-  int* scan_c = reinterpret_cast<int*>(scan_f + T + 32);
-  int* fr_cur = scan_c + T + 32;
-  int* fr_next = fr_cur + fcap;
-
-  const int g = blockIdx.x;
-  const int t = threadIdx.x;
-  const int gc = gcount[g];
-  int* st = stats + (size_t)g * kNumStats;
-  if (kCut == kCutNone || gc == 0) {
-    if (t < kNumStats) st[t] = 0;
-    return;
-  }
-  const int gs = gstart[g];
-  // this thread's bodies: t and t + T of the group
-  bool live[kPer];
-  R xi[kPer], yi[kPer], zi[kPer];
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    live[k] = t + k * T < gc;
-    xi[k] = yi[k] = zi[k] = R(0);
-    if (live[k]) {
-      const Src p = src[gs + t + k * T];
-      xi[k] = p.x;
-      yi[k] = p.y;
-      zi[k] = p.z;
-    }
-  }
-
-  // 1. bounding box of the live bodies (tree min/max, exact), in f32: over
-  // the f32-rounded coordinates
-  float* red = reinterpret_cast<float*>(far_buf);  // 6 x T floats, free until staging
-  const float inf = __int_as_float(0x7f800000);
-  float blo[3] = {inf, inf, inf}, bhi[3] = {-inf, -inf, -inf};
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    if (live[k]) {
-      const float p[3] = {(float)xi[k], (float)yi[k], (float)zi[k]};
-      for (int a = 0; a < 3; ++a) {
-        blo[a] = fminf(blo[a], p[a]);
-        bhi[a] = fmaxf(bhi[a], p[a]);
-      }
-    }
-  }
-  for (int a = 0; a < 3; ++a) {
-    red[a * T + t] = blo[a];
-    red[(a + 3) * T + t] = bhi[a];
-  }
-  __syncthreads();
-  for (int s = T >> 1; s > 0; s >>= 1) {
-    if (t < s) {
-      for (int k = 0; k < 3; ++k) red[k * T + t] = fminf(red[k * T + t], red[k * T + t + s]);
-      for (int k = 3; k < 6; ++k) red[k * T + t] = fmaxf(red[k * T + t], red[k * T + t + s]);
-    }
-    __syncthreads();
-  }
-  const float lox = red[0], loy = red[T], loz = red[2 * T];
-  const float hix = red[3 * T], hiy = red[4 * T], hiz = red[5 * T];
-  __syncthreads();  // the box scratch becomes the far buffer
-
-  R ax[kPer], ay[kPer], az[kPer];
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) ax[k] = ay[k] = az[k] = R(0);
-  int nfar = 0, nnear = 0, near_total = 0;  // staged now (block-uniform)
-  int pops = 0, far_children = 0, near_bodies = 0, overflow = 0;
-  bool nan_seen = false;  // the "dma" cut's fold of the loaded rows
-
-  // evaluate every staged source and empty the buffers (block-uniform call)
-  auto flush = [&]() {
-    if (C::eval) {
-      for (int q = 0; q < nfar; ++q) {
-        const Src s = far_buf[q];
-#pragma unroll
-        for (int k = 0; k < kPer; ++k)
-          accumulate_df(s, xi[k], yi[k], zi[k], eps2, ax[k], ay[k], az[k]);
-      }
-    }
-    for (int base = 0; C::load && base < near_total; base += T) {
-      const int f = base + t;
-      if (f < near_total) {
-        int lo = 0, hi = nnear - 1;  // last staged cell with near_off <= f
-        while (lo < hi) {
-          const int mid = (lo + hi + 1) >> 1;
-          if (near_off[mid] <= f) lo = mid; else hi = mid - 1;
-        }
-        tile[t] = src[near_start[lo] + (f - near_off[lo])];
-      }
-      __syncthreads();
-      if (C::eval) {
-        const int m = min(T, near_total - base);
-#pragma unroll 8
-        for (int q = 0; q < m; ++q) {
-          const Src s = tile[q];
-#pragma unroll
-          for (int k = 0; k < kPer; ++k)
-            accumulate_df(s, xi[k], yi[k], zi[k], eps2, ax[k], ay[k], az[k]);
-        }
-      } else {
-        nan_seen |= tile[0].x != tile[0].x;
-      }
-      __syncthreads();
-    }
-    nfar = nnear = near_total = 0;
-  };
-
-  // 2-3. level-synchronous traversal from the root's children
-  if (t == 0) fr_cur[0] = 0;
-  __syncthreads();
-  int cur = 1;
-  for (int d = 0; d < ld; ++d) {
-    const bool terminal = d + 1 >= ld;
-    const float bsq_next = bsq[d + 1];
-    const int child_off = level_offset(d + 1);
-    const int pairs = 8 * cur;
-    int next = 0;
-    for (int base = 0; base < pairs; base += T) {
-      if (nfar > kFarCap - T || nnear > kNearCap - T) flush();
-      const int p = base + t;
-      int code = 0;  // 1 far, 2 near, 3 open
-      int child = 0, count = 0, first = 0;
-      Src com{};
-      if (p < pairs) {
-        child = fr_cur[p >> 3] * 8 + (p & 7);
-        const int c = child_off + child;
-        count = ccnt[c];
-        if (count > 0) {
-          com = Src{cx[c], cy[c], cz[c], cgm[c]};
-          // the MAC in f32, on the f32-rounded centre of mass
-          code = classify((float)com.x, (float)com.y, (float)com.z, lox, loy, loz, hix, hiy,
-                          hiz, theta_sq, bsq_next, count, leaf_cap, terminal);
-          if (code == 2) first = cstart[c];
-        }
-      }
-      const unsigned long long flag = code == 1 ? 1ull
-                                      : code == 2 ? (1ull << 16)
-                                      : code == 3 ? (1ull << 32)
-                                                  : 0ull;
-      unsigned long long ex_f, tot_f;
-      int ex_c, tot_c;
-      block_scan(flag, code == 2 ? count : 0, scan_f, scan_c, ex_f, ex_c, tot_f, tot_c);
-      if (code == 1) {
-        if (C::far) far_buf[nfar + (int)(ex_f & 0xFFFF)] = com;
-      } else if (code == 2) {
-        if (C::near) {
-          const int k = nnear + (int)((ex_f >> 16) & 0xFFFF);
-          near_start[k] = first;
-          near_off[k] = near_total + ex_c;
-        }
-      } else if (code == 3) {
-        const int k = next + (int)(ex_f >> 32);
-        if (k < fcap) fr_next[k] = child;
-      }
-      const int n_far = (int)(tot_f & 0xFFFF);
-      nfar += n_far;
-      far_children += n_far;
-      nnear += (int)((tot_f >> 16) & 0xFFFF);
-      near_total += tot_c;
-      near_bodies += tot_c;
-      next += (int)(tot_f >> 32);
-      __syncthreads();  // staged entries and the next frontier are visible
-    }
-    pops += cur;
-    if (next >= fcap) overflow = max(overflow, next);
-    cur = min(next, fcap);
-    int* swap = fr_cur;
-    fr_cur = fr_next;
-    fr_next = swap;
-  }
-  flush();
-
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    if (live[k] && (C::eval || nan_seen)) {
-      R* o = out + 3 * (size_t)(gs + t + k * T);
-      o[0] = ax[k];
-      o[1] = ay[k];
-      o[2] = az[k];
-    }
-  }
-  if (t == 0) {
-    st[kStatPops] = pops;
-    st[kStatSources] = far_children + near_bodies;
-    st[kStatNear] = near_bodies;
-    st[kStatOverflow] = overflow;
-    st[kStatFar] = far_children;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -787,6 +525,246 @@ bh_fused_warp_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
 }
 
 // ---------------------------------------------------------------------------
+// The df mode: one block of kDfThreads threads per piece of a group, one
+// body a thread, warp-level compaction, near rows gathered synchronously.
+
+constexpr int kDfThreads = 256;     // threads of a df block: one body each
+constexpr int kDfWarps = kDfThreads / 32;
+constexpr int kDfFarCap = 512;      // staged far sources
+constexpr int kDfNearCap = 1024;    // staged near cells
+constexpr int kDfRound = kDfThreads;  // children classified a round
+
+__host__ inline size_t df_smem_bytes(int fcap) {
+  return sizeof(Src64) * (kDfFarCap + kDfThreads)  // far sources, near tile
+         + sizeof(int) * 2 * 2 * 32                // warp totals, two rounds
+         + sizeof(float) * 6 * 32                  // box: warp partials
+         + sizeof(int) * 2 * kDfNearCap            // near starts, offsets
+         + sizeof(int) * 2 * fcap;                 // frontier, two levels
+}
+
+// A piece is [slot, first body, end body) of one group: pieces[3 b + 0..2]
+// for block b.  Every piece takes the whole group's box and traversal, and
+// stages and evaluates for its own bodies only; a piece with end <= first
+// is a spare block and exits.  Only the piece that starts at body 0 writes
+// the group's stats row (the caller zeroes the rows: "none" and empty
+// groups write nothing).
+template <int kCut>
+__global__ void __launch_bounds__(kDfThreads, 4)
+bh_fused_df_kernel(const double* __restrict__ cx, const double* __restrict__ cy,
+                   const double* __restrict__ cz, const double* __restrict__ cgm,
+                   const int* __restrict__ ccnt, const int* __restrict__ cstart,
+                   const int* __restrict__ gstart, const int* __restrict__ gcount,
+                   const int* __restrict__ pieces, const Src64* __restrict__ src,
+                   const float* __restrict__ bsq, float theta_sq, double eps2, int leaf_cap,
+                   int ld, int fcap, double* __restrict__ out, int* __restrict__ stats) {
+  using C = Cut<kCut>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Src64* far_buf = reinterpret_cast<Src64*>(smem);
+  Src64* tile = far_buf + kDfFarCap;
+  int* wtot = reinterpret_cast<int*>(tile + kDfThreads);  // [round & 1][flags | counts][warp]
+  float* red = reinterpret_cast<float*>(wtot + 2 * 2 * 32);
+  int* near_start = reinterpret_cast<int*>(red + 6 * 32);
+  int* near_off = near_start + kDfNearCap;
+  int* fr_cur = near_off + kDfNearCap;
+  int* fr_next = fr_cur + fcap;
+
+  const int* piece = pieces + 3 * (size_t)blockIdx.x;
+  const int g = piece[0], b0 = piece[1], b1 = piece[2];
+  if (kCut == kCutNone || b1 <= b0) return;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int w = t >> 5;
+  const int gc = gcount[g];
+  const int gs = gstart[g];
+  // this thread's body: b0 + t of the group; a warp holds 32
+  const bool live = b0 + t < b1;
+  const bool warp_live = b0 + 32 * w < b1;  // warp-uniform
+  double xi = 0.0, yi = 0.0, zi = 0.0;
+  if (live) {
+    const Src64 p = src[gs + b0 + t];
+    xi = p.x;
+    yi = p.y;
+    zi = p.z;
+  }
+
+  // 1. bounding box of all the group's bodies (min/max, exact), in f32 over
+  // the f32-rounded coordinates: warp shuffles, then each warp reduces the
+  // warp partials.  Every piece of the group gets the same box.
+  const float inf = __int_as_float(0x7f800000);
+  float bx[6] = {inf, inf, inf, -inf, -inf, -inf};
+  for (int k = t; k < gc; k += kDfThreads) {
+    const float p[3] = {(float)src[gs + k].x, (float)src[gs + k].y, (float)src[gs + k].z};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      bx[a] = fminf(bx[a], p[a]);
+      bx[a + 3] = fmaxf(bx[a + 3], p[a]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float u = __shfl_xor_sync(0xffffffffu, bx[a], o);
+      bx[a] = a < 3 ? fminf(bx[a], u) : fmaxf(bx[a], u);
+    }
+    if (lane == 0) red[a * 32 + w] = bx[a];
+  }
+  if (t == 0) fr_cur[0] = 0;
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    bx[a] = lane < kDfWarps ? red[a * 32 + lane] : (a < 3 ? inf : -inf);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float u = __shfl_xor_sync(0xffffffffu, bx[a], o);
+      bx[a] = a < 3 ? fminf(bx[a], u) : fmaxf(bx[a], u);
+    }
+  }
+  const float lox = bx[0], loy = bx[1], loz = bx[2];
+  const float hix = bx[3], hiy = bx[4], hiz = bx[5];
+
+  double ax = 0.0, ay = 0.0, az = 0.0;
+  int nfar = 0, nnear = 0, near_total = 0;  // staged now (block-uniform)
+  int pops = 0, far_children = 0, near_bodies = 0, overflow = 0;
+  bool nan_seen = false;  // the "dma" cut's fold of the loaded rows
+
+  // evaluate every staged source and empty the buffers (block-uniform call):
+  // the far sources, then the near rows a tile of kDfThreads at a time, each
+  // thread gathering one row (a binary search for its run)
+  auto flush = [&]() {
+    __syncthreads();  // staged entries are visible
+    if (C::eval && warp_live) {
+#pragma unroll 4
+      for (int q = 0; q < nfar; ++q) accumulate_f64(far_buf[q], xi, yi, zi, eps2, ax, ay, az);
+    }
+    for (int base = 0; C::load && base < near_total; base += kDfThreads) {
+      const int f = base + t;
+      if (f < near_total) {
+        int lo = 0, hi = nnear - 1;  // last staged cell with near_off <= f
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (near_off[mid] <= f) lo = mid; else hi = mid - 1;
+        }
+        tile[t] = src[near_start[lo] + (f - near_off[lo])];
+      }
+      __syncthreads();
+      if (C::eval) {
+        if (warp_live) {
+          const int m = min(kDfThreads, near_total - base);
+#pragma unroll 4
+          for (int q = 0; q < m; ++q) accumulate_f64(tile[q], xi, yi, zi, eps2, ax, ay, az);
+        }
+      } else {
+        nan_seen |= tile[0].x != tile[0].x;
+      }
+      __syncthreads();
+    }
+    __syncthreads();  // the far buffer and the runs are free
+    nfar = nnear = near_total = 0;
+  };
+
+  // 2-3. level-synchronous traversal from the root's children, kDfRound
+  // children a round.  The round and the flush thresholds do not depend on
+  // the piece, so every piece of a group stages and flushes the same
+  // sources at the same points, and each body sums them in the same order
+  // however the group is cut into pieces.
+  const unsigned lt = (1u << lane) - 1u;  // lanes below this one
+  int round = 0;
+  int cur = 1;
+  for (int d = 0; d < ld; ++d) {
+    const bool terminal = d + 1 >= ld;
+    const float bsq_next = bsq[d + 1];
+    const int child_off = level_offset(d + 1);
+    const int pairs = 8 * cur;
+    int next = 0;
+    for (int base = 0; base < pairs; base += kDfRound) {
+      if (nfar > kDfFarCap - kDfRound || nnear > kDfNearCap - kDfRound) flush();
+      const int p = base + t;
+      int code = 0;  // 1 far, 2 near, 3 open
+      int child = 0, count = 0, first = 0;
+      Src64 com{};
+      if (p < pairs) {
+        child = fr_cur[p >> 3] * 8 + (p & 7);
+        const int c = child_off + child;
+        count = ccnt[c];
+        if (count > 0) {
+          com = Src64{cx[c], cy[c], cz[c], cgm[c]};
+          // the MAC in f32, on the f32-rounded centre of mass
+          code = classify((float)com.x, (float)com.y, (float)com.z, lox, loy, loz, hix, hiy,
+                          hiz, theta_sq, bsq_next, count, leaf_cap, terminal);
+          if (code == 2) first = cstart[c];
+        }
+      }
+      // compaction in (frontier, child) order: ranks within the warp by
+      // ballot, near counts by a shuffle scan, warps by one exchange
+      const unsigned far_m = __ballot_sync(0xffffffffu, code == 1);
+      const unsigned near_m = __ballot_sync(0xffffffffu, code == 2);
+      const unsigned open_m = __ballot_sync(0xffffffffu, code == 3);
+      const int c_near = code == 2 ? count : 0;
+      const int inc = warp_inclusive(c_near, lane);
+      int* wt = wtot + (round & 1) * 64;
+      if (lane == 31) {
+        wt[w] = __popc(far_m) | (__popc(near_m) << kFlagBits) |
+                (__popc(open_m) << (2 * kFlagBits));
+        wt[32 + w] = inc;
+      }
+      __syncthreads();  // the warp totals; the last round's entries
+      const int vf = lane < kDfWarps ? wt[lane] : 0;
+      const int vc = lane < kDfWarps ? wt[32 + lane] : 0;
+      const int incf = warp_inclusive(vf, lane), incc = warp_inclusive(vc, lane);
+      const int exf = __shfl_sync(0xffffffffu, incf - vf, w);
+      const int exc = __shfl_sync(0xffffffffu, incc - vc, w);
+      const int totf = __shfl_sync(0xffffffffu, incf, kDfWarps - 1);
+      const int totc = __shfl_sync(0xffffffffu, incc, kDfWarps - 1);
+      constexpr int kMask = (1 << kFlagBits) - 1;
+      if (code == 1) {
+        if (C::far) far_buf[nfar + (exf & kMask) + __popc(far_m & lt)] = com;
+      } else if (code == 2) {
+        if (C::near) {
+          const int k = nnear + ((exf >> kFlagBits) & kMask) + __popc(near_m & lt);
+          near_start[k] = first;
+          near_off[k] = near_total + exc + inc - c_near;
+        }
+      } else if (code == 3) {
+        const int k = next + (exf >> (2 * kFlagBits)) + __popc(open_m & lt);
+        if (k < fcap) fr_next[k] = child;
+      }
+      const int n_far = totf & kMask;
+      nfar += n_far;
+      far_children += n_far;
+      nnear += (totf >> kFlagBits) & kMask;
+      near_total += totc;
+      near_bodies += totc;
+      next += totf >> (2 * kFlagBits);
+      ++round;
+    }
+    pops += cur;
+    if (next >= fcap) overflow = max(overflow, next);
+    cur = min(next, fcap);
+    int* swap = fr_cur;
+    fr_cur = fr_next;
+    fr_next = swap;
+    __syncthreads();  // the next frontier is visible
+  }
+  flush();
+
+  if (live && (C::eval || nan_seen)) {
+    double* o = out + 3 * (size_t)(gs + b0 + t);
+    o[0] = ax;
+    o[1] = ay;
+    o[2] = az;
+  }
+  if (t == 0 && b0 == 0) {
+    int* st = stats + (size_t)g * kNumStats;
+    st[kStatPops] = pops;
+    st[kStatSources] = far_children + near_bodies;
+    st[kStatNear] = near_bodies;
+    st[kStatOverflow] = overflow;
+    st[kStatFar] = far_children;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 
 bool bad_args(int ld, int group_size, int fcap, int cut) {
@@ -815,18 +793,18 @@ int launch_warp(const float* cx, const float* cy, const float* cz, const float* 
 template <int kCut>
 int launch_df(const double* cx, const double* cy, const double* cz, const double* gm,
               const int* cnt, const int* start, const int* gstart, const int* gcount,
-              int n_groups, const double* src, const float* bsq, float theta_sq, double eps2,
-              int leaf_cap, int ld, int fcap, int group_size, double* out, int* stats,
-              void* stream) {
-  const int threads = df_threads(group_size);
-  const size_t smem = df_smem_bytes(threads, fcap);
+              const int* pieces, int n_pieces, const double* src, const float* bsq,
+              float theta_sq, double eps2, int leaf_cap, int ld, int fcap, int group_size,
+              double* out, int* stats, void* stream) {
+  (void)group_size;  // a piece holds at most kDfThreads bodies, whatever the group size
+  const size_t smem = df_smem_bytes(fcap);
   auto kernel = bh_fused_df_kernel<kCut>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<n_groups, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      cx, cy, cz, gm, cnt, start, gstart, gcount, reinterpret_cast<const Src64*>(src), bsq,
-      theta_sq, eps2, leaf_cap, ld, fcap, out, stats);
+  kernel<<<n_pieces, kDfThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      cx, cy, cz, gm, cnt, start, gstart, gcount, pieces, reinterpret_cast<const Src64*>(src),
+      bsq, theta_sq, eps2, leaf_cap, ld, fcap, out, stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -834,11 +812,10 @@ int launch_df(const double* cx, const double* cy, const double* cz, const double
 
 extern "C" {
 
-// Shared memory one block needs for `group_size` bodies and a frontier of
-// `fcap` cells per level: in the f32 mode, or in the df mode if `df`.
-int nbody_bh_fused_smem_bytes(int group_size, int fcap, int df) {
-  return static_cast<int>(df ? df_smem_bytes(df_threads(group_size), fcap)
-                             : warp_smem_bytes(fcap));
+// Shared memory one block needs for a frontier of `fcap` cells per level,
+// at any group size: in the f32 mode, or in the df mode if `df`.
+int nbody_bh_fused_smem_bytes(int fcap, int df) {
+  return static_cast<int>(df ? df_smem_bytes(fcap) : warp_smem_bytes(fcap));
 }
 
 // Stage cut `cut` (0 none, 1 pops, 2 stage, 3 stagefar, 4 stagenear, 5 dma,
@@ -889,15 +866,15 @@ int nbody_bh_fused_f32(const float* cx, const float* cy, const float* cz, const 
 // Stage cut `cut` of the df mode; arguments otherwise as nbody_bh_fused_f64.
 int nbody_bh_fused_f64_cut(const double* cx, const double* cy, const double* cz,
                            const double* gm, const int* cnt, const int* start,
-                           const int* gstart, const int* gcount, int n_groups,
-                           const double* src, const float* bsq, float theta_sq, double eps2,
-                           int leaf_cap, int ld, int fcap, int group_size, double* out,
-                           int* stats, void* stream, int cut) {
+                           const int* gstart, const int* gcount, const int* pieces,
+                           int n_pieces, const double* src, const float* bsq, float theta_sq,
+                           double eps2, int leaf_cap, int ld, int fcap, int group_size,
+                           double* out, int* stats, void* stream, int cut) {
   if (bad_args(ld, group_size, fcap, cut)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_groups <= 0) return static_cast<int>(cudaSuccess);
+  if (n_pieces <= 0) return static_cast<int>(cudaSuccess);
 #define NBODY_BH_ARGS                                                                      \
-  cx, cy, cz, gm, cnt, start, gstart, gcount, n_groups, src, bsq, theta_sq, eps2, leaf_cap, \
-      ld, fcap, group_size, out, stats, stream
+  cx, cy, cz, gm, cnt, start, gstart, gcount, pieces, n_pieces, src, bsq, theta_sq, eps2,   \
+      leaf_cap, ld, fcap, group_size, out, stats, stream
   switch (cut) {
     case kCutNone: return launch_df<kCutNone>(NBODY_BH_ARGS);
     case kCutPops: return launch_df<kCutPops>(NBODY_BH_ARGS);
@@ -910,17 +887,21 @@ int nbody_bh_fused_f64_cut(const double* cx, const double* cy, const double* cz,
 #undef NBODY_BH_ARGS
 }
 
-// The df mode: as nbody_bh_fused_f32 without `order` (the slots in order),
-// with the tables cx, cy, cz, gm, the sources src (n, 4), eps2 and out in
-// fp64; bsq and theta_sq stay f32 (the MAC is f32).
+// The df mode: the tables cx, cy, cz, gm, the sources src (n, 4), eps2 and
+// out in fp64; bsq and theta_sq stay f32 (the MAC is f32).  One block of
+// 256 threads per piece: `pieces` (n_pieces, 3) i32 holds [slot, first
+// body, end body) of a group, at most 256 bodies, in the order the blocks
+// take them (ops/bh_fused.py::df_pieces).  stats (n_groups, 5) i32 must be
+// zeroed by the caller: each group's row is written by its piece that
+// starts at body 0.  Other arguments as nbody_bh_fused_f32.
 int nbody_bh_fused_f64(const double* cx, const double* cy, const double* cz,
-                       const double* gm, const int* cnt, const int* start,
-                       const int* gstart, const int* gcount, int n_groups, const double* src,
+                       const double* gm, const int* cnt, const int* start, const int* gstart,
+                       const int* gcount, const int* pieces, int n_pieces, const double* src,
                        const float* bsq, float theta_sq, double eps2, int leaf_cap, int ld,
                        int fcap, int group_size, double* out, int* stats, void* stream) {
-  return nbody_bh_fused_f64_cut(cx, cy, cz, gm, cnt, start, gstart, gcount, n_groups, src, bsq,
-                                theta_sq, eps2, leaf_cap, ld, fcap, group_size, out, stats,
-                                stream, kCutFull);
+  return nbody_bh_fused_f64_cut(cx, cy, cz, gm, cnt, start, gstart, gcount, pieces, n_pieces,
+                                src, bsq, theta_sq, eps2, leaf_cap, ld, fcap, group_size, out,
+                                stats, stream, kCutFull);
 }
 
 }  // extern "C"

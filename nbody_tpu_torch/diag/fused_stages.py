@@ -1,9 +1,10 @@
 """K6's stage cuts timed on the card — the twin of
 ``tools/profile_fused_stages.py``.
 
-    python -m nbody_tpu_torch.diag.fused_stages [N] [--split-stage] [--robust] [--ld L]
+    python -m nbody_tpu_torch.diag.fused_stages [N] [--split-stage] [--robust] [--ld L] [--df]
 
-Runs the real f32 kernel (``csrc/bh_fused.cu``) at each stage cut of
+Runs the real f32 kernel (``csrc/bh_fused.cu``), or with ``--df`` its df
+mode on f64 bodies, at each stage cut of
 ``bh_fused.CUTS`` over the same tables and groups: "none" (the launch
 only), "pops" (+ traversal and classification), "stage" (+ far and near
 staging), "dma" (+ the near rows loaded into shared memory), "full" (+ the
@@ -14,8 +15,10 @@ call queued behind a spin kernel so that the events time the card's work
 and not the host's Python around the launch; the increments between cuts
 price one mechanism each.  The set-up (sort, grid, groups) is outside
 every cut, unlike the JAX tool's "none".  The cuts take the group slots
-heaviest first, as the wrapper does; its pricing pass (one "pops" launch
-in slot order) is timed apart, and so is the whole wrapper.
+heaviest first, as the wrapper does (in the df mode its pieces); its
+pricing pass (one "pops" launch in slot order) is timed apart, and so is
+the whole wrapper; in the df mode also the full kernel over the base
+pieces in slot order, with no pricing pass.
 
 N bodies (default 1M) of the uniform cloud ``random_cloud(N, seed=0)``,
 or with ``--robust`` the robust hybrid's input: ``plummer_cloud(N)`` with
@@ -34,7 +37,7 @@ import sys
 import torch
 
 from nbody_tpu_torch.core import constants
-from nbody_tpu_torch.ops import bh_autold, bh_fused
+from nbody_tpu_torch.ops import bh_autold, bh_fused, bh_fused_df
 from nbody_tpu_torch.utils.fixtures import plummer_cloud, random_cloud, with_escapers
 
 MODES = ("none", "pops", "stage", "dma", "full")
@@ -52,27 +55,29 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def uniform_inputs(n: int, device, seed: int = 0):
-    """(K6 arguments, keywords) of one f32 evaluation of
-    ``random_cloud(n, seed)``, as ``barneshut_fused`` makes them."""
+def uniform_inputs(n: int, device, seed: int = 0, dtype=torch.float32):
+    """(K6 arguments, keywords) of one evaluation of ``random_cloud(n,
+    seed)`` in `dtype` (f32, or f64 for the df mode), as
+    ``barneshut_fused`` makes them."""
     arr = random_cloud(n, seed=seed)
-    pos = torch.as_tensor(arr[:, :3], dtype=torch.float32, device=device)
-    mass = torch.as_tensor(arr[:, 6], dtype=torch.float32, device=device)
+    pos = torch.as_tensor(arr[:, :3], dtype=dtype, device=device)
+    mass = torch.as_tensor(arr[:, 6], dtype=dtype, device=device)
     return k6_args(bh_fused.prepare_fused(pos, mass))
 
 
-def robust_inputs(n: int, device, seed: int = 0, ld: int = 0):
-    """(K6 arguments, keywords) of the tree half of one robust f32
-    evaluation of ``with_escapers(plummer_cloud(n, seed))``, as
-    ``barneshut_fused_robust`` makes them, at depth `ld` or the pricer's."""
+def robust_inputs(n: int, device, seed: int = 0, ld: int = 0, dtype=torch.float32):
+    """(K6 arguments, keywords) of the tree half of one robust evaluation
+    of ``with_escapers(plummer_cloud(n, seed))`` in `dtype`, as
+    ``barneshut_fused_robust`` makes them (the box in f32), at depth `ld`
+    or the pricer's."""
     arr = with_escapers(plummer_cloud(n, seed=seed))
     if not ld:
         ld, _ = bh_autold.choose_ld(arr[:, :3], arr[:, 6], robust=True, leaf_cap=LEAF_CAP)
-    pos = torch.as_tensor(arr[:, :3], dtype=torch.float32, device=device)
-    mass = torch.as_tensor(arr[:, 6], dtype=torch.float32, device=device)
+    pos = torch.as_tensor(arr[:, :3], dtype=dtype, device=device)
+    mass = torch.as_tensor(arr[:, 6], dtype=dtype, device=device)
     center, border, out_idx = bh_fused.robust_box(pos)
-    fi = bh_fused.prepare_fused(pos - center, mass.index_fill(0, out_idx, 0.0), ld=ld,
-                                border=border)
+    fi = bh_fused.prepare_fused(pos - center.to(dtype), mass.index_fill(0, out_idx, 0.0),
+                                ld=ld, border=border)
     return k6_args(fi)
 
 
@@ -103,11 +108,25 @@ def best_ms(fn, reps: int = 5) -> float:
     return best
 
 
-def profile(args, kw, modes=MODES, order=None) -> dict[str, float]:
-    """{cut: best ms} over `modes`, in order, of K6 f32 taking the group
-    slots in `order` (None: slot order)."""
+def profile(args, kw, modes=MODES, order=None, pieces=None) -> dict[str, float]:
+    """{cut: best ms} over `modes`, in order, of K6 in the mode of the
+    sources' dtype, taking the group slots in `order` (f32; None: slot
+    order) or the pieces `pieces` (df; None: the base pieces in slot
+    order)."""
+    dtype = args[3].dtype
     return {mode: best_ms(lambda: bh_fused.kernel_forces(
-        torch.float32, *args, **kw, debug_mode=mode, order=order)) for mode in modes}
+        dtype, *args, **kw, debug_mode=mode, order=order, pieces=pieces)) for mode in modes}
+
+
+def production_launch(args, kw):
+    """(stats, order, pieces) of the production launch of K6 on `args`:
+    the pricing pass's stats (equal to full's), then the f32 slot order
+    heaviest first, or the df pieces (``bh_fused.df_launch_pieces``)."""
+    if args[3].dtype == torch.float64:
+        stats, pieces = bh_fused.df_launch_pieces(*args, **kw)
+        return stats, None, pieces
+    _, stats = bh_fused.kernel_forces(torch.float32, *args, **kw, debug_mode="pops")
+    return stats, bh_fused.heavy_first(stats, args[2]), None
 
 
 def report(times: dict[str, float], label: str) -> str:
@@ -142,35 +161,50 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--robust", action="store_true",
                     help="the robust hybrid's escaper input and box")
     ap.add_argument("--ld", type=int, default=0, help="grid depth (default: the pricer's)")
+    ap.add_argument("--df", action="store_true", help="the df mode, on f64 bodies")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: no CUDA device; the stage profiler times the kernel on the card",
               file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    dtype = torch.float64 if a.df else torch.float32
     if a.robust:
-        args, kw = robust_inputs(a.n, dev, ld=a.ld)
+        args, kw = robust_inputs(a.n, dev, ld=a.ld, dtype=dtype)
         label = f"with_escapers(plummer_cloud({a.n})), robust box"
     else:
-        args, kw = uniform_inputs(a.n, dev)
+        args, kw = uniform_inputs(a.n, dev, dtype=dtype)
         label = f"random_cloud({a.n}, seed=0)"
-    _, stats = bh_fused.kernel_forces(torch.float32, *args, **kw)
-    real, warp_issued, block_issued = pair_counts(stats, args[2], kw["group_size"])
-    order = bh_fused.heavy_first(stats, args[2])
+    label += ", df mode" if a.df else ", f32"
+    stats, order, pieces = production_launch(args, kw)
+    gcount = args[2]
+    real, warp_issued, block_issued = pair_counts(stats, gcount, kw["group_size"])
+    work = stats[:, bh_fused.S_SRC].long() * gcount.long()
+    h = int(work.argmax())
     card = card_line()
     print(f"{label}: ld {kw['ld']}, {args[1].shape[0]} group slots; staged sources "
           f"{int(stats[:, bh_fused.S_SRC].long().sum())}, near bodies "
           f"{int(stats[:, bh_fused.S_NEAR].long().sum())}, pops "
           f"{int(stats[:, bh_fused.S_POPS].long().sum())}; real pairs {real:.4e}, "
-          f"source-weighted lane fill {real / block_issued:.4f} of whole blocks, "
-          f"{real / warp_issued:.4f} of live warps [{card}]")
+          f"heaviest group {int(stats[h, bh_fused.S_SRC])} sources x {int(gcount[h])} "
+          f"bodies; source-weighted lane fill (f32 blocks) {real / block_issued:.4f} of "
+          f"whole blocks, {real / warp_issued:.4f} of live warps [{card}]")
     modes = SPLIT_MODES if a.split_stage else MODES
-    print(report(profile(args, kw, modes, order), f"heavy-first order [{card}]"))
-    pricing = best_ms(lambda: bh_fused.kernel_forces(torch.float32, *args, **kw,
-                                                     debug_mode="pops"))
-    wrapper = best_ms(lambda: bh_fused.fused_group_forces(*args, **kw))
+    print(report(profile(args, kw, modes, order, pieces), f"heavy-first order [{card}]"))
+    if a.df:
+        pricing = best_ms(lambda: bh_fused.kernel_forces(
+            dtype, *args, **kw, debug_mode="pops", pieces=bh_fused.df_pricing_pieces(gcount)))
+        wrapper = best_ms(lambda: bh_fused_df.fused_group_forces_df(*args, **kw))
+    else:
+        pricing = best_ms(lambda: bh_fused.kernel_forces(dtype, *args, **kw,
+                                                         debug_mode="pops"))
+        wrapper = best_ms(lambda: bh_fused.fused_group_forces(*args, **kw))
     print(f"the pricing pass (pops, slot order) {pricing:.4f} ms; the wrapper (pricing "
           f"pass, order, full kernel) {wrapper:.4f} ms [{card}]")
+    if a.df:
+        slot = best_ms(lambda: bh_fused.kernel_forces(dtype, *args, **kw))
+        print(f"the full kernel over the base pieces in slot order, unpriced: {slot:.4f} ms "
+              f"[{card}]")
     return 0
 
 

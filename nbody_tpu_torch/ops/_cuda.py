@@ -16,6 +16,7 @@ launcher raises ``CudaKernelError``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -46,8 +47,16 @@ class CudaKernelError(RuntimeError):
 
 
 def sources() -> list[str]:
+    """The kernel sources, one nvcc process each."""
     return sorted(
         os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cu")
+    )
+
+
+def headers() -> list[str]:
+    """The headers the sources include: hashed with them, not compiled alone."""
+    return sorted(
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")
     )
 
 
@@ -72,23 +81,23 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nbody_potential_f32.restype = _I
     lib.nbody_potential_f32.argtypes = [_P, _P, _I, _P, _P, _P]
     lib.nbody_allpairs_f64.restype = _I
-    lib.nbody_allpairs_f64.argtypes = [_P, _P, _P, _D, _I, _I, _P, _P]
+    lib.nbody_allpairs_f64.argtypes = [_P, _P, _P, _D, _I, _I, _I, _P, _P]
     lib.nbody_potential_f64_partials.restype = _I
     lib.nbody_potential_f64_partials.argtypes = [_I]
     lib.nbody_potential_f64.restype = _I
     lib.nbody_potential_f64.argtypes = [_P, _P, _I, _P, _P, _P]
     lib.nbody_bh_fused_smem_bytes.restype = _I
-    lib.nbody_bh_fused_smem_bytes.argtypes = [_I, _I, _I]
-    # the f32 entries take the slot order after gcount; the cut entries
-    # take the cut last
-    for name, eps2, order, extra in (
-            ("nbody_bh_fused_f32", _F, [_P], []), ("nbody_bh_fused_f64", _D, [], []),
-            ("nbody_bh_fused_f32_cut", _F, [_P], [_I]),
-            ("nbody_bh_fused_f64_cut", _D, [], [_I])):
+    lib.nbody_bh_fused_smem_bytes.argtypes = [_I, _I]
+    # after gcount the f32 entries take the slot order and the number of
+    # slots, the f64 entries the piece table and the number of pieces; the
+    # cut entries take the cut last
+    for name, eps2, extra in (
+            ("nbody_bh_fused_f32", _F, []), ("nbody_bh_fused_f64", _D, []),
+            ("nbody_bh_fused_f32_cut", _F, [_I]), ("nbody_bh_fused_f64_cut", _D, [_I])):
         fn = getattr(lib, name)
         fn.restype = _I
         fn.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _P, *order, _I, _P, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
             _F, eps2, _I, _I, _I, _I, _P, _P, _P, *extra,
         ]
     for name, eps2 in (("nbody_group_lists_f32", _F), ("nbody_group_lists_f64", _D)):
@@ -121,13 +130,19 @@ class Kernels:
             raise CudaKernelError(f"{what}: CUDA error {err} ({msg})")
 
 
-def _build() -> Kernels:
-    srcs = sources()
+def library_path() -> str:
+    """Where the kernel library of these sources, headers and flags is
+    built: its name holds a hash of them all."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for path in srcs:
+    for path in sources() + headers():
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
-    so_path = os.path.join(BUILD_DIR, f"kernels-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"kernels-{h.hexdigest()[:16]}.so")
+
+
+def _build() -> Kernels:
+    srcs = sources()
+    so_path = library_path()
     if os.path.exists(so_path):
         return Kernels(so_path, 0.0, "")
     nvcc = find_nvcc()
@@ -176,6 +191,14 @@ def library() -> Kernels:
         if _LIB is None:
             _LIB = _build()
         return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The number of SMs of the card `device`."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_handle(device) -> int:

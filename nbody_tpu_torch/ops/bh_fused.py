@@ -27,8 +27,11 @@ classifies; "stage" also writes the staging entries ("stagefar" /
 but "none" returns the stats of "full" and, short of "full", zero forces.
 ``diag/fused_stages.py`` times them on the card.
 
-The f32 wrapper prices the groups with the "pops" cut first and launches
-the heaviest first (``heavy_first``): two kernel launches an evaluation.
+Both wrappers price the groups with the "pops" cut first and launch the
+heaviest first: two kernel launches an evaluation.  The f32 kernel runs a
+block per group slot, in ``heavy_first`` order; the df kernel a block per
+piece of a group (``df_pieces``: runs of whole warps, at most DF_THREADS
+bodies), the pieces heaviest first (``df_launch_pieces``).
 
 Stats lanes per group (int32): pops (frontier cells classified),
 staged sources (far children + near bodies: actual sources, where the
@@ -137,37 +140,41 @@ def _check_kernel_inputs(tree: GridTree, gstart, gcount, src, bsq, ld: int,
 
 def launch(lib, tree: GridTree, gstart, gcount, src, bsq, stream, *, theta: float,
            eps2: float, leaf_cap: int, ld: int, group_size: int, frontier_cap: int,
-           debug_mode: str = "full", cut_entry: bool = False, order=None):
+           debug_mode: str = "full", cut_entry: bool = False, order=None, pieces=None):
     """Call K6's launcher in `lib` on checked tensors, in the f32 mode or,
     for f64 `src` and tables, the df mode, at stage cut `debug_mode`;
     returns (cudaError_t, accelerations (n, 3) in src's dtype, stats (G,
     N_STATS)).  "full" goes through the production entry point unless
     `cut_entry`.  `order` (f32 only; int32 (G,), a permutation of the
     slots, or None for slot order) is the order in which the blocks take
-    the group slots.  The tensors'
-    pointers are handed to the kernel as they are, so the CPU emulation of
-    the kernel source takes the same call."""
+    the group slots; `pieces` (df only; int32 (P, 3) from ``df_pieces``, or
+    None for the groups' base pieces in slot order) the df blocks' pieces.
+    The tensors' pointers are handed to the kernel as they are, so the CPU
+    emulation of the kernel source takes the same call."""
     cut = check_debug_mode(debug_mode)
     n, n_groups = src.shape[0], gstart.shape[0]
     out = torch.zeros((n, 3), dtype=src.dtype, device=src.device)
-    stats = torch.empty((n_groups, N_STATS), dtype=torch.int32, device=src.device)
-    df = src.dtype == torch.float64
-    slots, extra = (), ()
-    if df:
+    if src.dtype == torch.float64:
         if order is not None:
-            raise ValueError("the df mode takes the group slots in order")
-        fn = lib.nbody_bh_fused_f64
-        if debug_mode != "full" or cut_entry:
-            fn, extra = lib.nbody_bh_fused_f64_cut, (cut,)
+            raise ValueError("the df mode takes a piece table, not a slot order")
+        if pieces is None:
+            pieces = df_pieces(gcount, group_size)
+        stats = torch.zeros((n_groups, N_STATS), dtype=torch.int32, device=src.device)
+        table, count = pieces.data_ptr(), pieces.shape[0]
+        fn, cut_fn = lib.nbody_bh_fused_f64, lib.nbody_bh_fused_f64_cut
     else:
-        slots = (None if order is None else order.data_ptr(),)
-        fn = lib.nbody_bh_fused_f32
-        if debug_mode != "full" or cut_entry:
-            fn, extra = lib.nbody_bh_fused_f32_cut, (cut,)
+        if pieces is not None:
+            raise ValueError("the f32 mode takes a slot order, not a piece table")
+        stats = torch.empty((n_groups, N_STATS), dtype=torch.int32, device=src.device)
+        table, count = (None if order is None else order.data_ptr()), n_groups
+        fn, cut_fn = lib.nbody_bh_fused_f32, lib.nbody_bh_fused_f32_cut
+    extra = ()
+    if debug_mode != "full" or cut_entry:
+        fn, extra = cut_fn, (cut,)
     err = fn(
         tree.cx.data_ptr(), tree.cy.data_ptr(), tree.cz.data_ptr(),
         tree.gm.data_ptr(), tree.cnt.data_ptr(), tree.start.data_ptr(),
-        gstart.data_ptr(), gcount.data_ptr(), *slots, n_groups, src.data_ptr(),
+        gstart.data_ptr(), gcount.data_ptr(), table, count, src.data_ptr(),
         bsq.data_ptr(), _theta_sq(theta), float(eps2),
         int(leaf_cap), int(ld), _round_cap(frontier_cap), int(group_size),
         out.data_ptr(), stats.data_ptr(), stream, *extra,
@@ -178,12 +185,13 @@ def launch(lib, tree: GridTree, gstart, gcount, src, bsq, stream, *, theta: floa
 def kernel_forces(dtype: torch.dtype, tree: GridTree, gstart, gcount, src, bsq, *,
                   theta: float, eps2: float, leaf_cap: int, ld: int, group_size: int,
                   frontier_cap: int, debug_mode: str = "full", order=None,
-                  cut_entry: bool = False):
+                  pieces=None, cut_entry: bool = False):
     """Check the inputs and launch K6 on the card, in the mode of `dtype`
     (f32, or f64 for the df mode), at stage cut `debug_mode`, taking the
-    group slots in `order` (f32 only, None for slot order), through the cut
-    entry point if `cut_entry`; raises on anything the kernel does not take
-    and on a launch error.  Returns (accelerations, stats)."""
+    group slots in `order` (f32 only, None for slot order) or the pieces
+    `pieces` (df only, None for the base pieces in slot order), through the
+    cut entry point if `cut_entry`; raises on anything the kernel does not
+    take and on a launch error.  Returns (accelerations, stats)."""
     device = src.device
     if device.type != "cuda":
         raise ValueError(f"no fused Barnes-Hut kernel for device {device}")
@@ -194,6 +202,10 @@ def kernel_forces(dtype: torch.dtype, tree: GridTree, gstart, gcount, src, bsq, 
     if order is not None and (order.dtype != torch.int32 or order.device != device
                               or order.shape != gcount.shape):
         raise ValueError(f"order: expected int32 {tuple(gcount.shape)} on {device}")
+    if pieces is not None and (pieces.dtype != torch.int32 or pieces.device != device
+                               or pieces.dim() != 2 or pieces.shape[1] != 3
+                               or not pieces.is_contiguous()):
+        raise ValueError(f"pieces: expected contiguous int32 (P, 3) on {device}")
 
     from nbody_tpu_torch.ops import _cuda
 
@@ -203,12 +215,11 @@ def kernel_forces(dtype: torch.dtype, tree: GridTree, gstart, gcount, src, bsq, 
             kernels.lib, tree, gstart, gcount, src, bsq, _cuda.stream_handle(device),
             theta=theta, eps2=eps2, leaf_cap=leaf_cap, ld=ld, group_size=group_size,
             frontier_cap=frontier_cap, debug_mode=debug_mode, order=order,
-            cut_entry=cut_entry,
+            pieces=pieces, cut_entry=cut_entry,
         )
     if err != 0:
         fcap = _round_cap(frontier_cap)
-        smem = kernels.lib.nbody_bh_fused_smem_bytes(
-            int(group_size), fcap, int(dtype == torch.float64))
+        smem = kernels.lib.nbody_bh_fused_smem_bytes(fcap, int(dtype == torch.float64))
         kernels.check(err, f"bh_fused kernel ({dtype}, cut {debug_mode}, group_size "
                            f"{group_size}, frontier cap {fcap}: {smem} bytes of shared "
                            "memory per block)")
@@ -272,6 +283,68 @@ def heavy_first(stats: torch.Tensor, gcount: torch.Tensor) -> torch.Tensor:
     groups fill the tail."""
     work = stats[:, S_SRC].long() * gcount.long()
     return torch.argsort(work, descending=True, stable=True).to(torch.int32)
+
+
+# K6's df mode runs a block of DF_THREADS threads, one body each, per piece
+# of a group; a group of more bodies is cut into ceil(count / DF_THREADS)
+# base pieces of whole warps, so a 1,024-body group spreads over four
+# blocks.  Cutting the heavy groups finer still never helped on the card
+# (PERF.md, the K6 df findings), so the pieces are the base pieces only.
+DF_THREADS = 256
+
+
+def df_pieces(gcount: torch.Tensor, group_size: int,
+              stats: torch.Tensor | None = None) -> torch.Tensor:
+    """K6 df's piece table, int32 (P, 3) [slot, first body, end body), on
+    gcount's device, built there without a host sync.  Each occupied group
+    is cut evenly into ceil(count / DF_THREADS) pieces of whole warps (32
+    bodies).  With the pricing pass's `stats` the pieces come heaviest
+    first (staged sources x the piece's bodies, ties in slot order), else
+    in slot order.  The table has a fixed number of rows for the shapes,
+    G x ceil(B / DF_THREADS): rows past the pieces are spare, with end =
+    first = 0."""
+    device = gcount.device
+    gc = gcount.long()
+    n_groups = gc.shape[0]
+    warps = (gc + 31) // 32
+    k = (gc + DF_THREADS - 1) // DF_THREADS
+    kmax = -(-int(group_size) // DF_THREADS)
+    j = torch.arange(kmax, device=device)
+    valid = j[None, :] < k[:, None]
+    kk = k.clamp(min=1)[:, None]
+    b0 = 32 * ((j[None, :] * warps[:, None]) // kk)
+    b1 = torch.minimum(32 * (((j[None, :] + 1) * warps[:, None]) // kk), gc[:, None])
+    b0, b1 = torch.where(valid, b0, 0), torch.where(valid, b1, 0)
+    slot = torch.arange(n_groups, device=device)[:, None].expand(-1, kmax)
+    if stats is None:
+        key = valid.long()
+    else:
+        key = torch.where(valid, stats[:, S_SRC].long()[:, None] * (b1 - b0), -1)
+    pick = torch.argsort(key.flatten(), descending=True, stable=True)
+    table = torch.stack([slot.flatten()[pick], b0.flatten()[pick], b1.flatten()[pick]], 1)
+    return table.to(torch.int32).contiguous()
+
+
+def df_pricing_pieces(gcount: torch.Tensor) -> torch.Tensor:
+    """The pricing pass's piece table: each group's first piece only (the
+    box and the traversal are the whole group's, so its stats are too), in
+    slot order."""
+    gc = gcount.long()
+    first = torch.minimum(gc, torch.full_like(gc, DF_THREADS))
+    slot = torch.arange(gc.shape[0], device=gc.device)
+    return torch.stack([slot, torch.zeros_like(gc), first], 1).to(torch.int32).contiguous()
+
+
+def df_launch_pieces(tree: GridTree, gstart, gcount, src, bsq, **kw):
+    """(stats, pieces) of K6 df's production launch on these inputs: one
+    launch of the "pops" cut over each group's first piece prices the
+    groups (its stats are "full"'s), and ``df_pieces`` orders the base
+    pieces heaviest first from them.  `kw` are ``kernel_forces``'s
+    keywords; no host sync."""
+    kw = {**kw, "debug_mode": "pops"}
+    _, stats = kernel_forces(torch.float64, tree, gstart, gcount, src, bsq, **kw,
+                             pieces=df_pricing_pieces(gcount))
+    return stats, df_pieces(gcount, kw["group_size"], stats)
 
 
 def fused_group_forces_reference(

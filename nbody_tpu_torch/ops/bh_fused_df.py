@@ -24,8 +24,12 @@ fp64 units, so K6's df mode is native fp64.
   (``bh_fused_df.py:226-273``): the box in f32, the tree through K6's df
   mode, the outliers' rectangle through K4.
 * ``fused_group_forces_df`` — the K6 df wrapper: a CPU tensor goes to
-  the plain version, a CUDA tensor launches the kernel or raises.
-  ``fused_group_forces_df.launches`` counts kernel launches.
+  the plain version, a CUDA tensor launches the kernel or raises.  At
+  "full" an evaluation is two launches: the "pops" cut prices the groups,
+  then the full kernel runs the groups' pieces heaviest first
+  (``bh_fused.df_launch_pieces``).
+  ``fused_group_forces_df.launches`` counts kernel launches,
+  ``fused_group_forces_df.evaluations`` the evaluations.
 * ``fused_group_forces_df_reference`` — the plain version: K6's plain
   version, which takes the df mode from f64 sources (f32 MAC, fp64
   evaluation, the same stats).
@@ -42,6 +46,7 @@ from nbody_tpu_torch.ops.bh_fused import (
     barneshut_fused,
     barneshut_fused_robust,
     check_debug_mode,
+    df_launch_pieces,
     fused_group_forces_reference,
     kernel_forces,
 )
@@ -69,7 +74,8 @@ def fused_group_forces_df(
     """fp64 accelerations (n, 3) in sorted order and stats (G, N_STATS)
     int32, as ``bh_fused.fused_group_forces``, from f64 tables `tree` and
     f64 sources `src` (n, 4) [x y z G·m]; bsq stays f32 (the MAC is f32).
-    `debug_mode` is a stage cut of ``bh_fused.CUTS``."""
+    `debug_mode` is a stage cut of ``bh_fused.CUTS`` (short of "full" one
+    launch over the base pieces in slot order)."""
     if not 1 <= ld <= MAX_LD:
         raise ValueError(f"ld must be in [1, {MAX_LD}], got {ld}")
     check_debug_mode(debug_mode)
@@ -77,12 +83,21 @@ def fused_group_forces_df(
               group_size=group_size, frontier_cap=frontier_cap, debug_mode=debug_mode)
     if src.device.type == "cpu":
         return fused_group_forces_df_reference(tree, gstart, gcount, src, bsq, **kw)
-    out, stats = kernel_forces(torch.float64, tree, gstart, gcount, src, bsq, **kw)
+    pieces = None
+    if debug_mode == "full":
+        _, pieces = df_launch_pieces(tree, gstart, gcount, src, bsq, **kw)
+        fused_group_forces_df.launches += 1
+    out, stats = kernel_forces(torch.float64, tree, gstart, gcount, src, bsq, **kw,
+                               pieces=pieces)
     fused_group_forces_df.launches += 1
+    fused_group_forces_df.evaluations += 1
     return out, stats
 
 
+# At "full" an evaluation is two launches of K6 df: the "pops" cut that
+# prices the groups, then the full kernel over the pieces, heaviest first.
 fused_group_forces_df.launches = 0
+fused_group_forces_df.evaluations = 0
 
 
 def barneshut_fused_df(

@@ -40,9 +40,12 @@ def cuda_rect_accelerations_f64(
     *,
     G: float = constants.BIG_G,
     softening_sq: float = constants.SOFTENING_SQ,
+    _split: int = 0,
 ) -> torch.Tensor:
     """fp64 accelerations of pos_i (M, 3) targets against pos_j (N, 3) /
-    mass_j (N,) sources."""
+    mass_j (N,) sources.  `_split` forces K4's number of source slices a
+    block, for the card tests and chip_smoke.py's sweep only (0, as every
+    caller of the port leaves it: ``k4_split``'s pick for this card)."""
     device = pos_i.device
     m, n = pos_i.shape[0], pos_j.shape[0]
     check_tensor("pos_i", pos_i, (-1, 3), device, F64)
@@ -59,10 +62,11 @@ def cuda_rect_accelerations_f64(
     kernels = _cuda.library()
     gm = G * mass_j  # G folded into the source weights in fp64 (pallas_df.py:305)
     out = torch.empty((m, 3), dtype=F64, device=device)
+    split = _split or k4_split(m, _cuda.sm_count(device))
     with torch.cuda.device(device):
         err = kernels.lib.nbody_allpairs_f64(
             pos_i.data_ptr(), pos_j.data_ptr(), gm.data_ptr(), float(softening_sq),
-            m, n, out.data_ptr(), _cuda.stream_handle(device),
+            m, n, split, out.data_ptr(), _cuda.stream_handle(device),
         )
     kernels.check(err, "fp64 allpairs kernel")
     cuda_rect_accelerations_f64.launches += 1
@@ -70,6 +74,21 @@ def cuda_rect_accelerations_f64(
 
 
 cuda_rect_accelerations_f64.launches = 0
+
+# K4's blocks: 256 threads of 4 targets, two resident an SM (113 registers)
+K4_THREADS, K4_PER_THREAD, K4_BLOCKS_PER_SM = 256, 4, 2
+
+
+def k4_split(m: int, sms: int) -> int:
+    """K4's source slices per block for m targets on a card of `sms` SMs:
+    the fewest (1, 2, 4 or 8) that give every SM its K4_BLOCKS_PER_SM
+    resident blocks, so the fp64 pipes have enough independent pairs in
+    flight; 1 where m alone fills the card (m >= 270,336 on 132 SMs)."""
+    for split in (1, 2, 4):
+        per_block = K4_THREADS // split * K4_PER_THREAD
+        if -(-m // per_block) >= K4_BLOCKS_PER_SM * sms:
+            return split
+    return 8
 
 
 def cuda_accelerations_f64(

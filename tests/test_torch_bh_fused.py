@@ -216,6 +216,61 @@ def test_heavy_first_orders_slots_by_pairs():
     assert order.tolist() == [3, 4, 0, 1, 2]  # work 3000, 3000, 300, 300, 0
 
 
+def _pieces(table):
+    """The used rows of a df piece table, as (slot, first, end) tuples."""
+    return [tuple(r) for r in table.tolist() if r[2] > r[1]]
+
+
+def test_df_pieces_base_in_slot_order():
+    """K6 df's base pieces: each occupied group cut evenly into whole warps,
+    at most 256 bodies a piece, in slot order; empty groups get none; the
+    table has G x ceil(B / 256) rows, the rest spare."""
+    gcount = torch.tensor([1024, 0, 300, 37, 256], dtype=torch.int32)
+    table = tf.df_pieces(gcount, 1024)
+    assert table.dtype == torch.int32 and table.shape == (20, 3)
+    assert _pieces(table) == [(0, 0, 256), (0, 256, 512), (0, 512, 768), (0, 768, 1024),
+                              (2, 0, 160), (2, 160, 300), (3, 0, 37), (4, 0, 256)]
+    assert all(r[2] <= r[1] for r in table.tolist()[8:])
+
+
+def test_df_pieces_heavy_first():
+    """Priced pieces: heaviest first (staged sources x the piece's bodies,
+    ties in slot order), a 300-body group's two pieces apart by their
+    bodies; the pieces still cover each group once."""
+    gcount = torch.tensor([128, 300, 0, 64], dtype=torch.int32)
+    stats = torch.zeros((4, tf.N_STATS), dtype=torch.int32)
+    stats[:, tf.S_SRC] = torch.tensor([1000, 10, 0, 20], dtype=torch.int32)
+    assert _pieces(tf.df_pieces(gcount, 512, stats)) == [
+        (0, 0, 128), (1, 0, 160), (1, 160, 300), (3, 0, 64)]  # 128000, 1600, 1400, 1280
+
+
+@pytest.mark.parametrize("seed,priced", [(0, False), (1, True), (2, True)])
+def test_df_pieces_fit_their_table(seed, priced):
+    """On random groups (and prices) every group is covered exactly once by
+    pieces of whole warps (the last one ragged), at most 256 bodies each,
+    and the pieces fit the table's fixed number of rows; the pricing
+    pass's table is each group's first piece."""
+    rng = np.random.default_rng(seed)
+    gcount = torch.as_tensor(rng.integers(0, 1025, 300), dtype=torch.int32)
+    stats = torch.zeros((300, tf.N_STATS), dtype=torch.int32)
+    stats[:, tf.S_SRC] = torch.as_tensor(rng.pareto(1.0, 300) * 1000, dtype=torch.int32)
+    table = tf.df_pieces(gcount, 1024, stats if priced else None)
+    assert table.shape == (300 * 4, 3)
+    used = _pieces(table)
+    assert len(used) < table.shape[0]
+    covered = np.zeros(300, np.int64)
+    for g, b0, b1 in used:
+        assert b0 % 32 == 0 and b1 - b0 <= tf.DF_THREADS
+        assert b1 % 32 == 0 or b1 == int(gcount[g])
+        covered[g] += b1 - b0
+    assert (covered == gcount.numpy()).all()
+    if priced:
+        work = [int(stats[g, tf.S_SRC]) * (b1 - b0) for g, b0, b1 in used]
+        assert work == sorted(work, reverse=True)
+    pricing = tf.df_pricing_pieces(gcount)
+    assert pricing.tolist() == [[g, 0, min(int(c), 256)] for g, c in enumerate(gcount)]
+
+
 def test_fused_stages_pair_counts():
     """The stage profiler's pair counts: real pairs are staged sources x
     bodies; a live warp issues 64 body slots, a whole block the warps of
@@ -236,6 +291,18 @@ def test_fused_stages_profiler_needs_a_card(monkeypatch, capsys):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert fused_stages.main(["1000", "--robust"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("tool,argv", [("fused_stages", ["1000", "--df"]),
+                                       ("fp64_kernels", [])])
+def test_df_profilers_need_a_card(monkeypatch, capsys, tool, argv):
+    """The df mode's profilers time the card and nothing else: with no
+    card they exit 1 and say why."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert importlib.import_module(f"nbody_tpu_torch.diag.{tool}").main(argv) == 1
     assert "no CUDA device" in capsys.readouterr().err
 
 

@@ -22,6 +22,19 @@ def test_sources_are_the_two_kernels():
                      "group_lists.cu", "potential.cu", "potential_f64.cu"]
 
 
+def test_headers_are_hashed_not_compiled(monkeypatch, tmp_path):
+    """A header the kernels include is not compiled on its own, but a change
+    to it names a new library, so a stale build is never loaded."""
+    assert [os.path.basename(h) for h in _cuda.headers()] == ["pair_f64.cuh"]
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_cuda, "CSRC_DIR", str(tmp_path))
+    assert [os.path.basename(s) for s in _cuda.sources()] == ["k.cu"]
+    before = _cuda.library_path()
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _cuda.library_path() != before
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("this machine has nvcc in /usr/local/cuda/bin")

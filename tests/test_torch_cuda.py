@@ -133,7 +133,8 @@ def test_bh_fused_stage_cuts_on_the_card(dev, case, dtype):
     """Every stage cut of K6 (f32, or the df mode) on the card: the stats
     of "full" in every cut but "none" (zero there), zero forces short of
     "full", the cut entry's "full" bit-identical to the production entry,
-    the f32 slots taken heaviest first bit-identical to slot order; a
+    the slots (f32) or pieces (df) taken heaviest first bit-identical to
+    slot order; a
     1-body group, odd groups, 1,024-body groups, a near run longer than a
     ring stage, and 1,024-body uniform groups."""
     rng = np.random.default_rng(21)
@@ -159,9 +160,10 @@ def test_bh_fused_stage_cuts_on_the_card(dev, case, dtype):
             assert torch.equal(st, stats), cut
         assert cut == "full" or not got.any(), cut
     assert torch.equal(got, prod)
-    if dtype == torch.float32:
-        wrapped, st = bh_fused.fused_group_forces(*args, **kw)  # heaviest first
-        assert torch.equal(wrapped, prod) and torch.equal(st, stats)
+    wrapper = (bh_fused.fused_group_forces if dtype == torch.float32
+               else bh_fused_df.fused_group_forces_df)
+    wrapped, st = wrapper(*args, **kw)  # heaviest first
+    assert torch.equal(wrapped, prod) and torch.equal(st, stats)
     gcount = fi.gcount.cpu()
     assert {"one": (gcount == 1).any(), "odd": (gcount % 2 == 1).any(),
             "full1024": (gcount == 1024).sum() >= 2,
@@ -199,14 +201,25 @@ def _rel(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+def _warp_pieces(gcount):
+    """A df piece table that cuts every occupied group into one-warp
+    pieces, in reverse order: a finer cut and another launch order than
+    the production table's, which must give the same bits."""
+    rows = [(g, b0, min(b0 + 32, c)) for g, c in enumerate(gcount.tolist())
+            for b0 in range(0, c, 32)]
+    return torch.tensor(rows[::-1], dtype=torch.int32, device=gcount.device)
+
+
 @pytest.mark.parametrize("m,n", [(4096, 4096), (3001, 257), (1, 1)])
-def test_allpairs_f64_kernel_matches_plain(dev, m, n):
+@pytest.mark.parametrize("split", [0, 1, 8])
+def test_allpairs_f64_kernel_matches_plain(dev, m, n, split):
     """K4 within 1e-12 of its plain version (test_pallas_df.py:47), one
-    launch counted, bit-identical reruns."""
+    launch counted, bit-identical reruns, at the split the card's SM count
+    picks (0) and at 1 and 8 source slices a block."""
     pos, mass = (t.double() for t in _cloud(max(m, n), dev, seed=m + 1))
     pos[min(m, n) - 1] = pos[0]  # a coincident pair: the zero self-term
     before = cuda_rect_accelerations_f64.launches
-    got = cuda_rect_accelerations_f64(pos[:m], pos[:n], mass[:n], G=0.7)
+    got = cuda_rect_accelerations_f64(pos[:m], pos[:n], mass[:n], G=0.7, _split=split)
     torch.cuda.synchronize()
     assert cuda_rect_accelerations_f64.launches == before + 1
     want = rect_accelerations_reference(pos[:m], pos[:n], mass[:n], G=0.7)
@@ -215,7 +228,8 @@ def test_allpairs_f64_kernel_matches_plain(dev, m, n):
         assert _rel(got, want) < 1e-12
     else:
         assert torch.equal(got, torch.zeros_like(got))
-    assert torch.equal(cuda_rect_accelerations_f64(pos[:m], pos[:n], mass[:n], G=0.7), got)
+    assert torch.equal(cuda_rect_accelerations_f64(pos[:m], pos[:n], mass[:n], G=0.7,
+                                                   _split=split), got)
 
 
 def test_potential_f64_kernel_matches_plain(dev):
@@ -244,21 +258,29 @@ def test_fp64_kernels_refuse_f32_on_the_card(dev):
                                              (4000, 128, 8, 1)])
 def test_bh_fused_df_kernel_matches_plain(dev, n, b, ld, leaf_cap):
     """K6's df mode against its plain version on the same f64 tables and
-    groups: equal stats, 1e-12 of the force scale, bit-identical reruns."""
+    groups: equal stats, 1e-12 of the force scale, bit-identical reruns,
+    one evaluation of two kernel launches counted (the pricing pass, then
+    the pieces heaviest first); the base pieces in slot order, and every
+    group cut into one-warp pieces in reverse order, give the same bits."""
     pos, mass = (t.double() for t in _cloud(n, dev, seed=n))
     fi = bh_fused.prepare_fused(pos, mass, ld=ld, group_size=b)
     kw = dict(theta=0.5, eps2=0.01, leaf_cap=leaf_cap, ld=fi.ld, group_size=b)
     args = (fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq)
-    before = bh_fused_df.fused_group_forces_df.launches
-    got, stats = bh_fused_df.fused_group_forces_df(*args, **kw)
+    wrapper = bh_fused_df.fused_group_forces_df
+    before = (wrapper.launches, wrapper.evaluations)
+    got, stats = wrapper(*args, **kw)
     torch.cuda.synchronize()
-    assert bh_fused_df.fused_group_forces_df.launches == before + 1
+    assert (wrapper.launches, wrapper.evaluations) == (before[0] + 2, before[1] + 1)
     want, want_stats = bh_fused_df.fused_group_forces_df_reference(*args, **kw)
     assert torch.equal(stats, want_stats)
     assert int(stats[:, bh_fused.S_FAR].sum()) > 0
     assert got.dtype == torch.float64 and _rel(got, want) < 1e-12
-    again, _ = bh_fused_df.fused_group_forces_df(*args, **kw)
+    again, _ = wrapper(*args, **kw)
     assert torch.equal(got, again)
+    kw["frontier_cap"] = bh_fused.FRONTIER_CAP
+    for pieces in (None, _warp_pieces(fi.gcount)):
+        cut, st = bh_fused.kernel_forces(torch.float64, *args, **kw, pieces=pieces)
+        assert torch.equal(cut, got) and torch.equal(st, stats)
 
 
 def test_bh_fused_df_against_exact_forces(dev):
@@ -285,8 +307,8 @@ def test_cli_f64_runs_through_the_fp64_kernels(dev, tmp_path, capsys, algo, n):
     assert (k1, k3, k6) == (0, 0, 0)
     if algo == "exhaustive":
         assert (k4, k5, k6df) == (3, 2, 0)
-    else:  # the capacity probe, then 3 evaluations
-        assert (k4, k5, k6df) == (0, 2 if n >= PE_KERNEL_MIN_N else 0, 4)
+    else:  # the capacity probe, then 3 evaluations, two K6 df launches each
+        assert (k4, k5, k6df) == (0, 2 if n >= PE_KERNEL_MIN_N else 0, 8)
     assert "backend: cuda" in capsys.readouterr().out
     rows, n_out = read_trajectory(str(out))
     assert n_out == n and np.isfinite(rows).all()
@@ -400,9 +422,9 @@ def _plummer_with_escapers(n, dev, dtype=torch.float32):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_robust_against_exact_forces(dev, dtype):
     """The robust hybrid through K6 (or its df mode) and K1 (or K4), one
-    evaluation of each (K6 f32 is two launches: the pricing pass and the
-    full kernel), within 0.02 of exact forces, the escapers within 0.02 of
-    their own force scale."""
+    evaluation of each (K6 is two launches in both modes: the pricing pass
+    and the full kernel), within 0.02 of exact forces, the escapers within
+    0.02 of their own force scale."""
     from nbody_tpu_torch.ops.bh_fused import barneshut_fused_robust
     from nbody_tpu_torch.ops.bh_fused_df import barneshut_fused_robust_df
 
@@ -412,11 +434,14 @@ def test_robust_against_exact_forces(dev, dtype):
                 else (bh_fused.fused_group_forces, cuda_rect_accelerations))
     before = [c.launches for c in counters]
     fn = barneshut_fused_robust_df if f64 else barneshut_fused_robust
-    evals = bh_fused.fused_group_forces.evaluations
+    evals = (bh_fused.fused_group_forces.evaluations,
+             bh_fused_df.fused_group_forces_df.evaluations)
     acc = fn(pos, mass, G=1.0)
     torch.cuda.synchronize()
-    assert [c.launches for c in counters] == [before[0] + (1 if f64 else 2), before[1] + 1]
-    assert bh_fused.fused_group_forces.evaluations == evals + (0 if f64 else 1)
+    assert [c.launches for c in counters] == [before[0] + 2, before[1] + 1]
+    assert (bh_fused.fused_group_forces.evaluations,
+            bh_fused_df.fused_group_forces_df.evaluations) == (
+                evals[0] + (0 if f64 else 1), evals[1] + (1 if f64 else 0))
     exact = (cuda_accelerations_f64 if f64 else cuda_accelerations)(pos, mass, G=1.0)
     assert _rel(acc, exact) < 0.02
     own = exact[:8].abs().amax(dim=1)

@@ -1,6 +1,6 @@
 """The port's CUDA kernel sources, run on the CPU under an emulation of the
-CUDA execution model (EMU_HEADER below: one std::thread per CUDA thread, a
-barrier for __syncthreads), against their plain PyTorch twins.
+CUDA execution model (EMU_HEADER below: one cooperative fiber per CUDA
+thread, a barrier for __syncthreads), against their plain PyTorch twins.
 
 This checks the kernels' indexing, ragged-edge masking, tiling and
 reductions wherever the tests run.  It is not the card: the kernels
@@ -40,8 +40,9 @@ def _one_torch_thread():
 
 # Stands in for <cuda_runtime.h> when the .cu sources are built with g++.
 EMU_HEADER = r"""// CPU emulation of the CUDA features the port's kernels use.  Each CUDA
-// thread is a std::thread; the blocks of a grid (x fastest, then y) run one
-// after another, so
+// thread is a fiber (ucontext) of one OS thread, run in turns: a thread runs
+// until it waits at a barrier, then the next one runs; the blocks of a grid
+// (x fastest, then y) run one after another, so
 // `static` stands in for __shared__ and one buffer per launch for `extern
 // __shared__`; __syncthreads is a barrier over the block.  The 32 lanes of
 // each warp share an exchange buffer and a warp barrier, for the shuffles,
@@ -53,12 +54,12 @@ EMU_HEADER = r"""// CPU emulation of the CUDA features the port's kernels use.  
 // is timed.
 #pragma once
 #include <algorithm>
-#include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstring>
 #include <memory>
-#include <thread>
+#include <csetjmp>
+#include <ucontext.h>
 #include <vector>
 
 #define __global__
@@ -67,9 +68,10 @@ EMU_HEADER = r"""// CPU emulation of the CUDA features the port's kernels use.  
 #define __forceinline__ inline
 #define __shared__ static
 #define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
 
 struct uint3_ { unsigned x = 0, y = 0, z = 0; };
-inline thread_local uint3_ threadIdx, blockIdx, blockDim;
+inline uint3_ threadIdx, blockIdx, blockDim;  // the running fiber's
 
 struct dim3 {
   unsigned x, y, z;
@@ -90,20 +92,49 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 using std::max;
 using std::min;
 
-inline std::barrier<>* emu_block_barrier = nullptr;
+// The fibers of the running block.  emu_yield hands the turn back to the
+// scheduler in emu_launch, which runs the next fiber that has not finished.
+// A fiber starts on its own stack through makecontext/swapcontext; after
+// that the turns change hands by _setjmp/_longjmp, which leave the signal
+// mask alone (swapcontext's system call per switch made the emulation of a
+// 256-thread block ~50x slower).
+inline jmp_buf emu_main_jb;
+inline jmp_buf* emu_running_jb = nullptr;
+inline void emu_yield() {
+  if (!_setjmp(*emu_running_jb)) _longjmp(emu_main_jb, 1);
+}
+
+// A barrier of `count` fibers: each arrival waits, yielding, until the last
+// one of its generation arrives.
+struct EmuBarrier {
+  int count, arrived = 0;
+  unsigned generation = 0;
+  explicit EmuBarrier(int n) : count(n) {}
+  void arrive_and_wait() {
+    const unsigned g = generation;
+    if (++arrived == count) {
+      arrived = 0;
+      ++generation;
+      return;
+    }
+    while (generation == g) emu_yield();
+  }
+};
+
+inline EmuBarrier* emu_block_barrier = nullptr;
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 // `extern __shared__` dynamic shared memory of the running block
 inline unsigned char* emu_dynamic_smem = nullptr;
 
 // The running thread's warp: its lanes' exchange slots and barrier.
 struct EmuWarp {
-  std::barrier<> bar;
+  EmuBarrier bar;
   float a[32][4], b[32][2];
   unsigned u[2][32];  // exchange slots, alternating from one exchange to the next
   explicit EmuWarp(int lanes) : bar(lanes) {}
 };
-inline thread_local EmuWarp* emu_warp = nullptr;
-inline thread_local unsigned emu_exchanges = 0;  // this lane's exchanges so far
+inline EmuWarp* emu_warp = nullptr;  // the running fiber's
+inline unsigned emu_exchanges = 0;   // the running fiber's exchanges so far
 
 // The warp's slots for this exchange: every lane posts, the warp meets once,
 // every lane reads.  A lane can post the next exchange while another still
@@ -143,6 +174,20 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   return m;
 }
 inline int __popc(unsigned m) { return __builtin_popcount(m); }
+
+// Twin of pair_f64.cuh's rsqrt seed (MUFU.RSQ64H): r2^(-1/2) with the low
+// 32 bits of the double cleared, a relative error up to 2^-20, so the
+// refinement to fp64 is exercised and not skipped.
+#define NBODY_EMULATED_RSQRT 1
+inline double rsqrt_seed(double r2) {
+  const double y = 1.0 / std::sqrt(r2);
+  unsigned long long bits;
+  std::memcpy(&bits, &y, sizeof bits);
+  bits &= ~0xffffffffull;
+  double seed;
+  std::memcpy(&seed, &bits, sizeof seed);
+  return seed;
+}
 
 // Twins of bh_fused.cu's near-row ring: the copy is synchronous, and the
 // wait, which every thread of the block calls, is a block barrier that
@@ -203,30 +248,71 @@ cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
 
+// One fiber: the kernel body of its CUDA thread.
+struct EmuFiber {
+  ucontext_t ctx;
+  jmp_buf jb;
+  std::unique_ptr<char[]> stack;
+  unsigned exchanges = 0;
+  bool started = false, done = false;
+};
+constexpr size_t kEmuStack = 1 << 17;
+inline void (*emu_body_fn)(void*) = nullptr;
+inline void* emu_body_arg = nullptr;
+inline EmuFiber* emu_running = nullptr;
+inline ucontext_t emu_main_ctx;
+inline void emu_fiber_main() {
+  emu_body_fn(emu_body_arg);
+  emu_running->done = true;
+  _longjmp(emu_main_jb, 1);  // never returns: the scheduler takes the turn
+}
+
 // Stands in for `kernel<<<grid, block, ...>>>(args)`.
 template <class F>
 void emu_launch(dim3 grid, int block, size_t smem_bytes, F body) {
   std::vector<double> smem(smem_bytes / sizeof(double) + 1);
   emu_dynamic_smem = reinterpret_cast<unsigned char*>(smem.data());
+  emu_body_fn = [](void* f) { (*static_cast<F*>(f))(); };
+  emu_body_arg = &body;
+  std::vector<EmuFiber> fibers(block);
+  for (auto& f : fibers) f.stack.reset(new char[kEmuStack]);
   for (unsigned by = 0; by < grid.y; ++by) {
     for (unsigned b = 0; b < grid.x; ++b) {
-      std::barrier<> bar(block);
+      EmuBarrier bar(block);
       emu_block_barrier = &bar;
       std::vector<std::unique_ptr<EmuWarp>> warps;
       for (int w = 0; w < block; w += 32)
         warps.push_back(std::make_unique<EmuWarp>(std::min(32, block - w)));
-      std::vector<std::thread> threads;
-      for (int t = 0; t < block; ++t) {
-        threads.emplace_back([&, t, b, by] {
-          emu_warp = warps[t / 32].get();
-          threadIdx.x = t;
-          blockIdx.x = b;
-          blockIdx.y = by;
-          blockDim.x = block;
-          body();
-        });
+      for (auto& f : fibers) {
+        getcontext(&f.ctx);
+        f.ctx.uc_stack.ss_sp = f.stack.get();
+        f.ctx.uc_stack.ss_size = kEmuStack;
+        f.ctx.uc_link = nullptr;
+        makecontext(&f.ctx, emu_fiber_main, 0);
+        f.exchanges = 0;
+        f.started = f.done = false;
       }
-      for (auto& th : threads) th.join();
+      blockIdx.x = b;
+      blockIdx.y = by;
+      blockDim.x = block;
+      for (int left = block; left > 0;) {
+        for (int t = 0; t < block; ++t) {
+          EmuFiber& f = fibers[t];
+          if (f.done) continue;
+          threadIdx.x = t;
+          emu_warp = warps[t / 32].get();
+          emu_exchanges = f.exchanges;
+          emu_running = &f;
+          emu_running_jb = &f.jb;
+          if (!_setjmp(emu_main_jb)) {
+            if (f.started) _longjmp(f.jb, 1);
+            f.started = true;
+            swapcontext(&emu_main_ctx, &f.ctx);
+          }
+          f.exchanges = emu_exchanges;
+          left -= f.done;
+        }
+      }
     }
   }
 }
@@ -260,6 +346,8 @@ def emu(tmp_path_factory):
         pytest.skip("g++ is needed to build the emulated kernels")
     d = tmp_path_factory.mktemp("emu")
     (d / "cuda_runtime.h").write_text(EMU_HEADER)
+    for h in _cuda.headers():
+        shutil.copy(h, d / os.path.basename(h))
     cpps = []
     for cu in _cuda.sources():
         cpp = d / (os.path.basename(cu)[:-3] + ".cpp")
@@ -267,7 +355,7 @@ def emu(tmp_path_factory):
         cpps.append(str(cpp))
     so = d / "emu.so"
     r = subprocess.run(
-        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+        ["g++", "-std=c++20", "-O1", "-U_FORTIFY_SOURCE", "-shared", "-fPIC",
          "-I", str(d), *cpps, "-o", str(so)],
         capture_output=True, text=True, timeout=300,
     )
@@ -414,9 +502,21 @@ def _bh_case(name):
         pos = np.vstack([rng.normal(0, 1e-4, (700, 3)),
                          rng.uniform(-1, 1, (60, 3)) * 50])
         return pos, rng.uniform(0.1, 1, 760), 256, 3, 8, 2048
+    if name == "split":  # a dense core: its groups stage far more than the rest
+        pos = np.vstack([rng.normal(0, 0.05, (256, 3)), rng.uniform(-2, 2, (200, 3))])
+        return pos, rng.uniform(0.1, 1, 456), 128, 3, 8, 2048
     # a frontier wider than the 128-cell cap: the overflow lane reports it
     pos = rng.uniform(-2, 2, (2000, 3))
     return pos, rng.uniform(0.1, 1, 2000), 64, 4, 1, 128
+
+
+def _warp_pieces(gcount):
+    """A df piece table that cuts every occupied group into one-warp
+    pieces, in reverse order: a finer cut and another launch order than
+    the production table's, which must give the same bits."""
+    rows = [(g, b0, min(b0 + 32, c)) for g, c in enumerate(gcount.tolist())
+            for b0 in range(0, c, 32)]
+    return torch.tensor(rows[::-1], dtype=torch.int32, device=gcount.device)
 
 
 def _bh_check_cuts(lib, fi, kw, bound):
@@ -447,6 +547,15 @@ def _bh_check_cuts(lib, fi, kw, bound):
         err, ordered, ordered_stats = bh_fused.launch(*args, order=order, **kw)
         assert err == 0
         assert torch.equal(ordered, got) and torch.equal(ordered_stats, stats)
+    else:  # priced, then heaviest first, and one-warp pieces: the same bits
+        err, _, est = bh_fused.launch(*args, debug_mode="pops",
+                                      pieces=bh_fused.df_pricing_pieces(fi.gcount), **kw)
+        assert err == 0 and torch.equal(est, stats)
+        for pieces in (bh_fused.df_pieces(fi.gcount, kw["group_size"], est),
+                       _warp_pieces(fi.gcount)):
+            err, ordered, ordered_stats = bh_fused.launch(*args, pieces=pieces, **kw)
+            assert err == 0
+            assert torch.equal(ordered, got) and torch.equal(ordered_stats, stats)
     if int(stats[:, bh_fused.S_OVF].max()) <= kw["frontier_cap"]:
         bound(got, want)  # past the cap both drop the same cells; forces are moot
     return stats
@@ -490,19 +599,42 @@ def test_bh_fused_kernel_source(emu, name):
         assert int(stats[:, bh_fused.S_OVF].max()) > 128
 
 
+def _emu_allpairs_f64(lib, m, n, split):
+    """K4's source on m targets and n sources of a random cloud (G = 0.7),
+    run twice, and its plain version."""
+    arr = random_cloud(max(m, n), seed=m + n)
+    pos_i, pos_j, mass_j = _f64(arr[:m, :3]), _f64(arr[:n, :3]), _f64(arr[:n, 6])
+    gm = 0.7 * mass_j  # G folded in, as the wrapper does
+    outs = []
+    for _ in range(2):
+        out = torch.full((m, 3), float("nan"), dtype=torch.float64)
+        assert lib.nbody_allpairs_f64(pos_i.data_ptr(), pos_j.data_ptr(), gm.data_ptr(),
+                                      0.01, m, n, split, out.data_ptr(), None) == 0
+        outs.append(out)
+    return outs, rect_accelerations_reference(pos_i, pos_j, mass_j, G=0.7)
+
+
 @pytest.mark.parametrize("m,n", [(1, 1), (137, 300), (300, 517)])
 def test_allpairs_f64_kernel_source(emu, m, n):
     """K4 within 1e-12 of its plain version (test_pallas_df.py:47), with a
     target coincident with a source (the zero self-term)."""
-    arr = random_cloud(max(m, n), seed=m + n)
-    pos_i, pos_j, mass_j = _f64(arr[:m, :3]), _f64(arr[:n, :3]), _f64(arr[:n, 6])
-    out = torch.full((m, 3), float("nan"), dtype=torch.float64)
-    gm = 0.7 * mass_j  # G folded in, as the wrapper does
-    assert emu.nbody_allpairs_f64(pos_i.data_ptr(), pos_j.data_ptr(), gm.data_ptr(),
-                                  0.01, m, n, out.data_ptr(), None) == 0
-    want = rect_accelerations(pos_i, pos_j, mass_j, G=0.7)
+    (out, _), want = _emu_allpairs_f64(emu, m, n, 1)
     scale = want.abs().max().item()
     assert (out - want).abs().max().item() <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("m,n,split", [(1100, 700, 1), (137, 300, 4), (700, 1100, 2),
+                                       (1100, 9, 8)])
+def test_allpairs_f64_kernel_source_split(emu, m, n, split):
+    """K4 with the source range of each block split over 1-8 thread
+    groups, on m above one block's 1,024 / split targets (four a thread)
+    and ragged m and n (not multiples of a block's targets or of the
+    512-row tile): within 1e-12 of its plain version, reruns
+    bit-identical."""
+    (out, again), want = _emu_allpairs_f64(emu, m, n, split)
+    scale = want.abs().max().item()
+    assert (out - want).abs().max().item() <= 1e-12 * scale
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("n", [1, 255, 700])
@@ -525,11 +657,15 @@ def test_potential_f64_kernel_source(emu, n):
     assert results[0] == pytest.approx(want, rel=1e-13, abs=1e-300)
 
 
-@pytest.mark.parametrize("name", ["uniform", "cluster", "overflow"])
+@pytest.mark.parametrize("name", ["uniform", "cluster", "overflow", "one", "odd",
+                                  "full1024", "longrun", "split"])
 def test_bh_fused_df_kernel_source(emu, name):
-    """K6's df mode (two bodies per thread) against its plain version on the
-    same f64 tables and groups, at every stage cut: equal stats lanes,
-    accelerations within 1e-12 of the force scale."""
+    """K6's df mode (a 256-thread block per piece of a group, one body a
+    thread) against its plain version on the same f64 tables and groups, at
+    every stage cut: equal stats lanes, accelerations within 1e-12 of the
+    force scale; the priced launch, its pieces heaviest first and every
+    group cut into one-warp pieces, bit-identical to the base pieces in
+    slot order."""
     pos, mass, b, ld, leaf_cap, fcap = _bh_case(name)
     fi = bh_fused.prepare_fused(_f64(pos), _f64(mass), ld=ld, group_size=b)
     assert fi.src.dtype == fi.tree.cx.dtype == torch.float64
@@ -541,6 +677,11 @@ def test_bh_fused_df_kernel_source(emu, name):
         assert int(stats[:, bh_fused.S_FAR].sum()) > 0
     if name == "overflow":
         assert int(stats[:, bh_fused.S_OVF].max()) > 128
+    if name == "full1024":  # four base pieces a group
+        assert (fi.gcount == 1024).sum() >= 2
+    if name == "split":  # the heaviest group, one base piece, ran as warp pieces
+        heavy = int((stats[:, bh_fused.S_SRC].long() * fi.gcount.long()).argmax())
+        assert 32 < int(fi.gcount[heavy]) <= bh_fused.DF_THREADS
 
 
 def test_bh_fused_unknown_debug_mode_raises():
