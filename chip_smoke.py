@@ -14,7 +14,8 @@ prints no result):
 
 1. card and build: nvidia-smi's name and power limit, nvcc's version, the
    kernels built from nbody_tpu_torch/csrc/*.cu for sm_90a and the build
-   time and ptxas report;
+   time and ptxas report; each kernel's SASS floating-point instructions,
+   per MUFU.RSQ64H (fp64) and per MUFU.RSQ (fp32): its instructions a pair;
 2. all-pairs kernel against its plain PyTorch twin at the main path's
    shape (100k x 100k), at n=4096, at an unaligned 100,003 x 4,099, in
    per-body mode, and the CLI on the 10-body reference golden file;
@@ -25,6 +26,10 @@ prints no result):
    final positions and energy drift must agree;
 6. kernel times beside the plain versions (CUDA events), and pairs/s of
    both backends, each printed beside the card's name and power limit;
+   K1 at every number of source slices a block on the main path's 100k x
+   100k and on the 100,003 x 4,099 and 1M x 1,953 rectangles, each held
+   against its plain version with bit-identical reruns, beside its time
+   before the redesign, its bound and its fp32 issue floor;
 7. the fused Barnes-Hut kernel (K6) against its plain twin on the same
    tables and groups, at 100k and at the main path's 1M: K1's bound, equal
    stats, bit-identical reruns;
@@ -72,11 +77,14 @@ prints no result):
     prescribes);
 22. the same run with --dtype f64 through K7's fp64 entry point; its forces
     against K4's exact ones;
-23. K7 and its plain version timed at 100k and 1M, one 1M list-path
-    evaluation split into sort+tree+groups, traversal, K7 and scatter, a
-    torch.profiler trace of one evaluation (device busy share, kernel
-    launches, the costliest kernels), and --no-output s/step at 1M in
-    turns flat, fused, fused, flat (and padded where it fits);
+23. K7 and its plain version timed at 100k and 1M, with the issue floors
+    and K7 fp64's time before its redesign; K7's fp64 entry at every
+    number of list slices a block, held against its plain version with
+    bit-identical reruns; one 1M list-path evaluation split into
+    sort+tree+groups, traversal, K7 and scatter, a torch.profiler trace of
+    one evaluation (device busy share, kernel launches, the costliest
+    kernels), and --no-output s/step at 1M in turns flat, fused, fused,
+    flat (and padded where it fits), then flat with --dtype f64 twice;
 24. the tensor-core all-pairs kernel (K2) against its plain version at
     100k x 100k, at 100,003 x 4,099, in per-body mode and on a cloud offset
     from the origin; against K1, and against the fp64 formula on 256
@@ -146,16 +154,21 @@ F64_POS_BOUND = 1e-10  # final positions, kernel against the plain backend
 HBM_BPS = 3.35e12
 FP32_PEAK = 67e12  # FLOP/s outside the tensor cores
 FP64_PEAK = 34e12  # FLOP/s outside the tensor cores
+CLOCK_HZ = 1.98e9  # SM clock of the issue floors: measured under K1 and K4 (PERF.md)
 # operations per pair, rsqrt counted as one: the force (3 sub; 3 mul + 3 add
 # for |d|^2 + eps2; rsqrt; 2 mul for r^-3; 1 mul by G·m; 3 multiply-adds),
 # and the potential energy (3 sub; 3 mul + 2 add; rsqrt; 2 mul; 1 add)
 FORCE_OPS, PE_OPS = 19, 12
-# K4's and K6 df's times before their redesign (four targets a thread,
-# pieces of groups), on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): this
-# script and diag/fp64_kernels.py (the rectangles, and K6 df on the robust
-# input in slot order) on the tree before it
+# Kernel times before their redesign, on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md): K4's and K6 df's (four targets a thread, pieces of groups) from
+# this script and diag/fp64_kernels.py (the rectangles, and K6 df on the
+# robust input in slot order) on the tree before it; K1's and K7 fp64's
+# (targets or slots a thread, split sources) from this script (100k, 1M)
+# and diag/pair_kernels.py (the rectangles) on the tree before theirs
 BEFORE_MS = {"K4 100k": 15.956, "K4 100003x4099": 0.6608, "K4 1000000x1953": 2.7433,
-             "K6 df 100k": 2.3316, "K6 df 1M uniform": 16.1761, "K6 df robust ld 8": 129.2723}
+             "K6 df 100k": 2.3316, "K6 df 1M uniform": 16.1761, "K6 df robust ld 8": 129.2723,
+             "K1 100000x100000": 7.0583, "K1 100003x4099": 0.2971, "K1 1000000x1953": 1.2197,
+             "K7 fp64 1M": 15.5646}
 
 
 def check(ok: bool, what: str) -> None:
@@ -220,16 +233,17 @@ SASS_OPS = ("FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA", "MUFU.RSQ", "MUFU.RS
             "HMMA", "F2F", "F2FP", "FRND")
 
 
-def sass_counts(nvcc: str, so_path: str) -> None:
+def sass_counts(nvcc: str, so_path: str) -> dict[str, dict[str, int]]:
     """Print, for each kernel in the built library, how many of each
-    floating-point instruction its SASS holds (cuobjdump -sass), and the
-    fp64 ones per MUFU.RSQ64H: every fp64 pair evaluation takes exactly one
-    rsqrt seed, so that ratio is the fp64 instructions per pair, plus the
-    kernel's few fp64 instructions outside its pair loops."""
+    floating-point instruction its SASS holds (cuobjdump -sass), the fp64
+    ones per MUFU.RSQ64H and the fp32 ones per MUFU.RSQ: every pair
+    evaluation takes exactly one rsqrt, so that ratio is the instructions
+    per pair, plus the kernel's few outside its pair loops.  Returns
+    {kernel: {instruction: count}}, empty where cuobjdump is missing."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.access(cuobjdump, os.X_OK):
         print(f"  SASS counts: not measured ({cuobjdump} not found)")
-        return
+        return {}
     sass = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True, text=True,
                           timeout=120, check=True).stdout
     op_re = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
@@ -250,17 +264,46 @@ def sass_counts(nvcc: str, so_path: str) -> None:
         line = ", ".join(f"{k} {v}" for k, v in c.items() if v)
         seeds = c["MUFU.RSQ64H"]
         if seeds:
-            fp64 = c["DADD"] + c["DMUL"] + c["DFMA"]
             line += (f"; per RSQ64H: DADD {c['DADD'] / seeds:.2f}, DMUL "
                      f"{c['DMUL'] / seeds:.2f}, DFMA {c['DFMA'] / seeds:.2f}, all fp64 "
-                     f"{fp64 / seeds:.2f}")
+                     f"{fp64_per_seed(c):.2f}")
+        rsq = c["MUFU.RSQ"]
+        if rsq:
+            line += (f"; per RSQ: FADD {c['FADD'] / rsq:.2f}, FMUL {c['FMUL'] / rsq:.2f}, "
+                     f"FFMA {c['FFMA'] / rsq:.2f}, all fp32 {fp32_per_rsq(c):.2f}")
         print(f"  SASS {fn}: {line or 'no floating-point instructions'}")
+    return counts
 
 
-def build_phase(torch) -> tuple[str, str]:
+def fp32_per_rsq(c: dict[str, int]) -> float:
+    """fp32 instructions (FADD, FMUL, FFMA) per MUFU.RSQ of one kernel's
+    SASS counts: its fp32 instructions a pair."""
+    return (c["FADD"] + c["FMUL"] + c["FFMA"]) / c["MUFU.RSQ"]
+
+
+def sass_of(counts: dict, part: str) -> dict[str, int] | None:
+    """The SASS counts of the one kernel whose (mangled) name holds
+    `part`, or None."""
+    hits = [c for fn, c in counts.items() if part in fn]
+    return hits[0] if len(hits) == 1 else None
+
+
+def fp64_per_seed(c: dict[str, int]) -> float:
+    """fp64 instructions (DADD, DMUL, DFMA) per MUFU.RSQ64H of one kernel's
+    SASS counts: its fp64 instructions a pair."""
+    return (c["DADD"] + c["DMUL"] + c["DFMA"]) / c["MUFU.RSQ64H"]
+
+
+def issue_floor_ms(per_pair: float, pairs: float, lanes: int, sms: int) -> float:
+    """The least time to issue `per_pair` instructions for each of `pairs`
+    pairs on `lanes` lanes of each of `sms` SMs at CLOCK_HZ."""
+    return per_pair * pairs / (lanes * sms * CLOCK_HZ) * 1e3
+
+
+def build_phase(torch) -> tuple[str, str, dict]:
     """Phase [1]: the card, and the kernels built from the sources in this
     run, with ptxas's registers and spills and the SASS instruction counts.
-    Returns (nvidia-smi line, device name)."""
+    Returns (nvidia-smi line, device name, SASS counts)."""
     from nbody_tpu_torch.ops import _cuda
 
     card = card_line()
@@ -288,8 +331,7 @@ def build_phase(torch) -> tuple[str, str]:
                 or "spill" in line):
             print("  " + line.strip())
     check(kernels.build_seconds > 0, "the kernels were compiled in this run")
-    sass_counts(nvcc, kernels.path)
-    return card, name
+    return card, name, sass_counts(nvcc, kernels.path)
 
 
 def run_cli(argv: list[str]) -> str:
@@ -363,13 +405,13 @@ def lists_work(gl, real_bytes: int) -> tuple[float, float, float, float]:
     return nbytes, pairs * FORCE_OPS, pairs, issued
 
 
-def list_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str, exact1m,
-                frames_ex, drift_ex: float, drift_bh32: float) -> list[dict]:
+def list_phases(torch, dev, card: str, sass: dict, arr, arr1m, csv1m: str, tmp: str,
+                exact1m, frames_ex, drift_ex: float, drift_bh32: float) -> list[dict]:
     """Phases [19]-[23]: K7 and the list-based Barnes-Hut path.  Returns
     K7's entries of the JSON line."""
     from nbody_tpu_torch.core.types import Bodies
     from nbody_tpu_torch.diag.energy import cuda_potential_energy
-    from nbody_tpu_torch.ops import barneshut, bh_fused, bh_fused_df, cuda_lists
+    from nbody_tpu_torch.ops import _cuda, barneshut, bh_fused, bh_fused_df, cuda_lists
     from nbody_tpu_torch.ops.cuda_exhaustive import cuda_rect_accelerations
     from nbody_tpu_torch.ops.cuda_fp64 import (
         cuda_accelerations_f64,
@@ -388,6 +430,7 @@ def list_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str, exact1m
     # 19. K7 against its plain version on the flat traversal's lists
     print("[19] group x interaction-list kernel K7 (nbody_tpu_torch/csrc/group_lists.cu)")
     k7 = {}  # (n, dtype) -> (group lists, max |err|, plain ms)
+    k7_want = {}  # n -> the fp64 plain version's accelerations
     for (nb, dtype), bd in bodies.items():
         gl = barneshut.group_lists(bd.pos, bd.mass)
         st = [int(x) for x in gl.stats]
@@ -414,6 +457,7 @@ def list_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str, exact1m
                   f"{err / scale:.3e} (bound {F64_BOUND:g})")
             check(err <= F64_BOUND * scale and bool(torch.isfinite(got).all()),
                   "K7 fp64 against its plain version")
+            k7_want[nb] = want
         check(torch.equal(wrap(gl.pg, gl.lists, gl.lengths, eps2=0.01), got),
               "K7 reruns are bit-identical")
         _, _, pairs, issued = lists_work(gl, 4)
@@ -557,15 +601,48 @@ def list_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str, exact1m
     # 23. timing
     print(f"[23] list-path timing on {card}")
     ms = {}
+    sms = _cuda.sm_count(dev)
+    # the issue floors on real pairs: SASS instructions a pair ([1]) over the
+    # fp32 (128) or fp64 (64) lanes of every SM
+    floors = {f32: (sass_of(sass, "group_lists_f32"), fp32_per_rsq, 128),
+              f64: (sass_of(sass, "group_lists_f64"), fp64_per_seed, 64)}
     for (nb, dtype), (gl, _, plain_ms) in k7.items():
         wrap = wrappers[dtype]
         ms[nb, dtype] = cuda_ms(torch, lambda: wrap(gl.pg, gl.lists, gl.lengths,
                                                     eps2=0.01), 10)
         _, _, pairs, issued = lists_work(gl, 4)
+        counts, per_pair, lanes = floors[dtype]
+        floor = ("not measured" if counts is None else
+                 f"{issue_floor_ms(per_pair(counts), pairs, lanes, sms):.4f} ms "
+                 f"({per_pair(counts):.2f} instructions a pair)")
+        before = (f" (before the redesign {BEFORE_MS['K7 fp64 1M']} ms, "
+                  f"{ms[nb, dtype] / BEFORE_MS['K7 fp64 1M']:.3f}x)"
+                  if (nb, dtype) == (BH_N, f64) else "")
         print(f"  K7 {'f32' if dtype == f32 else 'fp64'} at n={nb}: kernel "
-              f"{ms[nb, dtype]:.4f} ms ({issued / ms[nb, dtype] / 1e-3:.4e} issued "
+              f"{ms[nb, dtype]:.4f} ms{before} ({issued / ms[nb, dtype] / 1e-3:.4e} issued "
               f"thread-pairs/s, {pairs / ms[nb, dtype] / 1e-3:.4e} real pairs/s), "
-              f"plain {plain_ms:.4f} ms (one run) [{card}]")
+              f"issue floor {floor}, plain {plain_ms:.4f} ms (one run) [{card}]")
+    # K7's fp64 entry at every number of list slices a block, each held
+    # against the plain version, with bit-identical reruns
+    for nb in (n, BH_N):
+        gl, want = k7[nb, f64][0], k7_want[nb]
+        g_, b_, _ = gl.pg.shape
+        split_ms, rels = {}, {}
+        for split in (1, 2, 4, 8):
+            got = cuda_lists.eval_lists_f64(gl.pg, gl.lists, gl.lengths, eps2=0.01,
+                                            _split=split)
+            rels[split] = (got - want).abs().max().item() / want.abs().max().item()
+            check(rels[split] <= F64_BOUND and torch.equal(cuda_lists.eval_lists_f64(
+                gl.pg, gl.lists, gl.lengths, eps2=0.01, _split=split), got),
+                f"K7 fp64 at {split} list slices against its plain version, reruns")
+            split_ms[split] = cuda_ms(torch, lambda: cuda_lists.eval_lists_f64(
+                gl.pg, gl.lists, gl.lengths, eps2=0.01, _split=split), 5)
+        print(f"  K7 fp64 at n={nb} ({g_} group slots, B {b_}; the pick "
+              f"{cuda_lists.k7_split(g_, b_, sms)} list slices): 1/2/4/8 slices "
+              + " / ".join(f"{split_ms[k]:.4f}" for k in (1, 2, 4, 8)) + " ms, rel err "
+              + " / ".join(f"{rels[k]:.2e}" for k in (1, 2, 4, 8))
+              + f" (bound {F64_BOUND:g}), reruns bit-identical [{card}]")
+    del k7_want, want, got
     kw = dict(list_size=list_1m)
     gs, sl, lc, depth = barneshut.list_layout(BH_N, 9, 0, 0)
     prep = barneshut._prepare(b1m.pos, b1m.mass, depth, gs, sl)
@@ -622,6 +699,14 @@ def list_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str, exact1m
         sim = cli_number(text, "Elapsed wall time:")
         print(f"  {BH_N} --no-output --bh-traversal {trav_name}: simulate {sim:.4f} s "
               f"-> {sim / BH_STEPS:.4f} s/step [{card}]")
+    for _ in range(2):  # the f64 list path: K7's fp64 entry
+        rc, text, _ = run_cli_rc([csv1m, *BH_WINDOW, os.path.join(tmp, "x.csv"),
+                                  "--no-output", "--algo", "barnes-hut",
+                                  "--bh-traversal", "flat", "--dtype", "f64", *flag])
+        check(rc == 0, f"--bh-traversal flat --dtype f64 --no-output exit code {rc}")
+        sim = cli_number(text, "Elapsed wall time:")
+        print(f"  {BH_N} --no-output --bh-traversal flat --dtype f64: simulate "
+              f"{sim:.4f} s -> {sim / BH_STEPS:.4f} s/step [{card}]")
 
     entries = []
     for dtype, name, launches_main in ((f32, "group_lists_f32", k7_l),
@@ -1450,17 +1535,18 @@ def main() -> int:
     )
     from nbody_tpu_torch.io.csv import read_bodies
     from nbody_tpu_torch.utils.fixtures import random_cloud, write_fixture
-    from nbody_tpu_torch.ops import bh_fused
+    from nbody_tpu_torch.ops import _cuda, bh_fused
     from nbody_tpu_torch.ops.cuda_exhaustive import (
         cuda_accelerations,
         cuda_rect_accelerations,
+        k1_split,
         rect_accelerations_reference,
     )
 
     dev = torch.device("cuda")
     check(not torch.backends.cuda.matmul.allow_tf32, "no TF32 in f32 matmuls")
 
-    card, name = build_phase(torch)
+    card, name, sass = build_phase(torch)
 
     # 2. all-pairs kernel against its twin
     print("[2] all-pairs kernel (nbody_tpu_torch/csrc/allpairs.cu)")
@@ -1569,6 +1655,41 @@ def main() -> int:
         print(f"  all-pairs {n}x{n}: kernel {k1_ms:.4f} ms "
               f"({pairs / k1_ms / 1e-3:.4e} pairs/s), plain {k1_plain_ms:.4f} ms "
               f"[{card}]")
+        # K1 at every number of source slices a block, each held against the
+        # plain version, on the main path's square and the ragged and robust
+        # rectangles, beside its time before the redesign, its bound and its
+        # fp32 issue floor (SASS fp32 instructions a pair, [1])
+        sms = _cuda.sm_count(dev)
+        k1_sass = sass_of(sass, "allpairs_kernelILb0")
+        arr1m = random_cloud(BH_N, seed=0)
+        c = torch.as_tensor(arr1m, dtype=torch.float32, device=dev)
+        k1_shapes = {(n, n): (b.pos, b.pos, b.mass)}
+        for m_, n_ in ((100_003, 4_099), (BH_N, 1_953)):
+            k1_shapes[m_, n_] = (c[:m_, :3].contiguous(), c[:n_, :3].contiguous(),
+                                 c[:n_, 6].contiguous())
+        for (m_, n_), r in k1_shapes.items():
+            want_r = rect_accelerations_reference(*r)
+            split_ms = {}
+            for split in (1, 2, 4, 8):
+                got_r = cuda_rect_accelerations(*r, _split=split)
+                f32_close(torch, got_r, want_r, f"K1 {m_} x {n_}, {split} source slices")
+                check(torch.equal(cuda_rect_accelerations(*r, _split=split), got_r),
+                      "K1 reruns are bit-identical")
+                split_ms[split] = cuda_ms(
+                    torch, lambda: cuda_rect_accelerations(*r, _split=split), 10)
+            ms = k1_ms if m_ == n else cuda_ms(torch, lambda: cuda_rect_accelerations(*r), 10)
+            before = BEFORE_MS[f"K1 {m_}x{n_}"]
+            kb = bound((m_ * 3 + n_ * 4 + m_ * 3) * 4, float(m_) * n_ * FORCE_OPS, FP32_PEAK)
+            floor = ("not measured" if k1_sass is None else
+                     f"{issue_floor_ms(fp32_per_rsq(k1_sass), float(m_) * n_, 128, sms):.4f}"
+                     f" ms ({fp32_per_rsq(k1_sass):.2f} fp32 instructions a pair)")
+            print(f"  K1 {m_}x{n_}: kernel {ms:.4f} ms at its pick of "
+                  f"{k1_split(m_, sms)} source slices (before the redesign {before} ms, "
+                  f"{ms / before:.3f}x); 1/2/4/8 slices "
+                  + " / ".join(f"{split_ms[k]:.4f}" for k in (1, 2, 4, 8))
+                  + f" ms; bound {kb[0]:.4f} ms ({kb[1]}); fp32 issue floor {floor} "
+                  f"({sms} SMs x 128 lanes at {CLOCK_HZ / 1e6:.0f} MHz) [{card}]")
+        del c, k1_shapes, want_r, got_r
         print(f"  potential {n}x{n}: kernel {k3_ms:.4f} ms "
               f"({pairs / k3_ms / 1e-3:.4e} pairs/s), plain {k3_plain_ms:.4f} ms "
               f"[{card}]")
@@ -1589,7 +1710,6 @@ def main() -> int:
         # 7. fused Barnes-Hut kernel against its twin, at 100k and at the
         # main path's 1M
         print("[7] fused Barnes-Hut kernel (nbody_tpu_torch/csrc/bh_fused.cu)")
-        arr1m = random_cloud(BH_N, seed=0)
         b1m = Bodies.from_numpy(arr1m, dtype=torch.float32, device=dev)
         k6 = {}  # n -> (kernel arguments, keywords, max |err|)
         for bodies in (b, b1m):
@@ -1726,7 +1846,7 @@ def main() -> int:
                   f"[{card}]")
 
         fp64_kernels = fp64_phases(torch, dev, card, arr, arr1m, csv1m, tmp, drift_bh)
-        list_kernels = list_phases(torch, dev, card, arr, arr1m, csv1m, tmp, exact,
+        list_kernels = list_phases(torch, dev, card, sass, arr, arr1m, csv1m, tmp, exact,
                                    frames_ex, drift_ex, drift_bh)
         del exact
         k2_entry, robust_df = robust_phases(torch, dev, card, arr, got, tmp, csv1m)

@@ -1,4 +1,4 @@
-// allpairs.cu — softened all-pairs accelerations, f32, for sm_90a.
+// allpairs.cu — softened all-pairs accelerations, f32, for sm_90a (K1).
 //
 // Replaces the TPU kernel nbody_tpu/ops/pallas_exhaustive.py::_kernel (with
 // _pair_weights), which evaluates (BI, BJ) pair tiles on the VPU and
@@ -11,76 +11,132 @@
 // because the displacement is zero; there is no j == i branch.  Per-body
 // mode uses eps2_ij = eps2_i / 2 + eps2_j / 2.
 //
-// What bounds it on the card: one rsqrt (SFU) and about 20 FP32 operations
-// per pair, against 16 bytes of shared memory read per pair that the whole
-// block shares.  Device-memory traffic is O(M + N) for O(M * N) work, so it
-// is compute-bound and device bytes do not matter.
+// What bounds it on the card: fp32 issue.  A pair is 3 FADD for the
+// displacement, 3 FFMA for |d|^2 + eps2, one MUFU.RSQ, 3 FMUL for the
+// weight and 3 FFMA into the sums: 12 fp32 instructions (13 in per-body
+// mode), at 128 fp32 lanes per SM per clock.  chip_smoke.py phase 1 counts
+// the SASS.  Device-memory traffic is O(M + N) for O(M * N) work.
 //
-// Design (the scheme of the reference's own cuda/exhaustive.cu:273-338):
-// one thread per target, accumulating in registers.  Sources stream through
-// shared memory in tiles of kBlock float4 [x y z gm], each thread of the
-// block loading one source.  There is no padding: the last tile's loop
-// bound is the number of real sources left, and threads past M load
-// sources but write nothing.
+// Design: K4's (allpairs_f64.cu).  A block of 128 threads holds kPer = 4
+// targets a thread in registers and streams the sources through shared
+// memory in tiles of kTile [x y z gm] rows (32 KB), so each staged row (one
+// broadcast float4 load) feeds four independent chains.  Where M alone
+// cannot fill the card (at M = 100k, 196 blocks of 512 targets for 132
+// SMs), the block splits the source range: `split` = S groups of 128 / S
+// threads hold the same targets and each sweeps its own slice of every
+// tile, so the grid has S times the blocks; their sums meet in shared
+// memory in the fixed order s = 0 ... S - 1 (split_sum.cuh).  The wrapper
+// picks S from M and the SM count (ops/cuda_exhaustive.py::k1_split).  The
+// ragged edges are masked by the loop bounds, not by padding: threads past
+// M stage sources but write nothing.
 //
-// Left for later: at M = 100k there are only ~760 targets per SM, so
-// occupancy is low; splitting j across blocks would add parallelism.
+// The block size, tile, unrolling and targets a thread are the fastest of
+// a trial of builds on the card at 100k x 100k, 100,003 x 4,099 and 1M x
+// 1,953 (PERF.md); 256 threads a block, tiles of 512 rows and two or
+// eight targets a thread were slower.
+//
+// The rsqrt is rsqrt.approx.ftz.f32: MUFU.RSQ alone, without the scaling
+// that CUDA's rsqrtf wraps around it for subnormal inputs (two fp32
+// instructions a pair, 10-18 % of the time in the same trial).  |d|^2 +
+// eps2 is a normal float whenever eps2 is (the softening is 1e-2 by
+// default); a zero softening gives inf and NaN for a coincident pair
+// either way.
+//
+// The CPU emulation of the kernel sources brings its own rsqrt_ftz and
+// defines NBODY_EMULATED_RSQRT.
 
 #include <cuda_runtime.h>
 
+#include "split_sum.cuh"
+
 namespace {
 
-constexpr int kBlock = 256;
+constexpr int kThreads = 128;
+constexpr int kPer = 4;      // targets a thread
+constexpr int kTile = 2048;  // source rows per shared tile
+
+#ifndef NBODY_EMULATED_RSQRT
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+#endif
 
 template <bool kPerBody>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kThreads)
 allpairs_kernel(const float* __restrict__ pos_i, const float* __restrict__ pos_j,
                 const float* __restrict__ gm_j, const float* __restrict__ eps2_i,
-                const float* __restrict__ eps2_j, float eps2, int m, int n,
+                const float* __restrict__ eps2_j, float eps2, int m, int n, int split,
                 float* __restrict__ out) {
-  __shared__ float4 src[kBlock];
-  __shared__ float src_e[kPerBody ? kBlock : 1];
+  // the source tile; after the last tile, the groups' partial sums
+  constexpr int kWords = kTile * 4 > kThreads * kPer * 3 ? kTile * 4 : kThreads * kPer * 3;
+  __shared__ __align__(16) float smem[kWords];
+  __shared__ float src_e[kPerBody ? kTile : 1];
+  float4* src = reinterpret_cast<float4*>(smem);
 
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = i < m;
-  float xi = 0.f, yi = 0.f, zi = 0.f, ei = eps2;
-  if (live) {
-    xi = pos_i[3 * (size_t)i + 0];
-    yi = pos_i[3 * (size_t)i + 1];
-    zi = pos_i[3 * (size_t)i + 2];
-    if (kPerBody) ei = 0.5f * eps2_i[i];
+  const int width = kThreads / split;  // threads of a group
+  const int s = threadIdx.x / width;   // this thread's group (source slice)
+  const int u = threadIdx.x % width;   // its place in the group
+  const int base = blockIdx.x * width * kPer;
+  float xi[kPer], yi[kPer], zi[kPer], ei[kPer], ax[kPer], ay[kPer], az[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = base + u + k * width;
+    xi[k] = yi[k] = zi[k] = 0.f;
+    ax[k] = ay[k] = az[k] = 0.f;
+    ei[k] = eps2;
+    if (i < m) {
+      xi[k] = pos_i[3 * (size_t)i + 0];
+      yi[k] = pos_i[3 * (size_t)i + 1];
+      zi[k] = pos_i[3 * (size_t)i + 2];
+      if (kPerBody) ei[k] = 0.5f * eps2_i[i];
+    }
   }
 
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  for (int t0 = 0; t0 < n; t0 += kBlock) {
-    const int j = t0 + threadIdx.x;
-    if (j < n) {
-      src[threadIdx.x] = make_float4(pos_j[3 * (size_t)j + 0], pos_j[3 * (size_t)j + 1],
-                                     pos_j[3 * (size_t)j + 2], gm_j[j]);
-      if (kPerBody) src_e[threadIdx.x] = 0.5f * eps2_j[j];
+  const int slice = kTile / split;
+  for (int t0 = 0; t0 < n; t0 += kTile) {
+    for (int r = threadIdx.x; r < kTile; r += kThreads) {
+      const int j = t0 + r;
+      if (j < n) {
+        src[r] = make_float4(pos_j[3 * (size_t)j + 0], pos_j[3 * (size_t)j + 1],
+                             pos_j[3 * (size_t)j + 2], gm_j[j]);
+        if (kPerBody) src_e[r] = 0.5f * eps2_j[j];
+      }
     }
     __syncthreads();
-    const int count = min(kBlock, n - t0);
+    const int lo = s * slice;
+    const int hi = min(lo + slice, n - t0);
 #pragma unroll 8
-    for (int k = 0; k < count; ++k) {
-      const float4 s = src[k];
-      const float dx = s.x - xi;
-      const float dy = s.y - yi;
-      const float dz = s.z - zi;
-      const float e = kPerBody ? ei + src_e[k] : ei;
-      const float r2 = dx * dx + dy * dy + dz * dz + e;
-      const float inv_r = rsqrtf(r2);
-      const float w = s.w * (inv_r * inv_r * inv_r);
-      ax += w * dx;
-      ay += w * dy;
-      az += w * dz;
+    for (int q = lo; q < hi; ++q) {
+      const float4 r = src[q];
+      const float ej = kPerBody ? src_e[q] : 0.f;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const float dx = r.x - xi[k];
+        const float dy = r.y - yi[k];
+        const float dz = r.z - zi[k];
+        const float e = kPerBody ? ei[k] + ej : ei[k];
+        const float r2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, e)));
+        const float inv_r = rsqrt_ftz(r2);
+        const float w = (r.w * inv_r) * (inv_r * inv_r);
+        ax[k] = fmaf(w, dx, ax[k]);
+        ay[k] = fmaf(w, dy, ay[k]);
+        az[k] = fmaf(w, dz, az[k]);
+      }
     }
     __syncthreads();
   }
-  if (live) {
-    out[3 * (size_t)i + 0] = ax;
-    out[3 * (size_t)i + 1] = ay;
-    out[3 * (size_t)i + 2] = az;
+
+  if (!meet_groups<kPer>(smem, split, width, s, u, ax, ay, az)) return;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = base + u + k * width;
+    if (i < m) {
+      out[3 * (size_t)i + 0] = ax[k];
+      out[3 * (size_t)i + 1] = ay[k];
+      out[3 * (size_t)i + 2] = az[k];
+    }
   }
 }
 
@@ -90,20 +146,24 @@ extern "C" {
 
 // Launch on `stream`.  pos_i (m,3), pos_j (n,3), gm_j (n,), out (m,3): f32,
 // contiguous, on the current device.  eps2_i (m,) and eps2_j (n,) are both
-// null (scalar softening eps2) or both set (per-body mode).  Returns the
-// cudaError_t of the launch.
+// null (scalar softening eps2) or both set (per-body mode).  `split` (1, 2,
+// 4 or 8) is the number of source slices a block sweeps for the same
+// targets.  Returns the cudaError_t of the launch.
 int nbody_allpairs_f32(const float* pos_i, const float* pos_j, const float* gm_j,
                        const float* eps2_i, const float* eps2_j, float eps2, int m,
-                       int n, float* out, void* stream) {
+                       int n, int split, float* out, void* stream) {
+  if (split != 1 && split != 2 && split != 4 && split != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (m <= 0) return cudaSuccess;
-  const dim3 grid((m + kBlock - 1) / kBlock);
+  const int per_block = kThreads / split * kPer;
+  const dim3 grid((m + per_block - 1) / per_block);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (eps2_i != nullptr) {
-    allpairs_kernel<true><<<grid, kBlock, 0, s>>>(pos_i, pos_j, gm_j, eps2_i, eps2_j,
-                                                   eps2, m, n, out);
+    allpairs_kernel<true><<<grid, kThreads, 0, s>>>(pos_i, pos_j, gm_j, eps2_i, eps2_j,
+                                                     eps2, m, n, split, out);
   } else {
-    allpairs_kernel<false><<<grid, kBlock, 0, s>>>(pos_i, pos_j, gm_j, nullptr,
-                                                    nullptr, eps2, m, n, out);
+    allpairs_kernel<false><<<grid, kThreads, 0, s>>>(pos_i, pos_j, gm_j, nullptr,
+                                                      nullptr, eps2, m, n, split, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

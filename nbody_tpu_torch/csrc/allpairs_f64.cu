@@ -30,11 +30,11 @@
 // targets and each sweeps its own slice of every tile, so the block covers
 // 1,024 / S targets and the grid has S times the blocks.  At the end the
 // groups' sums are added through shared memory in the fixed order s = 0,
-// 1, ..., S - 1: one launch, no global workspace, no atomics.  The wrapper
-// picks S from M and the SM count (ops/cuda_fp64.py::k4_split); S = 1 where
-// M fills the card.  Each target's sum order depends on S only, so reruns
-// are bit-identical.  The ragged edges are masked by the loop bounds, not
-// by padding.
+// 1, ..., S - 1 (split_sum.cuh): one launch, no global workspace, no
+// atomics.  The wrapper picks S from M and the SM count
+// (ops/cuda_fp64.py::k4_split); S = 1 where M fills the card.  Each
+// target's sum order depends on S only, so reruns are bit-identical.  The
+// ragged edges are masked by the loop bounds, not by padding.
 //
 // Two targets a thread (four blocks an SM), and CUDA's rsqrt(double) in
 // place of pair_f64.cuh's refinement, were each slower at 100k x 100k in a
@@ -44,6 +44,7 @@
 #include <cuda_runtime.h>
 
 #include "pair_f64.cuh"
+#include "split_sum.cuh"
 
 namespace {
 
@@ -102,31 +103,7 @@ allpairs_f64_kernel(const double* __restrict__ pos_i, const double* __restrict__
     __syncthreads();
   }
 
-  // the groups' sums, added in the order s = 0, 1, ..., S - 1
-  if (split > 1) {
-    double* part = smem;  // [group - 1][u][k][axis]
-    if (s > 0) {
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        double* p = part + (((size_t)(s - 1) * width + u) * kPer + k) * 3;
-        p[0] = ax[k];
-        p[1] = ay[k];
-        p[2] = az[k];
-      }
-    }
-    __syncthreads();
-    if (s > 0) return;
-#pragma unroll 1
-    for (int g = 1; g < split; ++g) {
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        const double* p = part + (((size_t)(g - 1) * width + u) * kPer + k) * 3;
-        ax[k] += p[0];
-        ay[k] += p[1];
-        az[k] += p[2];
-      }
-    }
-  }
+  if (!meet_groups<kPer>(smem, split, width, s, u, ax, ay, az)) return;
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const int i = base + u + k * width;

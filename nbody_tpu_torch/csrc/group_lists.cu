@@ -11,75 +11,66 @@
 //
 // over the rows [x y z G*m] of group g's list.  Pad slots repeat the group's
 // first body and are dropped by the caller; zero-G*m list entries add exact
-// zeros, and a body's own entry adds zero (zero displacement).
+// zeros, and a body's own entry adds zero (zero displacement).  Each group's
+// loop stops at its length: the padded tail past it holds only zero-G*m
+// rows, which add exact zeros, so the result is the full-M sum's.  Nothing
+// is atomic and every slot sums its list in an order fixed by the launch,
+// so reruns are bit-identical.  The (G, 4, M) planar list of the TPU kernel
+// is TPU layout; the port's traversals write (G, M, 4) rows directly.
+// Device-memory traffic is the list once per block of slots plus the
+// bodies: O(G (M + B)) for O(G B M) work, so both entries are bound by
+// their pair rate.
 //
-// What bounds it on the card: one rsqrt and about 20 operations per (slot,
-// entry) pair, as K1 (allpairs.cu), against 16 bytes (32 in fp64) of
-// shared memory per pair that the whole block shares.  Device-memory
-// traffic is the list once per block of slots plus the bodies: O(G (M + B))
-// for O(G B M) work, so it is compute-bound.
+// f32 (nbody_group_lists_f32): K1's first design, one block per (group,
+// chunk of up to 256 slots), one thread per slot, its body in registers;
+// the list streams through shared memory in tiles of 256 float4 rows.
 //
-// Design: K1's.  One block per (group, chunk of up to kBlock slots), one
-// thread per slot, its body in registers.  The list streams through shared
-// memory in tiles of kBlock rows, each thread loading one row (float4 in
-// f32, a 32-byte row in fp64).  Each group's loop stops at its length: the
-// padded tail past it holds only zero-G*m rows, which add exact zeros, so
-// the result is the full-M sum's.  Every slot sums its list in the same
-// order on every run and nothing is atomic, so reruns are bit-identical.
-// The (G, 4, M) planar list of the TPU kernel is TPU layout; the port's
-// traversals write (G, M, 4) rows directly.
-//
-// Left for later: a group's list is read once per block of 256 slots
-// (8 times at B = 2048); several groups per block, split-j for long lists
-// and TMA bulk copies of the tiles are untried.
+// fp64 (nbody_group_lists_f64): K4's design (allpairs_f64.cu) applied to
+// groups.  Bound by fp64 issue: the pair term of pair_f64.cuh is 16 fp64
+// instructions from the displacement to the sums.  A block of 128 threads
+// holds kPer = 4 slots a thread (four blocks an SM), and streams the list
+// through shared memory in tiles of kTile 32-byte rows, each staged row
+// feeding four independent chains.  Each block splits every tile over
+// `split` = S groups of 128 / S threads that hold the same slots; their
+// sums meet in shared memory in the fixed order s = 0 ... S - 1
+// (split_sum.cuh).  The wrapper picks S from G, B and the SM count
+// (ops/cuda_lists.py::k7_split): the groups' lists differ in length, so
+// many small blocks even out the last of them (S = 8 at 100k bodies, 120
+// groups of B = 1,792; S = 4 at 1M, 1,001 of B = 2,048).  The last chunk
+// of slots may be partial; threads past B stage rows but write nothing,
+// and pad slots are computed like any other, so they equal slot 0.  256
+// threads a block, tiles of 1,024 rows, two slots a thread and other
+// unrollings were within 2 % in a trial on the card (PERF.md).
 
 #include <cuda_runtime.h>
 
+#include "pair_f64.cuh"
+#include "split_sum.cuh"
+
 namespace {
 
-constexpr int kBlock = 256;
+constexpr int kBlock = 256;  // f32: threads a block, slots a block, rows a tile
 
-struct alignas(16) Row64 {
-  double x, y, z, w;
-};
-
-template <typename T>
-struct RowOf;
-template <>
-struct RowOf<float> {
-  using type = float4;
-};
-template <>
-struct RowOf<double> {
-  using type = Row64;
-};
-
-__device__ __forceinline__ float inv_sqrt(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double inv_sqrt(double x) { return rsqrt(x); }
-
-template <typename T>
 __global__ void __launch_bounds__(kBlock)
-group_lists_kernel(const T* __restrict__ pos_groups,
-                   const typename RowOf<T>::type* __restrict__ lists,
-                   const int* __restrict__ lengths, int b, int m, T eps2,
-                   T* __restrict__ out) {
-  using Row = typename RowOf<T>::type;
-  __shared__ Row tile[kBlock];
+group_lists_f32_kernel(const float* __restrict__ pos_groups,
+                       const float4* __restrict__ lists, const int* __restrict__ lengths,
+                       int b, int m, float eps2, float* __restrict__ out) {
+  __shared__ float4 tile[kBlock];
 
   const int g = blockIdx.x;
   const int i = blockIdx.y * kBlock + threadIdx.x;
   const bool live = i < b;
   const size_t slot = (size_t)g * b + i;
-  T xi = 0, yi = 0, zi = 0;
+  float xi = 0, yi = 0, zi = 0;
   if (live) {
     xi = pos_groups[3 * slot + 0];
     yi = pos_groups[3 * slot + 1];
     zi = pos_groups[3 * slot + 2];
   }
   const int len = min(max(lengths[g], 0), m);
-  const Row* src = lists + (size_t)g * m;
+  const float4* src = lists + (size_t)g * m;
 
-  T ax = 0, ay = 0, az = 0;
+  float ax = 0, ay = 0, az = 0;
   for (int t0 = 0; t0 < len; t0 += kBlock) {
     const int j = t0 + threadIdx.x;
     if (j < len) tile[threadIdx.x] = src[j];
@@ -87,13 +78,13 @@ group_lists_kernel(const T* __restrict__ pos_groups,
     const int count = min(kBlock, len - t0);
 #pragma unroll 4
     for (int k = 0; k < count; ++k) {
-      const Row s = tile[k];
-      const T dx = s.x - xi;
-      const T dy = s.y - yi;
-      const T dz = s.z - zi;
-      const T r2 = dx * dx + dy * dy + dz * dz + eps2;
-      const T inv_r = inv_sqrt(r2);
-      const T w = s.w * (inv_r * inv_r * inv_r);
+      const float4 s = tile[k];
+      const float dx = s.x - xi;
+      const float dy = s.y - yi;
+      const float dz = s.z - zi;
+      const float r2 = dx * dx + dy * dy + dz * dz + eps2;
+      const float inv_r = rsqrtf(r2);
+      const float w = s.w * (inv_r * inv_r * inv_r);
       ax += w * dx;
       ay += w * dy;
       az += w * dz;
@@ -107,15 +98,74 @@ group_lists_kernel(const T* __restrict__ pos_groups,
   }
 }
 
-template <typename T>
-int launch_group_lists(const T* pos_groups, const T* lists, const int* lengths, int g,
-                       int b, int m, T eps2, T* out, void* stream) {
-  if (g <= 0 || b <= 0) return cudaSuccess;
-  using Row = typename RowOf<T>::type;
-  const dim3 grid(g, (b + kBlock - 1) / kBlock);
-  group_lists_kernel<T><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      pos_groups, reinterpret_cast<const Row*>(lists), lengths, b, m, eps2, out);
-  return static_cast<int>(cudaGetLastError());
+constexpr int kThreads = 128;  // fp64: threads a block
+constexpr int kPer = 4;        // slots a thread
+constexpr int kTile = 512;     // list rows per shared tile
+
+struct alignas(16) Row64 {
+  double x, y, z, w;
+};
+
+__global__ void __launch_bounds__(kThreads, 4)
+group_lists_f64_kernel(const double* __restrict__ pos_groups,
+                       const Row64* __restrict__ lists, const int* __restrict__ lengths,
+                       int b, int m, double eps2, int split, double* __restrict__ out) {
+  // the list tile; after the last tile, the groups' partial sums
+  constexpr int kWords = kTile * 4 > kThreads * kPer * 3 ? kTile * 4 : kThreads * kPer * 3;
+  __shared__ __align__(16) double smem[kWords];
+  Row64* tile = reinterpret_cast<Row64*>(smem);
+
+  const int g = blockIdx.x;
+  const int width = kThreads / split;  // threads of a group
+  const int s = threadIdx.x / width;   // this thread's group (list slice)
+  const int u = threadIdx.x % width;   // its place in the group
+  const int base = blockIdx.y * width * kPer;
+  double xi[kPer], yi[kPer], zi[kPer], ax[kPer], ay[kPer], az[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = base + u + k * width;
+    xi[k] = yi[k] = zi[k] = 0.0;
+    ax[k] = ay[k] = az[k] = 0.0;
+    if (i < b) {
+      const size_t slot = (size_t)g * b + i;
+      xi[k] = pos_groups[3 * slot + 0];
+      yi[k] = pos_groups[3 * slot + 1];
+      zi[k] = pos_groups[3 * slot + 2];
+    }
+  }
+  const int len = min(max(lengths[g], 0), m);
+  const Row64* src = lists + (size_t)g * m;
+
+  const int slice = kTile / split;
+  for (int t0 = 0; t0 < len; t0 += kTile) {
+    for (int r = threadIdx.x; r < kTile; r += kThreads) {
+      const int j = t0 + r;
+      if (j < len) tile[r] = src[j];
+    }
+    __syncthreads();
+    const int lo = s * slice;
+    const int hi = min(lo + slice, len - t0);
+#pragma unroll 4
+    for (int q = lo; q < hi; ++q) {
+      const Row64 r = tile[q];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        accumulate_f64(r, xi[k], yi[k], zi[k], eps2, ax[k], ay[k], az[k]);
+    }
+    __syncthreads();
+  }
+
+  if (!meet_groups<kPer>(smem, split, width, s, u, ax, ay, az)) return;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = base + u + k * width;
+    if (i < b) {
+      const size_t slot = (size_t)g * b + i;
+      out[3 * slot + 0] = ax[k];
+      out[3 * slot + 1] = ay[k];
+      out[3 * slot + 2] = az[k];
+    }
+  }
 }
 
 }  // namespace
@@ -127,15 +177,27 @@ extern "C" {
 // current device.  Returns the cudaError_t of the launch.
 int nbody_group_lists_f32(const float* pos_groups, const float* lists, const int* lengths,
                           int g, int b, int m, float eps2, float* out, void* stream) {
-  return launch_group_lists<float>(pos_groups, lists, lengths, g, b, m, eps2, out, stream);
+  if (g <= 0 || b <= 0) return cudaSuccess;
+  const dim3 grid(g, (b + kBlock - 1) / kBlock);
+  group_lists_f32_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      pos_groups, reinterpret_cast<const float4*>(lists), lengths, b, m, eps2, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The same in fp64: pos_groups, lists (32-byte rows) and out are double.
+// `split` (1, 2, 4 or 8) is the number of list slices a block sweeps for
+// the same slots.
 int nbody_group_lists_f64(const double* pos_groups, const double* lists,
-                          const int* lengths, int g, int b, int m, double eps2,
+                          const int* lengths, int g, int b, int m, double eps2, int split,
                           double* out, void* stream) {
-  return launch_group_lists<double>(pos_groups, lists, lengths, g, b, m, eps2, out,
-                                    stream);
+  if (split != 1 && split != 2 && split != 4 && split != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (g <= 0 || b <= 0) return cudaSuccess;
+  const int per_block = kThreads / split * kPer;
+  const dim3 grid(g, (b + per_block - 1) / per_block);
+  group_lists_f64_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      pos_groups, reinterpret_cast<const Row64*>(lists), lengths, b, m, eps2, split, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

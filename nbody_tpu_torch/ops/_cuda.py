@@ -72,10 +72,11 @@ def find_nvcc() -> str:
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of the kernel library's entry points."""
-    for name in ("nbody_allpairs_f32", "nbody_allpairs_mma_f32"):
-        fn = getattr(lib, name)
-        fn.restype = _I
-        fn.argtypes = [_P, _P, _P, _P, _P, _F, _I, _I, _P, _P]
+    # K1 takes its number of source slices after n; K2 has none
+    lib.nbody_allpairs_f32.restype = _I
+    lib.nbody_allpairs_f32.argtypes = [_P, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P]
+    lib.nbody_allpairs_mma_f32.restype = _I
+    lib.nbody_allpairs_mma_f32.argtypes = [_P, _P, _P, _P, _P, _F, _I, _I, _P, _P]
     lib.nbody_potential_partials.restype = _I
     lib.nbody_potential_partials.argtypes = [_I]
     lib.nbody_potential_f32.restype = _I
@@ -100,10 +101,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
             _F, eps2, _I, _I, _I, _I, _P, _P, _P, *extra,
         ]
-    for name, eps2 in (("nbody_group_lists_f32", _F), ("nbody_group_lists_f64", _D)):
-        fn = getattr(lib, name)
-        fn.restype = _I
-        fn.argtypes = [_P, _P, _P, _I, _I, _I, eps2, _P, _P]
+    # the fp64 entry takes its number of list slices after eps2
+    lib.nbody_group_lists_f32.restype = _I
+    lib.nbody_group_lists_f32.argtypes = [_P, _P, _P, _I, _I, _I, _F, _P, _P]
+    lib.nbody_group_lists_f64.restype = _I
+    lib.nbody_group_lists_f64.argtypes = [_P, _P, _P, _I, _I, _I, _D, _I, _P, _P]
     lib.nbody_cuda_error_string.restype = ctypes.c_char_p
     lib.nbody_cuda_error_string.argtypes = [_I]
     return lib

@@ -108,9 +108,10 @@ def _check_rect(pos_i, pos_j, mass_j, eps2_i, eps2_all) -> torch.device:
 
 
 def _launch(entry: str, what: str, pos_i, pos_j, mass_j, G, softening_sq, eps2_i,
-            eps2_all) -> torch.Tensor:
+            eps2_all, *extra: int) -> torch.Tensor:
     """Launch the f32 all-pairs kernel `entry` of the library on checked
-    CUDA tensors; raise on a launch error."""
+    CUDA tensors, with `extra` int arguments after the sizes (K1's number
+    of source slices); raise on a launch error."""
     from nbody_tpu_torch.ops import _cuda
 
     device = pos_i.device
@@ -122,11 +123,33 @@ def _launch(entry: str, what: str, pos_i, pos_j, mass_j, G, softening_sq, eps2_i
             pos_i.data_ptr(), pos_j.data_ptr(), gm.data_ptr(),
             None if eps2_i is None else eps2_i.data_ptr(),
             None if eps2_all is None else eps2_all.data_ptr(),
-            float(softening_sq), pos_i.shape[0], pos_j.shape[0], out.data_ptr(),
-            _cuda.stream_handle(device),
+            float(softening_sq), pos_i.shape[0], pos_j.shape[0], *extra,
+            out.data_ptr(), _cuda.stream_handle(device),
         )
     kernels.check(err, what)
     return out
+
+
+def fewest_split(blocks, want: int) -> int:
+    """The fewest source slices a block (1, 2, 4 or 8) for which the grid,
+    `blocks(split)` blocks, reaches `want` blocks; 8 where none does."""
+    for split in (1, 2, 4):
+        if blocks(split) >= want:
+            return split
+    return 8
+
+
+# K1's blocks: 128 threads of 4 targets
+K1_THREADS, K1_PER_THREAD, K1_BLOCKS_PER_SM = 128, 4, 8
+
+
+def k1_split(m: int, sms: int) -> int:
+    """K1's source slices per block for m targets on a card of `sms` SMs:
+    the fewest that give every SM K1_BLOCKS_PER_SM blocks, so that no SM
+    idles while the last blocks run; 1 where m alone does (m > 540,160 on
+    132 SMs; PERF.md)."""
+    return fewest_split(lambda s: -(-m // (K1_THREADS // s * K1_PER_THREAD)),
+                        K1_BLOCKS_PER_SM * sms)
 
 
 def cuda_rect_accelerations_mxu(
@@ -167,18 +190,25 @@ def cuda_rect_accelerations(
     eps2_i: torch.Tensor | None = None,
     eps2_all: torch.Tensor | None = None,
     use_mxu: bool = False,
+    _split: int = 0,
 ) -> torch.Tensor:
     """f32 accelerations of pos_i (M, 3) targets against pos_j (N, 3) /
     mass_j (N,) sources through K1, or K2 with `use_mxu`.  `eps2_i` (M,) /
     `eps2_all` (N,) switch on symmetric-mean per-body softening and must be
-    given together."""
+    given together.  `_split` forces K1's number of source slices a block,
+    for the card tests and chip_smoke.py's sweep only (0, as every caller
+    of the port leaves it: ``k1_split``'s pick for this card)."""
     kw = dict(G=G, softening_sq=softening_sq, eps2_i=eps2_i, eps2_all=eps2_all)
     if use_mxu:
         return cuda_rect_accelerations_mxu(pos_i, pos_j, mass_j, **kw)
     device = _check_rect(pos_i, pos_j, mass_j, eps2_i, eps2_all)
     if device.type == "cpu":
         return rect_accelerations_reference(pos_i, pos_j, mass_j, **kw)
-    out = _launch("nbody_allpairs_f32", "allpairs kernel", pos_i, pos_j, mass_j, **kw)
+    from nbody_tpu_torch.ops import _cuda
+
+    split = _split or k1_split(pos_i.shape[0], _cuda.sm_count(device))
+    out = _launch("nbody_allpairs_f32", "allpairs kernel", pos_i, pos_j, mass_j, G,
+                  softening_sq, eps2_i, eps2_all, split)
     cuda_rect_accelerations.launches += 1
     return out
 

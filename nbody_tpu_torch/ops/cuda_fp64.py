@@ -27,6 +27,7 @@ from nbody_tpu_torch.core import constants
 from nbody_tpu_torch.diag.energy import potential_energy_reference
 from nbody_tpu_torch.ops.cuda_exhaustive import (
     check_tensor,
+    fewest_split,
     rect_accelerations_reference,
 )
 
@@ -84,11 +85,8 @@ def k4_split(m: int, sms: int) -> int:
     the fewest (1, 2, 4 or 8) that give every SM its K4_BLOCKS_PER_SM
     resident blocks, so the fp64 pipes have enough independent pairs in
     flight; 1 where m alone fills the card (m >= 270,336 on 132 SMs)."""
-    for split in (1, 2, 4):
-        per_block = K4_THREADS // split * K4_PER_THREAD
-        if -(-m // per_block) >= K4_BLOCKS_PER_SM * sms:
-            return split
-    return 8
+    return fewest_split(lambda s: -(-m // (K4_THREADS // s * K4_PER_THREAD)),
+                        K4_BLOCKS_PER_SM * sms)
 
 
 def cuda_accelerations_f64(

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from nbody_tpu_torch.ops.barneshut import eval_lists_reference
-from nbody_tpu_torch.ops.cuda_exhaustive import check_tensor
+from nbody_tpu_torch.ops.cuda_exhaustive import check_tensor, fewest_split
 
 
 def _check(pos_groups, lists, lengths, dtype: torch.dtype):
@@ -31,21 +31,38 @@ def _check(pos_groups, lists, lengths, dtype: torch.dtype):
         raise ValueError("eval_lists: B or M exceeds the kernel's C int")
 
 
-def launch(lib, pos_groups, lists, lengths, stream, *, eps2: float):
+# the fp64 entry's blocks: 128 threads of 4 slots, four resident an SM
+K7_THREADS, K7_PER_THREAD, K7_BLOCKS_PER_SM = 128, 4, 64
+
+
+def k7_split(g: int, b: int, sms: int) -> int:
+    """The fp64 entry's list slices per block for g groups of b slots on a
+    card of `sms` SMs: the fewest that give every SM K7_BLOCKS_PER_SM
+    blocks, 16 rounds of its four resident ones, so that the groups'
+    uneven list lengths even out (on 132 SMs: 8 at 100k bodies, 4 at 1M;
+    PERF.md)."""
+    return fewest_split(lambda s: g * -(-b // (K7_THREADS // s * K7_PER_THREAD)),
+                        K7_BLOCKS_PER_SM * sms)
+
+
+def launch(lib, pos_groups, lists, lengths, stream, *, eps2: float, split: int = 1):
     """Call K7's launcher in `lib` for pos_groups' dtype on checked
-    tensors; returns (cudaError_t, accelerations (G, B, 3)).  The tensors'
-    pointers go to the kernel as they are, so the CPU emulation of the
-    kernel source takes the same call."""
+    tensors; returns (cudaError_t, accelerations (G, B, 3)).  `split` is
+    the fp64 entry's number of list slices a block (the f32 entry has
+    none).  The tensors' pointers go to the kernel as they are, so the CPU
+    emulation of the kernel source takes the same call."""
     g, b, _ = pos_groups.shape
     out = torch.empty_like(pos_groups)
-    fn = (lib.nbody_group_lists_f64 if pos_groups.dtype == torch.float64
-          else lib.nbody_group_lists_f32)
-    err = fn(pos_groups.data_ptr(), lists.data_ptr(), lengths.data_ptr(), g, b,
-             lists.shape[1], float(eps2), out.data_ptr(), stream)
+    args = (pos_groups.data_ptr(), lists.data_ptr(), lengths.data_ptr(), g, b,
+            lists.shape[1], float(eps2))
+    if pos_groups.dtype == torch.float64:
+        err = lib.nbody_group_lists_f64(*args, split, out.data_ptr(), stream)
+    else:
+        err = lib.nbody_group_lists_f32(*args, out.data_ptr(), stream)
     return err, out
 
 
-def _kernel(pos_groups, lists, lengths, eps2: float) -> torch.Tensor:
+def _kernel(pos_groups, lists, lengths, eps2: float, split: int = 1) -> torch.Tensor:
     device = pos_groups.device
     if device.type != "cuda":
         raise ValueError(f"no interaction-list kernel for device {device}")
@@ -57,10 +74,10 @@ def _kernel(pos_groups, lists, lengths, eps2: float) -> torch.Tensor:
     kernels = _cuda.library()
     with torch.cuda.device(device):
         err, out = launch(kernels.lib, pos_groups, lists, lengths,
-                          _cuda.stream_handle(device), eps2=eps2)
+                          _cuda.stream_handle(device), eps2=eps2, split=split)
     kernels.check(err, f"group_lists kernel ({pos_groups.dtype}, groups "
                        f"{pos_groups.shape[0]}, B {pos_groups.shape[1]}, M "
-                       f"{lists.shape[1]})")
+                       f"{lists.shape[1]}, list slices {split})")
     return out
 
 
@@ -81,12 +98,19 @@ eval_lists.launches = 0
 
 
 def eval_lists_f64(pos_groups: torch.Tensor, lists: torch.Tensor, lengths: torch.Tensor,
-                   *, eps2: float) -> torch.Tensor:
-    """The same in native fp64, from f64 bodies and lists."""
+                   *, eps2: float, _split: int = 0) -> torch.Tensor:
+    """The same in native fp64, from f64 bodies and lists.  `_split` forces
+    the kernel's number of list slices a block, for the card tests and
+    chip_smoke.py's sweep only (0, as every caller of the port leaves it:
+    ``k7_split``'s pick for this card)."""
     _check(pos_groups, lists, lengths, torch.float64)
     if pos_groups.device.type == "cpu":
         return eval_lists_reference(pos_groups, lists, lengths, eps2=eps2)
-    out = _kernel(pos_groups, lists, lengths, eps2)
+    from nbody_tpu_torch.ops import _cuda
+
+    g, b, _ = pos_groups.shape
+    split = _split or k7_split(g, b, _cuda.sm_count(pos_groups.device))
+    out = _kernel(pos_groups, lists, lengths, eps2, split)
     eval_lists_f64.launches += 1
     return out
 

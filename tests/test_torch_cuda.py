@@ -17,11 +17,12 @@ from nbody_tpu_torch.diag.energy import (
     potential_energy_reference,
 )
 from nbody_tpu_torch.io.csv import read_trajectory
-from nbody_tpu_torch.ops import barneshut, bh_fused, bh_fused_df, cuda_lists
+from nbody_tpu_torch.ops import _cuda, barneshut, bh_fused, bh_fused_df, cuda_lists
 from nbody_tpu_torch.ops.cuda_exhaustive import (
     cuda_accelerations,
     cuda_rect_accelerations,
     cuda_rect_accelerations_mxu,
+    k1_split,
     rect_accelerations_mxu_reference,
     rect_accelerations_reference,
 )
@@ -76,6 +77,31 @@ def test_allpairs_kernel_per_body(dev):
     want = rect_accelerations_reference(pos, pos, mass, eps2_i=e, eps2_all=e)
     err = ((got - want).abs().max() / want.abs().max()).item()
     assert err < 5e-5, err
+
+
+@pytest.mark.parametrize("m,n", [(5000, 3001), (100_003, 4_099), (1, 1)])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("per_body", [False, True])
+def test_allpairs_kernel_split(dev, m, n, split, per_body):
+    """K1 at each forced number of source slices a block against its plain
+    version (the kernel's f32 bound, test_pallas.py:25), one launch counted,
+    bit-identical reruns; the card's own pick (``k1_split`` on its SM
+    count) gives the bits of that split forced."""
+    pos, mass = _cloud(max(m, n), dev, seed=m + split)
+    kw = {}
+    if per_body:
+        e = torch.as_tensor(np.random.default_rng(n).uniform(1e-4, 1e-2, max(m, n)),
+                            dtype=torch.float32, device=dev)
+        kw = dict(eps2_i=e[:m], eps2_all=e[:n])
+    args = (pos[:m], pos[:n], mass[:n])
+    before = cuda_rect_accelerations.launches
+    got = cuda_rect_accelerations(*args, G=0.7, _split=split, **kw)
+    torch.cuda.synchronize()
+    assert cuda_rect_accelerations.launches == before + 1
+    _assert_f32_close(got, rect_accelerations_reference(*args, G=0.7, **kw))
+    assert torch.equal(cuda_rect_accelerations(*args, G=0.7, _split=split, **kw), got)
+    if split == k1_split(m, _cuda.sm_count(dev)):
+        assert torch.equal(cuda_rect_accelerations(*args, G=0.7, **kw), got)
 
 
 def test_potential_kernel_matches_twin_and_fp64(dev):
@@ -333,6 +359,32 @@ def test_group_lists_kernel_matches_plain(dev, dtype):
     else:
         assert _rel(got, want) <= 1e-12
     assert torch.equal(wrapper(gl.pg, gl.lists, gl.lengths, eps2=0.01), got)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_group_lists_f64_kernel_split(dev, split):
+    """K7's fp64 entry at each forced number of list slices a block, on the
+    flat traversal's lists at 20k bodies with B = 1,000 (a partial last
+    chunk of slots at every split): 1e-12 of the force scale of its plain
+    version, pad slots equal to slot 0, bit-identical reruns; the card's
+    own pick (``k7_split`` on its SM count) gives the bits of that split
+    forced."""
+    pos, mass = _cloud(20_000, dev, seed=13)
+    gl = barneshut.group_lists(pos.double(), mass.double(), group_size=1000)
+    g, b, _ = gl.pg.shape
+    wrapper = cuda_lists.eval_lists_f64
+    before = wrapper.launches
+    got = wrapper(gl.pg, gl.lists, gl.lengths, eps2=0.01, _split=split)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = barneshut.eval_lists_reference(gl.pg, gl.lists, gl.lengths, eps2=0.01)
+    assert _rel(got, want) <= 1e-12
+    pad = ~gl.group_valid
+    assert bool(pad.any())
+    assert torch.equal(got[pad], got[:, :1].expand(g, b, 3)[pad])
+    assert torch.equal(wrapper(gl.pg, gl.lists, gl.lengths, eps2=0.01, _split=split), got)
+    if split == cuda_lists.k7_split(g, b, _cuda.sm_count(dev)):
+        assert torch.equal(wrapper(gl.pg, gl.lists, gl.lengths, eps2=0.01), got)
 
 
 def test_group_lists_kernel_refuses_f64_in_the_f32_entry(dev):

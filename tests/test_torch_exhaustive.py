@@ -184,6 +184,16 @@ def test_kernel_twin_matches_pallas_interpret():
     assert cuda_rect_accelerations.launches == before  # no kernel on the CPU
 
 
+def test_pair_kernels_profiler_needs_a_card(monkeypatch, capsys):
+    """The K1 and K7 timer times the card and nothing else: with no card
+    it exits 1 and says why."""
+    from nbody_tpu_torch.diag import pair_kernels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pair_kernels.main(["--splits"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("case", [
     "f64", "bad_shape", "mass_len", "non_contiguous", "one_sided_eps",
     "eps_len", "mixed_device",

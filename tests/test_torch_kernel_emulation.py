@@ -22,9 +22,11 @@ from conftest import random_cloud
 from nbody_tpu_torch.diag.energy import potential_energy_reference
 from nbody_tpu_torch.ops import _cuda, barneshut, bh_fused, bh_fused_df, cuda_lists
 from nbody_tpu_torch.ops.cuda_exhaustive import (
+    k1_split,
     rect_accelerations_mxu_reference,
     rect_accelerations_reference,
 )
+from nbody_tpu_torch.ops.cuda_fp64 import k4_split
 from nbody_tpu_torch.ops.exhaustive import rect_accelerations
 
 
@@ -188,6 +190,8 @@ inline double rsqrt_seed(double r2) {
   std::memcpy(&seed, &bits, sizeof seed);
   return seed;
 }
+// Twin of allpairs.cu's rsqrt.approx.ftz.f32 (MUFU.RSQ).
+inline float rsqrt_ftz(float x) { return 1.0f / std::sqrt(x); }
 
 // Twins of bh_fused.cu's near-row ring: the copy is synchronous, and the
 // wait, which every thread of the block calls, is a block barrier that
@@ -371,14 +375,14 @@ def _f64(a):
     return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64)
 
 
-def _emu_allpairs(lib, pos_i, pos_j, mass_j, eps2, eps2_i=None, eps2_j=None):
+def _emu_allpairs(lib, pos_i, pos_j, mass_j, eps2, eps2_i=None, eps2_j=None, split=1):
     gm = mass_j * 1.0  # G = 1 folded in, as the wrapper does
     out = torch.full((pos_i.shape[0], 3), float("nan"))
     err = lib.nbody_allpairs_f32(
         pos_i.data_ptr(), pos_j.data_ptr(), gm.data_ptr(),
         None if eps2_i is None else eps2_i.data_ptr(),
         None if eps2_j is None else eps2_j.data_ptr(),
-        eps2, pos_i.shape[0], pos_j.shape[0], out.data_ptr(), None,
+        eps2, pos_i.shape[0], pos_j.shape[0], split, out.data_ptr(), None,
     )
     assert err == 0
     return out
@@ -401,6 +405,32 @@ def test_allpairs_kernel_source(emu, m, n, per_body):
     scale = want.abs().max().item()
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale,
                                rtol=2e-4)
+
+
+@pytest.mark.parametrize("m,n,split", [(1100, 2500, 1), (137, 300, 4), (700, 4100, 2),
+                                       (1100, 9, 8)])
+@pytest.mark.parametrize("per_body", [False, True])
+def test_allpairs_kernel_source_split(emu, m, n, split, per_body):
+    """K1 with the source range of each block split over 1-8 thread
+    groups, on m above one block's 512 / split targets (four a thread) and
+    ragged m and n (not multiples of a block's targets or of the 2,048-row
+    tile, one to three tiles), in scalar and per-body mode: within the
+    kernel's f32 bound of its plain version (test_pallas.py:25), reruns
+    bit-identical."""
+    arr = random_cloud(max(m, n), seed=2 * m + n)
+    pos_j, mass_j = _f32(arr[:n, :3]), _f32(arr[:n, 6])
+    pos_i = _f32(arr[:m, :3])
+    kw = {}
+    if per_body:
+        e = np.random.default_rng(n).uniform(1e-4, 1e-2, max(m, n))
+        kw = dict(eps2_i=_f32(e[:m]), eps2_all=_f32(e[:n]))
+    got, again = (_emu_allpairs(emu, pos_i, pos_j, mass_j, 0.01, kw.get("eps2_i"),
+                                kw.get("eps2_all"), split) for _ in range(2))
+    want = rect_accelerations_reference(pos_i, pos_j, mass_j, **kw)
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale,
+                               rtol=2e-4)
+    assert torch.equal(got, again)
 
 
 def _emu_allpairs_mma(lib, pos_i, pos_j, mass_j, eps2, eps2_i=None, eps2_j=None):
@@ -439,6 +469,20 @@ def test_allpairs_mma_kernel_source(emu, m, n, per_body):
     scale = want.abs().max().item()
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale,
                                rtol=2e-4)
+
+
+@pytest.mark.parametrize("pick,args,split", [
+    (k1_split, (100_000, 132), 8), (k1_split, (1_000_000, 132), 1),
+    (k1_split, (1, 132), 8), (k4_split, (100_000, 132), 4),
+    (k4_split, (1_000_000, 132), 1), (k4_split, (1, 132), 8),
+    (cuda_lists.k7_split, (120, 1792, 132), 8), (cuda_lists.k7_split, (1001, 2048, 132), 4),
+    (cuda_lists.k7_split, (1, 64, 132), 8)])
+def test_split_picks(pick, args, split):
+    """The source (list) slices a block that K1, K4 and K7's fp64 entry
+    take on a 132-SM card: at the 100k main path (K7: its 120 groups of B
+    = 1,792), at 1M (K1 and K4: the robust path's 1M-target rectangle; K7:
+    1,001 groups of B = 2,048) and at a single target or group."""
+    assert pick(*args) == split
 
 
 def test_allpairs_kernel_source_empty(emu):
@@ -720,13 +764,13 @@ def _lists_case(dtype):
             torch.as_tensor(lengths))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_group_lists_kernel_source(emu, dtype):
-    """K7 against its plain version (which runs the full M): f32 within
-    K1's bound, fp64 within 1e-12 of the force scale; a zero-length group
-    gets zero; reruns are bit-identical."""
+def _check_lists_case(lib, dtype, split=1):
+    """K7 on _lists_case against its plain version (which runs the full M):
+    f32 within K1's bound, fp64 within 1e-12 of the force scale; a
+    zero-length group gets zero, pad slots equal slot 0; reruns are
+    bit-identical."""
     pg, lists, lengths = _lists_case(dtype)
-    err, got = cuda_lists.launch(emu, pg, lists, lengths, None, eps2=0.01)
+    err, got = cuda_lists.launch(lib, pg, lists, lengths, None, eps2=0.01, split=split)
     assert err == 0 and got.dtype == dtype
     want = barneshut.eval_lists_reference(pg, lists, lengths, eps2=0.01)
     assert torch.equal(got[1], torch.zeros_like(got[1]))
@@ -737,18 +781,41 @@ def test_group_lists_kernel_source(emu, dtype):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale, rtol=2e-4)
     else:
         assert (got - want).abs().max().item() <= 1e-12 * scale
-    _, again = cuda_lists.launch(emu, pg, lists, lengths, None, eps2=0.01)
+    _, again = cuda_lists.launch(lib, pg, lists, lengths, None, eps2=0.01, split=split)
     assert torch.equal(again, got)
 
 
-def test_group_lists_kernel_source_in_the_pipeline(emu):
-    """The flat traversal's own lists through K7's source: the whole
-    list-based path within K1's bound of the plain path."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_group_lists_kernel_source(emu, dtype):
+    """K7 against its plain version (which runs the full M): f32 within
+    K1's bound, fp64 within 1e-12 of the force scale; a zero-length group
+    gets zero; reruns are bit-identical."""
+    _check_lists_case(emu, dtype)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_group_lists_f64_kernel_source_split(emu, split):
+    """K7's fp64 entry with each block's list tiles split over 1-8 thread
+    groups: B = 300 slots is a partial last chunk of slots at every split
+    (512 / split a block, four a thread), the lengths 517, 0, 300 and 600
+    are empty, ragged against the 512-row tile and full, and group 2 holds
+    pad slots; within 1e-12 of the force scale, pad slots equal slot 0,
+    reruns bit-identical."""
+    _check_lists_case(emu, torch.float64, split)
+
+
+def _pipeline(lib, dtype):
+    """(through K7's source, through the plain version) of the list-based
+    path on 600 bodies: the flat traversal's own lists, the fp64 entry at
+    the split it takes on a 132-SM card."""
     arr = random_cloud(600, seed=8)
-    pos, mass = _f32(arr[:, :3]), _f32(arr[:, 6])
+    pos = torch.as_tensor(arr[:, :3], dtype=dtype)
+    mass = torch.as_tensor(arr[:, 6], dtype=dtype)
 
     def emulated(pg, lists, lengths, *, eps2):
-        err, out = cuda_lists.launch(emu, pg, lists, lengths, None, eps2=eps2)
+        split = cuda_lists.k7_split(pg.shape[0], pg.shape[1], 132)
+        err, out = cuda_lists.launch(lib, pg, lists, lengths, None, eps2=eps2,
+                                     split=split)
         assert err == 0
         return out
 
@@ -756,5 +823,20 @@ def test_group_lists_kernel_source_in_the_pipeline(emu):
     got = barneshut.barneshut_accelerations(pos, mass, group_forces=emulated, **kw)
     want = barneshut.barneshut_accelerations(
         pos, mass, group_forces=barneshut.eval_lists_reference, **kw)
+    return got, want
+
+
+def test_group_lists_kernel_source_in_the_pipeline(emu):
+    """The flat traversal's own lists through K7's source: the whole
+    list-based path within K1's bound of the plain path."""
+    got, want = _pipeline(emu, torch.float32)
     scale = want.abs().max().item()
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale, rtol=2e-4)
+
+
+def test_group_lists_kernel_source_in_the_pipeline_f64(emu):
+    """The same in fp64 through the fp64 entry: within 1e-12 of the force
+    scale of the plain path."""
+    got, want = _pipeline(emu, torch.float64)
+    assert got.dtype == torch.float64
+    assert (got - want).abs().max().item() <= 1e-12 * want.abs().max().item()
