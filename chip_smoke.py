@@ -19,7 +19,9 @@ prints no result):
 2. all-pairs kernel against its plain PyTorch twin at the main path's
    shape (100k x 100k), at n=4096, at an unaligned 100,003 x 4,099, in
    per-body mode, and the CLI on the 10-body reference golden file;
-3. potential-energy kernel against its twin and the plain fp64 PE at 100k;
+3. potential-energy kernel against its twin and the plain fp64 PE at 100k
+   and at a ragged 5,003 with coincident pairs in one tile and across row
+   blocks and tiles, bit-identical reruns;
 4. the main path: ``nbody_tpu_torch.cli.main.main`` in-process, with the
    kernel launch counters reset just before and read just after;
 5. the same run with ``--backend torch`` (plain PyTorch on the card):
@@ -29,7 +31,10 @@ prints no result):
    K1 at every number of source slices a block on the main path's 100k x
    100k and on the 100,003 x 4,099 and 1M x 1,953 rectangles, each held
    against its plain version with bit-identical reruns, beside its time
-   before the redesign, its bound and its fp32 issue floor;
+   before the redesign, its bound and its fp32 issue floor; K3 at 100k and
+   at 1M beside its time before the redesign, its bound on the unordered
+   pairs, its fp32 issue and MUFU floors and its plain version's time, and
+   at 1M against its twin and the plain fp64 PE (which [18] also takes);
 7. the fused Barnes-Hut kernel (K6) against its plain twin on the same
    tables and groups, at 100k and at the main path's 1M: K1's bound, equal
    stats, bit-identical reruns;
@@ -46,7 +51,8 @@ prints no result):
     at 100,003 x 4,099 and at 1M x 1,953 (one source slice a block), and
     against the fp64 formula on a subset of targets, bit-identical reruns;
 13. the fp64 potential-energy kernel (K5) against its plain version at
-    100k, bit-identical reruns;
+    100k and at a ragged 5,003 with coincident pairs in one tile and across
+    row blocks and tiles, bit-identical reruns;
 14. K6's df mode against its plain version on the same f64 tables and
     groups, at 100k, 1M and on the robust input at ld 8: equal stats,
     bit-identical reruns; the base pieces in slot order and heaviest
@@ -60,7 +66,9 @@ prints no result):
     forces against K4's exact ones; s/step beside the f32 run's;
 17. the fp64 sun-earth run (SI units, 8640 steps) through K4: drift;
 18. fp64 kernel times beside the plain versions, the times before the
-    redesign and the bounds (K6 df on the robust input too), the SM clock
+    redesign and the bounds (K6 df on the robust input too; K5 at 100k and
+    1M with its fp64 issue floor, and at 1M against the plain fp64 PE of
+    [6]), the SM clock
     and power draw under K4, K4 at every number of source slices, K6 df's
     unpriced full kernel over the base pieces in slot order, and f64
     s/step at 100k;
@@ -157,18 +165,25 @@ FP64_PEAK = 34e12  # FLOP/s outside the tensor cores
 CLOCK_HZ = 1.98e9  # SM clock of the issue floors: measured under K1 and K4 (PERF.md)
 # operations per pair, rsqrt counted as one: the force (3 sub; 3 mul + 3 add
 # for |d|^2 + eps2; rsqrt; 2 mul for r^-3; 1 mul by G·m; 3 multiply-adds),
-# and the potential energy (3 sub; 3 mul + 2 add; rsqrt; 2 mul; 1 add)
-FORCE_OPS, PE_OPS = 19, 12
+# and the potential energy (3 sub; 3 mul + 2 add for r^2; rsqrt; 1 mul + 1
+# add for the row's sum of m_j r^-1, m_i being a factor of the row, not of
+# the pair), the latter over the n(n - 1) / 2 unordered pairs, the least
+# work for the sum
+FORCE_OPS, PE_OPS = 19, 11
+MUFU_LANES = 16  # MUFU.RSQ results an SM a clock (NVIDIA throughput table, cc 9.0)
 # Kernel times before their redesign, on an NVIDIA H100 80GB HBM3 at 700 W
 # (PERF.md): K4's and K6 df's (four targets a thread, pieces of groups) from
 # this script and diag/fp64_kernels.py (the rectangles, and K6 df on the
 # robust input in slot order) on the tree before it; K1's and K7 fp64's
 # (targets or slots a thread, split sources) from this script (100k, 1M)
-# and diag/pair_kernels.py (the rectangles) on the tree before theirs
+# and diag/pair_kernels.py (the rectangles) on the tree before theirs; K3's
+# and K5's (the upper triangle) from this script (100k) and
+# diag/pe_kernels.py (1M) on the tree before theirs
 BEFORE_MS = {"K4 100k": 15.956, "K4 100003x4099": 0.6608, "K4 1000000x1953": 2.7433,
              "K6 df 100k": 2.3316, "K6 df 1M uniform": 16.1761, "K6 df robust ld 8": 129.2723,
              "K1 100000x100000": 7.0583, "K1 100003x4099": 0.2971, "K1 1000000x1953": 1.2197,
-             "K7 fp64 1M": 15.5646}
+             "K7 fp64 1M": 15.5646, "K3 100k": 6.8840, "K3 1M": 629.4761,
+             "K5 100k": 14.9199, "K5 1M": 1292.5297}
 
 
 def check(ok: bool, what: str) -> None:
@@ -298,6 +313,43 @@ def issue_floor_ms(per_pair: float, pairs: float, lanes: int, sms: int) -> float
     """The least time to issue `per_pair` instructions for each of `pairs`
     pairs on `lanes` lanes of each of `sms` SMs at CLOCK_HZ."""
     return per_pair * pairs / (lanes * sms * CLOCK_HZ) * 1e3
+
+
+def pe_bound(n: int, real: int, peak: float) -> tuple[float, str]:
+    """K3's or K5's bound for n bodies of `real`-byte floats: positions and
+    masses read once, the fp64 sum written once, PE_OPS a pair over the
+    unordered pairs."""
+    return bound((n * 4 + 2) * real, n * (n - 1) / 2 * PE_OPS, peak)
+
+
+def pe_report(name: str, n: int, ms: float, plain: str, floor: str, real: int,
+              peak: float, card: str) -> None:
+    """Print one PE kernel's time at n bodies beside its time before the
+    redesign, its bound and floors, and its plain version's time."""
+    before = BEFORE_MS[f"{name} {'1M' if n == BH_N else '100k'}"]
+    kb = pe_bound(n, real, peak)
+    print(f"  {name} {n}: kernel {ms:.4f} ms ({n * (n - 1) / 2 / ms / 1e-3:.4e} unordered "
+          f"pairs/s; before the redesign {before} ms, {ms / before:.3f}x); bound "
+          f"{kb[0]:.4f} ms ({kb[1]}, {ms / kb[0]:.2f}x it); {floor}; plain {plain} [{card}]")
+
+
+def pe_check(fn, plains: dict, pos, mass, bound_rel: float, what: str) -> None:
+    """K3 or K5 (`fn`) against its plain versions (`plains`, {name: fn}) on
+    a ragged n with coincident pairs in one tile (0, 1) and across row
+    blocks and tiles (7, n - 103): within `bound_rel`, finite, reruns
+    bit-identical."""
+    pos = pos.clone()
+    pos[1], pos[-103] = pos[0], pos[7]
+    got = fn(pos, mass).item()
+    print(f"  {what}, n={pos.shape[0]}, coincident pairs (0, 1) and (7, "
+          f"{pos.shape[0] - 103}): kernel {got!r}")
+    for name, plain in plains.items():
+        want = plain(pos, mass).item()
+        rel = abs(got - want) / abs(want)
+        print(f"    {name} {want!r}, rel {rel:.3e} (bound {bound_rel:g})")
+        check(np.isfinite(got) and rel <= bound_rel, f"{what} against the {name}")
+    check(fn(pos, mass).item() == got, f"{what}: reruns are bit-identical")
+    print("    two kernel runs bit-identical: True")
 
 
 def build_phase(torch) -> tuple[str, str, dict]:
@@ -733,10 +785,11 @@ def fp64_forces(targets, pos, mass, G: float = 1.0, eps2: float = 0.01) -> np.nd
     return ((G * mass[None, :] * r2 ** -1.5)[..., None] * d).sum(1)
 
 
-def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
-                drift_bh32: float) -> list[dict]:
-    """Phases [12]-[18]: the fp64 kernels and the --dtype f64 paths.
-    Returns the fp64 kernels' entries of the JSON line."""
+def fp64_phases(torch, dev, card: str, sass: dict, arr, arr1m, csv1m: str, tmp: str,
+                drift_bh32: float, pe64_1m: tuple[float, float]) -> list[dict]:
+    """Phases [12]-[18]: the fp64 kernels and the --dtype f64 paths;
+    `pe64_1m` is [6]'s plain fp64 PE of the 1M cloud and its ms.  Returns
+    the fp64 kernels' entries of the JSON line."""
     from nbody_tpu_torch.cli.main import build_force_fn
     from nbody_tpu_torch.core.types import Bodies, SimConfig
     from nbody_tpu_torch.diag.energy import (
@@ -815,6 +868,9 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
     check(cuda_potential_energy_f64(b64.pos, b64.mass).item() == pe,
           "K5 reruns are bit-identical")
     print("  two kernel runs bit-identical: True")
+    c = torch.as_tensor(random_cloud(5_003, seed=5), dtype=f64, device=dev)
+    pe_check(cuda_potential_energy_f64, {"plain version": potential_energy_reference},
+             c[:, :3].contiguous(), c[:, 6].contiguous(), F64_PE_BOUND, "K5")
 
     # 14. K6's df mode against its plain version, at 100k, 1M and on the
     # robust input; its base pieces heaviest first and in slot order
@@ -979,7 +1035,8 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
                   for mn, r in rects.items()}
     k5_ms = cuda_ms(torch, lambda: cuda_potential_energy_f64(b64.pos, b64.mass), 10)
     k5_plain_ms = cuda_ms(torch, lambda: potential_energy_reference(b64.pos, b64.mass), 2)
-    k5_1m_ms = cuda_ms(torch, lambda: cuda_potential_energy_f64(b1m64.pos, b1m64.mass), 1)
+    k5_1m = cuda_potential_energy_f64(b1m64.pos, b1m64.mass).item()
+    k5_1m_ms = cuda_ms(torch, lambda: cuda_potential_energy_f64(b1m64.pos, b1m64.mass), 3)
     k6df_ms = {label: cuda_ms(torch, lambda: bh_fused_df.fused_group_forces_df(*a_, **kw_),
                               3 if label.startswith("robust") else 10)
                for label, (a_, kw_, _, _, _) in df.items()}
@@ -997,8 +1054,21 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
         kb = bound((m_ * 3 + n_ * 4 + m_ * 3) * real, float(m_) * n_ * FORCE_OPS, FP64_PEAK)
         print(f"  K4 {m_}x{n_}: kernel {ms:.4f} ms (before {BEFORE_MS[f'K4 {m_}x{n_}']} ms), "
               f"bound {kb[0]:.4f} ms ({kb[1]}) [{card}]")
-    print(f"  K5 {n}x{n}: kernel {k5_ms:.4f} ms ({pairs / k5_ms / 1e-3:.4e} pairs/s), "
-          f"plain {k5_plain_ms:.4f} ms; at {BH_N}: {k5_1m_ms:.4f} ms (one run) [{card}]")
+    rel = abs(k5_1m - pe64_1m[0]) / abs(pe64_1m[0])
+    print(f"  K5 {BH_N}: kernel {k5_1m!r}, plain {pe64_1m[0]!r} ([6]), rel {rel:.3e} "
+          f"(bound {F64_PE_BOUND:g})")
+    check(rel <= F64_PE_BOUND, f"K5 at {BH_N} against its plain version")
+    # K5 beside its time before the redesign, its bound on the unordered
+    # pairs, its fp64 issue floor (SASS fp64 instructions a MUFU.RSQ64H, [1])
+    # and its plain version's time
+    k5_sass = sass_of(sass, "PeF64")
+    for nn, ms, plain in ((n, k5_ms, f"{k5_plain_ms:.4f} ms"),
+                          (BH_N, k5_1m_ms, f"{pe64_1m[1]:.1f} ms (one run, [6])")):
+        floor = ("fp64 issue floor not measured" if k5_sass is None else
+                 f"fp64 issue floor {issue_floor_ms(fp64_per_seed(k5_sass), nn * (nn - 1) / 2, 64, sms):.4f}"
+                 f" ms ({fp64_per_seed(k5_sass):.2f} fp64 instructions a pair, {sms} SMs at "
+                 f"{CLOCK_HZ / 1e6:.0f} MHz)")
+        pe_report("K5", nn, ms, plain, floor, 8, FP64_PEAK, card)
     for label, (a_, kw_, _, st_, plain_) in df.items():
         kb = bound(*fused_work(a_, st_, real), FP64_PEAK)
         before = BEFORE_MS["K6 df " + label]
@@ -1024,7 +1094,7 @@ def fp64_phases(torch, dev, card: str, arr, arr1m, csv1m: str, tmp: str,
 
     small = (2 * n * 3 + n + n * 3) * real  # pos_i, pos_j, mass, out
     k4_bound = bound(small, pairs * FORCE_OPS, FP64_PEAK)
-    k5_bound = bound((n * 4 + 2) * real, pairs * PE_OPS, FP64_PEAK)
+    k5_bound = pe_bound(n, real, FP64_PEAK)
     entries = [
         {"name": "allpairs_f64", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/allpairs_f64.cu",
@@ -1599,6 +1669,12 @@ def main() -> int:
         check(k3_err <= 1e-4 * abs(pe_twin), "PE vs twin")
         check(cuda_potential_energy(b.pos, b.mass).item() == pe_k,
               "PE kernel is bit-reproducible")
+        c = torch.as_tensor(random_cloud(5_003, seed=5), dtype=torch.float32, device=dev)
+        pe_check(cuda_potential_energy,
+                 {"f32 twin": potential_energy_reference,
+                  "plain fp64 PE": lambda p, m: potential_energy_reference(p.double(),
+                                                                           m.double())},
+                 c[:, :3].contiguous(), c[:, 6].contiguous(), 1e-4, "K3")
 
         # 4. the main path
         print("[4] main path: 100k bodies x 10 KDK steps, f32, --energy")
@@ -1689,10 +1765,36 @@ def main() -> int:
                   + " / ".join(f"{split_ms[k]:.4f}" for k in (1, 2, 4, 8))
                   + f" ms; bound {kb[0]:.4f} ms ({kb[1]}); fp32 issue floor {floor} "
                   f"({sms} SMs x 128 lanes at {CLOCK_HZ / 1e6:.0f} MHz) [{card}]")
-        del c, k1_shapes, want_r, got_r
-        print(f"  potential {n}x{n}: kernel {k3_ms:.4f} ms "
-              f"({pairs / k3_ms / 1e-3:.4e} pairs/s), plain {k3_plain_ms:.4f} ms "
-              f"[{card}]")
+        # K3 at 100k and 1M beside its time before the redesign, its bound on
+        # the unordered pairs, its fp32 issue floor (SASS fp32 instructions a
+        # MUFU.RSQ, [1]) and MUFU floor, and its plain version's time; at 1M
+        # against its twin and the plain fp64 PE of the cloud (one run each;
+        # [18] holds K5 against the latter, on the same fp64 bodies)
+        p1m, m1m = c[:, :3].contiguous(), c[:, 6].contiguous()
+        k3_1m = cuda_potential_energy(p1m, m1m).item()
+        twin_1m, twin_1m_ms = timed_once(
+            torch, lambda: potential_energy_reference(p1m, m1m, chunk=128).item())
+        c64 = torch.as_tensor(arr1m, dtype=torch.float64, device=dev)
+        pe64_1m = timed_once(torch, lambda: potential_energy_reference(
+            c64[:, :3].contiguous(), c64[:, 6].contiguous(), chunk=128).item())
+        del c64
+        for label, want in (("f32 twin", twin_1m), ("plain fp64 PE", pe64_1m[0])):
+            rel = abs(k3_1m - want) / abs(want)
+            print(f"  K3 {BH_N}: kernel {k3_1m!r}, {label} {want!r}, rel {rel:.3e} "
+                  "(bound 1e-4)")
+            check(rel <= 1e-4, f"K3 at {BH_N} against the {label}")
+        k3_1m_ms = cuda_ms(torch, lambda: cuda_potential_energy(p1m, m1m), 3)
+        k3_sass = sass_of(sass, "PeF32")
+        for nn, ms, plain in ((n, k3_ms, f"{k3_plain_ms:.4f} ms"),
+                              (BH_N, k3_1m_ms, f"{twin_1m_ms:.1f} ms (one run)")):
+            pairs_u = nn * (nn - 1) / 2
+            floor = ("fp32 issue floor not measured" if k3_sass is None else
+                     f"fp32 issue floor {issue_floor_ms(fp32_per_rsq(k3_sass), pairs_u, 128, sms):.4f}"
+                     f" ms ({fp32_per_rsq(k3_sass):.2f} fp32 instructions a pair)")
+            floor += (f", MUFU floor {issue_floor_ms(1, pairs_u, MUFU_LANES, sms):.4f} ms "
+                      f"({sms} SMs at {CLOCK_HZ / 1e6:.0f} MHz)")
+            pe_report("K3", nn, ms, plain, floor, 4, FP32_PEAK, card)
+        del c, k1_shapes, want_r, got_r, p1m, m1m
         main_pairs = (STEPS + 1) * pairs
         for label, text, wall in (("cuda", text_k, wall_k), ("torch", text_t, wall_t)):
             print(f"  main path --backend {label}: simulate "
@@ -1845,7 +1947,8 @@ def main() -> int:
                   f"({BH_STEPS + 1} evaluations) -> {sim / BH_STEPS:.4f} s/step "
                   f"[{card}]")
 
-        fp64_kernels = fp64_phases(torch, dev, card, arr, arr1m, csv1m, tmp, drift_bh)
+        fp64_kernels = fp64_phases(torch, dev, card, sass, arr, arr1m, csv1m, tmp, drift_bh,
+                                   pe64_1m)
         list_kernels = list_phases(torch, dev, card, sass, arr, arr1m, csv1m, tmp, exact,
                                    frames_ex, drift_ex, drift_bh)
         del exact
@@ -1855,7 +1958,7 @@ def main() -> int:
 
     small = (2 * n * 3 + n + n * 3) * 4  # pos_i, pos_j, mass, out (f32)
     k1_bound = bound(small, pairs * FORCE_OPS, FP32_PEAK)
-    k3_bound = bound((n * 4 + 2) * 4, pairs * PE_OPS, FP32_PEAK)
+    k3_bound = pe_bound(n, 4, FP32_PEAK)
     print(json.dumps({"kernels": [
         {"name": "allpairs_f32", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/allpairs.cu",

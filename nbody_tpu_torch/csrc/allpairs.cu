@@ -42,11 +42,11 @@
 // default); a zero softening gives inf and NaN for a coincident pair
 // either way.
 //
-// The CPU emulation of the kernel sources brings its own rsqrt_ftz and
-// defines NBODY_EMULATED_RSQRT.
+// rsqrt_ftz is rsqrt.cuh's.
 
 #include <cuda_runtime.h>
 
+#include "rsqrt.cuh"
 #include "split_sum.cuh"
 
 namespace {
@@ -54,14 +54,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kPer = 4;      // targets a thread
 constexpr int kTile = 2048;  // source rows per shared tile
-
-#ifndef NBODY_EMULATED_RSQRT
-__device__ __forceinline__ float rsqrt_ftz(float x) {
-  float y;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-#endif
 
 template <bool kPerBody>
 __global__ void __launch_bounds__(kThreads)

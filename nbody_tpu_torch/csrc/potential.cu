@@ -1,104 +1,62 @@
-// potential.cu — unsoftened potential energy, f32 pair terms, for sm_90a.
+// potential.cu — unsoftened potential energy, f32 pair terms, for sm_90a
+// (K3).
 //
-// Replaces the TPU kernel nbody_tpu/diag/energy.py::_pe_kernel, which sums
-// -m_i m_j / r over (BI, BJ) tiles into one SMEM scalar carried across the
-// sequential grid.  It computes
+// Replaces the TPU kernel nbody_tpu/diag/energy.py:27 (_pe_kernel), which
+// sums -m_i m_j / r over all (BI, BJ) tiles into one SMEM scalar carried
+// across the sequential grid.  It computes
 //
 //     S = sum_{i,j} -m_i * m_j / r_ij,   1/r = 0 where r^2 = 0
 //
 // (common/get_energy.c:40: the diagonal and coincident bodies contribute
-// nothing).  The wrapper applies G and the 1/2 that turns the full sum into
-// the reference's upper-triangle sum.
+// nothing) as twice the sum over the unordered pairs i < j.  The wrapper
+// applies G and the 1/2 that turns the full sum into the reference's
+// upper-triangle sum.
 //
-// What bounds it on the card: like the force kernel, one rsqrt and about 12
-// FP32 operations per pair; device bytes are O(N).  Compute-bound.
+// What bounds it on the card: instruction issue and the MUFU.  The pair is
+// 3 FADD for the displacement, FMUL + 2 FFMA for r^2, one MUFU.RSQ and one
+// FFMA into the row's sum m_j r^-1 (m_i is factored out of the loop): 7
+// fp32 instructions at 128 lanes an SM a clock, and the rsqrt at 16.
+// chip_smoke.py phase 1 counts the SASS.  Device bytes are O(N).
 //
-// Design: the tiling of allpairs.cu — one thread per row i, sources
-// [x y z m] staged through shared memory, the ragged edge masked by the
-// loop bound.  Pair terms are f32 as on the TPU; each thread adds its f32
-// tile sum into an fp64 register.  A block then reduces in shared memory
-// (fp64, fixed tree) and writes one partial, and a second single-block pass
-// sums the partials in fp64 in a fixed order.  No float atomics, so repeated
-// runs are bit-identical.
+// Design: the upper-triangle schedule of pe_triangle.cuh (each unordered
+// pair once, contiguous shares of the triangle, fixed-order partials)
+// with K1's loop (allpairs.cu): 128-thread blocks, four rows a thread,
+// sources staged as float4 [x y z m], 2,048 a tile (faster than 512 and
+// 1,024 in a trial on the card, PERF.md), rsqrt.approx.ftz.f32 (rsqrt.cuh).
+// Each row's f32 sum is folded into the thread's fp64 total every 256
+// sources at most, as the design before this one folded it every 256-row
+// tile, so the f32 chains stay as short.  Coincident bodies and r below
+// 1.1e-19, where the ftz rsqrt gives inf, take pe_triangle.cuh's rare
+// branch through CUDA's rsqrtf and give the plain version's value.
 
 #include <cuda_runtime.h>
 
+#include "pe_triangle.cuh"
+#include "rsqrt.cuh"
+
 namespace {
 
-constexpr int kBlock = 256;
+struct PeF32 {
+  using Real = float;
+  using Src = float4;
+  static constexpr int kTile = 2048;  // source rows a shared tile
+  static constexpr int kUnroll = 8;
 
-__global__ void __launch_bounds__(kBlock)
-pe_partials_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
-                   int n, double* __restrict__ partials) {
-  __shared__ float4 src[kBlock];
-  __shared__ double red[kBlock];
-
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = i < n;
-  float xi = 0.f, yi = 0.f, zi = 0.f, mi = 0.f;
-  if (live) {
-    xi = pos[3 * (size_t)i + 0];
-    yi = pos[3 * (size_t)i + 1];
-    zi = pos[3 * (size_t)i + 2];
-    mi = mass[i];
+  __device__ static Src load(const float* pos, const float* mass, int j) {
+    return make_float4(pos[3 * (size_t)j + 0], pos[3 * (size_t)j + 1],
+                       pos[3 * (size_t)j + 2], mass[j]);
   }
-
-  double acc = 0.0;
-  for (int t0 = 0; t0 < n; t0 += kBlock) {
-    const int j = t0 + threadIdx.x;
-    if (j < n) {
-      src[threadIdx.x] = make_float4(pos[3 * (size_t)j + 0], pos[3 * (size_t)j + 1],
-                                     pos[3 * (size_t)j + 2], mass[j]);
-    }
-    __syncthreads();
-    const int count = min(kBlock, n - t0);
-    float tile = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < count; ++k) {
-      const float4 s = src[k];
-      const float dx = s.x - xi;
-      const float dy = s.y - yi;
-      const float dz = s.z - zi;
-      const float r2 = dx * dx + dy * dy + dz * dz;
-      const float inv_r = r2 > 0.f ? rsqrtf(r2) : 0.f;
-      tile += -(mi * s.w) * inv_r;
-    }
-    acc += static_cast<double>(tile);
-    __syncthreads();
-  }
-
-  const int tid = threadIdx.x;
-  red[tid] = live ? acc : 0.0;
-  __syncthreads();
-  for (int half = kBlock / 2; half > 0; half >>= 1) {
-    if (tid < half) red[tid] += red[tid + half];
-    __syncthreads();
-  }
-  if (tid == 0) partials[blockIdx.x] = red[0];
-}
-
-__global__ void __launch_bounds__(kBlock)
-sum_partials_kernel(const double* __restrict__ partials, int count,
-                    double* __restrict__ out) {
-  __shared__ double red[kBlock];
-  const int tid = threadIdx.x;
-  double acc = 0.0;
-  for (int k = tid; k < count; k += kBlock) acc += partials[k];
-  red[tid] = acc;
-  __syncthreads();
-  for (int half = kBlock / 2; half > 0; half >>= 1) {
-    if (tid < half) red[tid] += red[tid + half];
-    __syncthreads();
-  }
-  if (tid == 0) out[0] = red[0];
-}
+  __device__ static float inv_r(float r2) { return rsqrt_ftz(r2); }
+  __device__ static float inv_r_exact(float r2) { return rsqrtf(r2); }
+};
 
 }  // namespace
 
 extern "C" {
 
-// Number of fp64 partials nbody_potential_f32 needs for n bodies.
-int nbody_potential_partials(int n) { return (n + kBlock - 1) / kBlock; }
+// Number of fp64 partials nbody_potential_f32 writes for n bodies on the
+// current device: the blocks of its launch (or -cudaError_t).
+int nbody_potential_partials(int n) { return pe_blocks<PeF32>(n); }
 
 // Launch both passes on `stream`.  pos (n,3) and mass (n,): f32, contiguous.
 // partials: nbody_potential_partials(n) doubles of scratch; out: one double,
@@ -106,15 +64,7 @@ int nbody_potential_partials(int n) { return (n + kBlock - 1) / kBlock; }
 // launches.
 int nbody_potential_f32(const float* pos, const float* mass, int n, double* partials,
                         double* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = nbody_potential_partials(n);
-  if (blocks > 0) {
-    pe_partials_kernel<<<blocks, kBlock, 0, s>>>(pos, mass, n, partials);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  sum_partials_kernel<<<1, kBlock, 0, s>>>(partials, blocks, out);
-  return static_cast<int>(cudaGetLastError());
+  return pe_launch<PeF32>(pos, mass, n, partials, out, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,28 @@
+// rsqrt.cuh — the hardware reciprocal square roots without CUDA's wrappers,
+// for the kernels whose pair loops are bound by instruction issue:
+//
+// * rsqrt_ftz: rsqrt.approx.ftz.f32, MUFU.RSQ alone, in K1 (allpairs.cu)
+//   and K3 (potential.cu).  CUDA's rsqrtf wraps the same instruction in a
+//   scaling for subnormal inputs: two more fp32 instructions a pair.
+// * rsqrt_seed: rsqrt.approx.ftz.f64, MUFU.RSQ64H, r2^(-1/2) from the high
+//   word of r2 with the low word of the result zero; pair_f64.cuh refines
+//   it to fp64 (K4, K5, K6's df mode, K7's fp64 entry).
+//
+// Both flush a subnormal input to zero and so return +inf for it, as for
+// zero.  The CPU emulation of the kernel sources brings its own twins and
+// defines NBODY_EMULATED_RSQRT.
+#pragma once
+
+#ifndef NBODY_EMULATED_RSQRT
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ double rsqrt_seed(double r2) {
+  double y;
+  asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(r2));
+  return y;
+}
+#endif

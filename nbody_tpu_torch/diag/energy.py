@@ -96,12 +96,12 @@ def cuda_potential_energy(
     from nbody_tpu_torch.ops import _cuda
 
     kernels = _cuda.library()
-    partials = torch.empty(
-        (kernels.lib.nbody_potential_partials(n),), dtype=torch.float64,
-        device=device,
-    )
-    out = torch.empty((1,), dtype=torch.float64, device=device)
     with torch.cuda.device(device):
+        # one partial a block of the launch, whose grid is sized to this card
+        # (a negative count is a CUDA error, which the launch returns too)
+        count = kernels.lib.nbody_potential_partials(n)
+        partials = torch.empty((max(count, 0),), dtype=torch.float64, device=device)
+        out = torch.empty((1,), dtype=torch.float64, device=device)
         err = kernels.lib.nbody_potential_f32(
             pos.data_ptr(), mass.data_ptr(), n, partials.data_ptr(),
             out.data_ptr(), _cuda.stream_handle(device),

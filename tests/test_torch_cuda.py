@@ -104,9 +104,13 @@ def test_allpairs_kernel_split(dev, m, n, split, per_body):
         assert torch.equal(cuda_rect_accelerations(*args, G=0.7, **kw), got)
 
 
-def test_potential_kernel_matches_twin_and_fp64(dev):
-    pos, mass = _cloud(20_000, dev, seed=7)
-    pos[1] = pos[0]  # a coincident pair: the r = 0 guard
+@pytest.mark.parametrize("n", [20_000, 5_003])
+def test_potential_kernel_matches_twin_and_fp64(dev, n):
+    """K3 at an even and a ragged n, with coincident pairs in one tile and
+    across row blocks and tiles (the r = 0 guard, through the rare branch)."""
+    pos, mass = _cloud(n, dev, seed=7)
+    pos[1] = pos[0]
+    pos[n - 3] = pos[7]
     before = cuda_potential_energy.launches
     got = cuda_potential_energy(pos, mass, G=0.7)
     assert cuda_potential_energy.launches == before + 1
@@ -258,9 +262,13 @@ def test_allpairs_f64_kernel_matches_plain(dev, m, n, split):
                                                    _split=split), got)
 
 
-def test_potential_f64_kernel_matches_plain(dev):
-    pos, mass = (t.double() for t in _cloud(20_000, dev, seed=9))
-    pos[1] = pos[0]  # a coincident pair: the r = 0 guard
+@pytest.mark.parametrize("n", [20_000, 5_003])
+def test_potential_f64_kernel_matches_plain(dev, n):
+    """K5 at an even and a ragged n, with coincident pairs in one tile and
+    across row blocks and tiles (the r = 0 guard, through the rare branch)."""
+    pos, mass = (t.double() for t in _cloud(n, dev, seed=9))
+    pos[1] = pos[0]
+    pos[n - 3] = pos[7]
     before = cuda_potential_energy_f64.launches
     got = cuda_potential_energy_f64(pos, mass, G=0.7)
     assert cuda_potential_energy_f64.launches == before + 1

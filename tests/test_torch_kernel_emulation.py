@@ -91,6 +91,7 @@ inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, sizeo
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+using std::isfinite;
 using std::max;
 using std::min;
 
@@ -177,12 +178,15 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 }
 inline int __popc(unsigned m) { return __builtin_popcount(m); }
 
-// Twin of pair_f64.cuh's rsqrt seed (MUFU.RSQ64H): r2^(-1/2) with the low
-// 32 bits of the double cleared, a relative error up to 2^-20, so the
-// refinement to fp64 is exercised and not skipped.
+// Twins of rsqrt.cuh's seeds, which flush a subnormal input to zero (and
+// so give inf).  rsqrt_seed (MUFU.RSQ64H): r2^(-1/2) with the low 32 bits
+// of the double cleared, a relative error up to 2^-20, so the refinement to
+// fp64 is exercised and not skipped.
 #define NBODY_EMULATED_RSQRT 1
+template <class T>
+inline T emu_ftz(T x) { return std::fpclassify(x) == FP_SUBNORMAL ? std::copysign(T(0), x) : x; }
 inline double rsqrt_seed(double r2) {
-  const double y = 1.0 / std::sqrt(r2);
+  const double y = 1.0 / std::sqrt(emu_ftz(r2));
   unsigned long long bits;
   std::memcpy(&bits, &y, sizeof bits);
   bits &= ~0xffffffffull;
@@ -190,8 +194,8 @@ inline double rsqrt_seed(double r2) {
   std::memcpy(&seed, &bits, sizeof seed);
   return seed;
 }
-// Twin of allpairs.cu's rsqrt.approx.ftz.f32 (MUFU.RSQ).
-inline float rsqrt_ftz(float x) { return 1.0f / std::sqrt(x); }
+// rsqrt_ftz (rsqrt.approx.ftz.f32, MUFU.RSQ)
+inline float rsqrt_ftz(float x) { return 1.0f / std::sqrt(emu_ftz(x)); }
 
 // Twins of bh_fused.cu's near-row ring: the copy is synchronous, and the
 // wait, which every thread of the block calls, is a block barrier that
@@ -245,10 +249,21 @@ inline void mma_3xtf32(float c[4], const float a[4], const float b[2]) {
 }
 
 typedef struct CUstream_st* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
+// The emulated card: one SM that holds two blocks of any kernel.  The
+// potential-energy kernels are built for one wave of them (emu below), so
+// their grids have two blocks, whose shares cross row blocks and tiles.
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 1; return cudaSuccess; }
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K, int, size_t) {
+  *blocks = 2;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
 
@@ -327,7 +342,7 @@ _DYNAMIC_SMEM = re.compile(
 
 
 def _host_source(path: str) -> str:
-    """The .cu source with each `k<<<grid, block, smem, stream>>>(args);`
+    """The .cu or .cuh source with each `k<<<grid, block, smem, stream>>>(args);`
     launch rewritten as an emulated launch, and each `extern __shared__`
     array bound to the block's dynamic shared memory."""
     with open(path) as f:
@@ -351,7 +366,7 @@ def emu(tmp_path_factory):
     d = tmp_path_factory.mktemp("emu")
     (d / "cuda_runtime.h").write_text(EMU_HEADER)
     for h in _cuda.headers():
-        shutil.copy(h, d / os.path.basename(h))
+        (d / os.path.basename(h)).write_text(_host_source(h))
     cpps = []
     for cu in _cuda.sources():
         cpp = d / (os.path.basename(cu)[:-3] + ".cpp")
@@ -491,10 +506,11 @@ def test_allpairs_kernel_source_empty(emu):
     assert out.shape == (0, 3)
 
 
-@pytest.mark.parametrize("n", [1, 255, 256, 700])
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 511, 513, 700, 2100])
 def test_potential_kernel_source(emu, n):
     """Within the kernel's f32 bound of its twin (test_energy.py:70), with a
-    coincident pair exercising the r = 0 guard."""
+    coincident pair exercising the r = 0 guard; n across the 512-row row
+    blocks (one short, one over, four and a bit) and the 2,048-row tile."""
     arr = random_cloud(n, seed=n)
     if n > 2:
         arr[1, :3] = arr[0, :3]
@@ -520,6 +536,64 @@ def test_potential_kernel_source_is_deterministic(emu):
                                 partials.data_ptr(), out.data_ptr(), None)
         results.append(out.item())
     assert results[0] == results[1]
+
+
+def _emu_potential(lib, pos, mass, guard=4):
+    """(0.5 * out, partials) of the emulated K3 (f32 inputs) or K5 (fp64),
+    the partials NaN-filled first, with `guard` NaN slots past
+    ``*_partials(n)``."""
+    f64 = pos.dtype == torch.float64
+    n = pos.shape[0]
+    count = (lib.nbody_potential_f64_partials if f64 else lib.nbody_potential_partials)(n)
+    partials = torch.full((count + guard,), float("nan"), dtype=torch.float64)
+    out = torch.full((1,), float("nan"), dtype=torch.float64)
+    launch = lib.nbody_potential_f64 if f64 else lib.nbody_potential_f32
+    assert launch(pos.data_ptr(), mass.data_ptr(), n, partials.data_ptr(),
+                  out.data_ptr(), None) == 0
+    return 0.5 * out.item(), partials  # G = 1 and the 1/2 the wrapper applies
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 300, 513, 2100])
+@pytest.mark.parametrize("f64", [False, True])
+def test_potential_partials_match_the_grid(emu, n, f64):
+    """``*_partials(n)`` is the grid of the launch: every block writes its
+    own slot, so all of them are set and none past them.  On the emulated
+    card (one SM of two resident blocks, 16 waves) a grid is 32 blocks at
+    most, one for every 512 (row block, source) items of the triangle below
+    that: at n = 2,100, 11 shares that cross row blocks and tiles."""
+    arr = random_cloud(max(n, 1), seed=n)[:n]
+    conv = _f64 if f64 else _f32
+    _, partials = _emu_potential(emu, conv(arr[:, :3]), conv(arr[:, 6]))
+    count = partials.shape[0] - 4
+    rows = -(-n // 512)  # 512-row row blocks
+    items = rows * n - 512 * (rows * (rows - 1) // 2)
+    assert count == min(32, -(-items // 512))
+    assert bool(torch.isfinite(partials[:count]).all())
+    assert bool(torch.isnan(partials[count:]).all())
+
+
+@pytest.mark.parametrize("n", [513, 2100])
+@pytest.mark.parametrize("f64", [False, True])
+def test_potential_kernels_coincident_and_close(emu, n, f64):
+    """K3 and K5 where the hardware rsqrt gives inf: coincident bodies in
+    one tile (0, 1) and across row blocks and tiles (4, n - 1), and a pair
+    whose r^2 is subnormal (1e-40 in f32, 1e-320 in fp64), which the seed
+    flushes to 0, with masses that make its term ~1 % of the energy.  The
+    rare branch gives the plain version's value: within the f32 bound of
+    the twin (K3) or 1e-13 of the plain version (K5), finite, reruns
+    bit-identical."""
+    arr = random_cloud(n, seed=n + 1)
+    arr[1, :3] = arr[0, :3]
+    arr[n - 1, :3] = arr[4, :3]
+    arr[10, :3] = 0.0
+    arr[11, :3] = (1e-160 if f64 else 1e-20, 0.0, 0.0)
+    arr[10:12, 6] = 1e-79 if f64 else 1e-9  # m^2 / r = 100
+    conv = _f64 if f64 else _f32
+    pos, mass = conv(arr[:, :3]), conv(arr[:, 6])
+    (got, _), (again, _) = (_emu_potential(emu, pos, mass) for _ in range(2))
+    want = potential_energy_reference(pos, mass).item()
+    assert np.isfinite(got) and got == again
+    assert got == pytest.approx(want, rel=1e-13 if f64 else 1e-5)
 
 
 def _bh_case(name):
@@ -681,10 +755,11 @@ def test_allpairs_f64_kernel_source_split(emu, m, n, split):
     assert torch.equal(out, again)
 
 
-@pytest.mark.parametrize("n", [1, 255, 700])
+@pytest.mark.parametrize("n", [1, 2, 255, 511, 513, 700, 2100])
 def test_potential_f64_kernel_source(emu, n):
     """K5 within 1e-13 of its plain version, with a coincident pair
-    exercising the r = 0 guard; reruns are bit-identical."""
+    exercising the r = 0 guard; reruns are bit-identical.  n across the
+    512-row row blocks and the 512-row tile."""
     arr = random_cloud(n, seed=n)
     if n > 2:
         arr[1, :3] = arr[0, :3]
