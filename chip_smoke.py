@@ -15,7 +15,8 @@ prints no result):
 1. card and build: nvidia-smi's name and power limit, nvcc's version, the
    kernels built from nbody_tpu_torch/csrc/*.cu for sm_90a and the build
    time and ptxas report; each kernel's SASS floating-point instructions,
-   per MUFU.RSQ64H (fp64) and per MUFU.RSQ (fp32): its instructions a pair;
+   per MUFU.RSQ64H (fp64) and per MUFU.RSQ (fp32): its instructions a pair,
+   over the whole kernel and over its hot loop (all issued ones there);
 2. all-pairs kernel against its plain PyTorch twin at the main path's
    shape (100k x 100k), at n=4096, at an unaligned 100,003 x 4,099, in
    per-body mode, and the CLI on the 10-body reference golden file;
@@ -74,7 +75,7 @@ prints no result):
     s/step at 100k;
 19. the group x interaction-list kernel (K7, both entry points) against its
     plain version on the lists the flat traversal builds: f32 at 100k and
-    1M, fp64 at 100k and 1M; bit-identical reruns; issued thread-pairs;
+    1M, fp64 at 100k and 1M; bit-identical reruns; issued slot-pairs;
 20. the list path (barneshut_accelerations, flat) against [8]'s exact
     forces at 1M; the padded traversal against flat at 100k, and at 1M if
     its capacity probe fits;
@@ -86,8 +87,8 @@ prints no result):
 22. the same run with --dtype f64 through K7's fp64 entry point; its forces
     against K4's exact ones;
 23. K7 and its plain version timed at 100k and 1M, with the issue floors
-    and K7 fp64's time before its redesign; K7's fp64 entry at every
-    number of list slices a block, held against its plain version with
+    and both entries' times before their redesign; both entries at every
+    number of list slices a block, held against the plain version with
     bit-identical reruns; one 1M list-path evaluation split into
     sort+tree+groups, traversal, K7 and scatter, a torch.profiler trace of
     one evaluation (device busy share, kernel launches, the costliest
@@ -97,7 +98,7 @@ prints no result):
     100k x 100k, at 100,003 x 4,099, in per-body mode and on a cloud offset
     from the origin; against K1, and against the fp64 formula on 256
     targets and, with self-terms, on 2,000 bodies with per-body eps2;
-    bit-identical reruns;
+    bit-identical reruns; its SASS a pair, issue floor and MUFU floor;
 25. the robust Barnes-Hut hybrid (barneshut_fused_robust: K6 + K1) against
     exact forces on a 1M Plummer sphere with 8 escapers at r 300-1000, the
     escapers against their own force scale; near bodies of the plain fused
@@ -108,7 +109,8 @@ prints no result):
     --algo exhaustive run of the same file;
 27. the same with --dtype f64 (K6 df + K4), its forces against K4's exact
     ones;
-28. K2 beside K1 at 100k with K2's bound; one robust evaluation split into
+28. K2 beside K1 at 100k with K2's bound, its time before the redesign
+    and its floors; one robust evaluation split into
     box, depth probe, set-up, K6 and the K1 rectangle; the depth pricer's
     unit costs on this card (K6 time against its stats lanes, set-up time
     against the dense-grid nodes); one robust f64 evaluation and K6 df at ld
@@ -178,12 +180,15 @@ MUFU_LANES = 16  # MUFU.RSQ results an SM a clock (NVIDIA throughput table, cc 9
 # (targets or slots a thread, split sources) from this script (100k, 1M)
 # and diag/pair_kernels.py (the rectangles) on the tree before theirs; K3's
 # and K5's (the upper triangle) from this script (100k) and
-# diag/pe_kernels.py (1M) on the tree before theirs
+# diag/pe_kernels.py (1M) on the tree before theirs; K7 f32's and K2's
+# (K1's pair loop, tensor-core B built once a tile) from this script on the
+# tree before theirs
 BEFORE_MS = {"K4 100k": 15.956, "K4 100003x4099": 0.6608, "K4 1000000x1953": 2.7433,
              "K6 df 100k": 2.3316, "K6 df 1M uniform": 16.1761, "K6 df robust ld 8": 129.2723,
              "K1 100000x100000": 7.0583, "K1 100003x4099": 0.2971, "K1 1000000x1953": 1.2197,
              "K7 fp64 1M": 15.5646, "K3 100k": 6.8840, "K3 1M": 629.4761,
-             "K5 100k": 14.9199, "K5 1M": 1292.5297}
+             "K5 100k": 14.9199, "K5 1M": 1292.5297, "K7 f32 1M": 7.2186,
+             "K2 100k": 14.8236}
 
 
 def check(ok: bool, what: str) -> None:
@@ -248,62 +253,56 @@ SASS_OPS = ("FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA", "MUFU.RSQ", "MUFU.RS
             "HMMA", "F2F", "F2FP", "FRND")
 
 
-def sass_counts(nvcc: str, so_path: str) -> dict[str, dict[str, int]]:
+def sass_counts(nvcc: str, so_path: str) -> dict[str, dict]:
     """Print, for each kernel in the built library, how many of each
     floating-point instruction its SASS holds (cuobjdump -sass), the fp64
     ones per MUFU.RSQ64H and the fp32 ones per MUFU.RSQ: every pair
     evaluation takes exactly one rsqrt, so that ratio is the instructions
-    per pair, plus the kernel's few outside its pair loops.  Returns
-    {kernel: {instruction: count}}, empty where cuobjdump is missing."""
-    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    if not os.access(cuobjdump, os.X_OK):
-        print(f"  SASS counts: not measured ({cuobjdump} not found)")
-        return {}
-    sass = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True, text=True,
-                          timeout=120, check=True).stdout
-    op_re = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
-    counts: dict[str, dict[str, int]] = {}
-    fn = None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = dict.fromkeys(SASS_OPS, 0)
-            continue
-        m = op_re.search(line) if fn else None
-        if m:
-            op = m.group(1)
-            key = op if op.startswith("MUFU.") else op.split(".")[0]
-            if key in counts[fn]:
-                counts[fn][key] += 1
-    for fn, c in counts.items():
-        line = ", ".join(f"{k} {v}" for k, v in c.items() if v)
-        seeds = c["MUFU.RSQ64H"]
-        if seeds:
-            line += (f"; per RSQ64H: DADD {c['DADD'] / seeds:.2f}, DMUL "
-                     f"{c['DMUL'] / seeds:.2f}, DFMA {c['DFMA'] / seeds:.2f}, all fp64 "
-                     f"{fp64_per_seed(c):.2f}")
-        rsq = c["MUFU.RSQ"]
-        if rsq:
-            line += (f"; per RSQ: FADD {c['FADD'] / rsq:.2f}, FMUL {c['FMUL'] / rsq:.2f}, "
-                     f"FFMA {c['FFMA'] / rsq:.2f}, all fp32 {fp32_per_rsq(c):.2f}")
+    per pair, plus the kernel's few outside its pair loops; and, in the
+    hot loop (the innermost loop holding the rsqrt), the fp32 or fp64 and
+    all instructions per rsqrt, what the card issues a pair.  Returns
+    {"whole": {kernel: Counter}, "loop": {kernel: Counter of its hot
+    loop}}, empty where cuobjdump is missing."""
+    from nbody_tpu_torch.diag import sass as sa
+
+    out = {"whole": {}, "loop": {}}
+    text = sa.cuobjdump_sass(nvcc, so_path)
+    if text is None:
+        print("  SASS counts: not measured (no cuobjdump beside nvcc)")
+        return out
+    for fn, instrs in sa.kernels(text).items():
+        c = out["whole"][fn] = sa.whole(instrs)
+        line = ", ".join(f"{k} {c[k]}" for k in SASS_OPS if c[k])
+        for rsq, kind, names in (("MUFU.RSQ64H", "fp64", sa.FP64),
+                                 ("MUFU.RSQ", "fp32", sa.FP32)):
+            if not c[rsq]:
+                continue
+            line += (f"; per {rsq[5:]}: " + ", ".join(f"{k} {c[k] / c[rsq]:.2f}" for k in names)
+                     + f", all {kind} {sa.per(c, rsq, names):.2f}")
+            loop = sa.hot_loop(instrs, rsq)
+            if loop:
+                out["loop"][fn] = loop
+                top = ", ".join(f"{k} {v / loop[rsq]:.2f}" for k, v in loop.most_common(8))
+                line += (f"; hot loop per {rsq[5:]}: {kind} {sa.per(loop, rsq, names):.2f}, "
+                         f"all issued {sa.per(loop, rsq, None):.2f} ({top})")
         print(f"  SASS {fn}: {line or 'no floating-point instructions'}")
-    return counts
+    return out
 
 
-def fp32_per_rsq(c: dict[str, int]) -> float:
+def fp32_per_rsq(c) -> float:
     """fp32 instructions (FADD, FMUL, FFMA) per MUFU.RSQ of one kernel's
     SASS counts: its fp32 instructions a pair."""
     return (c["FADD"] + c["FMUL"] + c["FFMA"]) / c["MUFU.RSQ"]
 
 
-def sass_of(counts: dict, part: str) -> dict[str, int] | None:
-    """The SASS counts of the one kernel whose (mangled) name holds
-    `part`, or None."""
-    hits = [c for fn, c in counts.items() if part in fn]
+def sass_of(counts: dict, part: str, which: str = "whole"):
+    """The SASS counts (`which`: "whole" kernel or its hot "loop") of the
+    one kernel whose (mangled) name holds `part`, or None."""
+    hits = [c for fn, c in counts[which].items() if part in fn]
     return hits[0] if len(hits) == 1 else None
 
 
-def fp64_per_seed(c: dict[str, int]) -> float:
+def fp64_per_seed(c) -> float:
     """fp64 instructions (DADD, DMUL, DFMA) per MUFU.RSQ64H of one kernel's
     SASS counts: its fp64 instructions a pair."""
     return (c["DADD"] + c["DMUL"] + c["DFMA"]) / c["MUFU.RSQ64H"]
@@ -440,19 +439,21 @@ def timed_once(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def lists_work(gl, real_bytes: int) -> tuple[float, float, float, float]:
-    """(bytes, operations, real pairs, issued thread-pairs) of one K7 call
+def lists_work(gl, real_bytes: int, split: int) -> tuple[float, float, float, float]:
+    """(bytes, operations, real pairs, issued slot-pairs) of one K7 call
     on these lists: each group's list rows up to its length read once, the
     slot positions read once and the accelerations written once, the
     lengths read once; one pair per (real body, list row up to the
-    length); the kernel issues ceil(B / 256) * 256 threads per group, each
-    running the group's length."""
+    length); with `split` list slices a block of 512 / split slots, the
+    kernel computes ceil(B / (512 / split)) * 512 / split slots per group,
+    each against the group's length."""
     n_groups, b, _ = gl.pg.shape
     lengths = gl.lengths.double()
     count = gl.group_valid.sum(1).double()
     rows = float(lengths.sum().item())
     pairs = float((count * lengths).sum().item())
-    issued = float(-(-b // 256) * 256) * rows
+    chunk = 512 // split
+    issued = float(-(-b // chunk) * chunk) * rows
     nbytes = rows * 4 * real_bytes + 2 * n_groups * b * 3 * real_bytes + n_groups * 4
     return nbytes, pairs * FORCE_OPS, pairs, issued
 
@@ -482,7 +483,8 @@ def list_phases(torch, dev, card: str, sass: dict, arr, arr1m, csv1m: str, tmp: 
     # 19. K7 against its plain version on the flat traversal's lists
     print("[19] group x interaction-list kernel K7 (nbody_tpu_torch/csrc/group_lists.cu)")
     k7 = {}  # (n, dtype) -> (group lists, max |err|, plain ms)
-    k7_want = {}  # n -> the fp64 plain version's accelerations
+    k7_want = {}  # (n, dtype) -> the plain version's accelerations
+    sms = _cuda.sm_count(dev)
     for (nb, dtype), bd in bodies.items():
         gl = barneshut.group_lists(bd.pos, bd.mass)
         st = [int(x) for x in gl.stats]
@@ -509,14 +511,15 @@ def list_phases(torch, dev, card: str, sass: dict, arr, arr1m, csv1m: str, tmp: 
                   f"{err / scale:.3e} (bound {F64_BOUND:g})")
             check(err <= F64_BOUND * scale and bool(torch.isfinite(got).all()),
                   "K7 fp64 against its plain version")
-            k7_want[nb] = want
+        k7_want[nb, dtype] = want
         check(torch.equal(wrap(gl.pg, gl.lists, gl.lengths, eps2=0.01), got),
               "K7 reruns are bit-identical")
-        _, _, pairs, issued = lists_work(gl, 4)
+        split = cuda_lists.k7_split(*gl.pg.shape[:2], sms)
+        _, _, pairs, issued = lists_work(gl, 4, split)
         jax_grid = float(gl.pg.shape[0] * gl.pg.shape[1] * gl.lists.shape[1])
         print(f"  two kernel runs bit-identical: True; real pairs {pairs:.4e}, issued "
-              f"thread-pairs {issued:.4e}, JAX's grid G*B*M {jax_grid:.4e}; plain "
-              f"version one run {plain_ms:.4f} ms [{card}]")
+              f"slot-pairs {issued:.4e} ({split} list slices), JAX's grid G*B*M "
+              f"{jax_grid:.4e}; plain version one run {plain_ms:.4f} ms [{card}]")
         k7[nb, dtype] = (gl, err, plain_ms)
     list_1m = k7[BH_N, f32][0].lists.shape[1]
 
@@ -653,47 +656,52 @@ def list_phases(torch, dev, card: str, sass: dict, arr, arr1m, csv1m: str, tmp: 
     # 23. timing
     print(f"[23] list-path timing on {card}")
     ms = {}
-    sms = _cuda.sm_count(dev)
     # the issue floors on real pairs: SASS instructions a pair ([1]) over the
     # fp32 (128) or fp64 (64) lanes of every SM
-    floors = {f32: (sass_of(sass, "group_lists_f32"), fp32_per_rsq, 128),
-              f64: (sass_of(sass, "group_lists_f64"), fp64_per_seed, 64)}
+    floors = {f32: (sass_of(sass, "group_lists_kernelIf"), fp32_per_rsq, 128),
+              f64: (sass_of(sass, "group_lists_kernelId"), fp64_per_seed, 64)}
     for (nb, dtype), (gl, _, plain_ms) in k7.items():
         wrap = wrappers[dtype]
         ms[nb, dtype] = cuda_ms(torch, lambda: wrap(gl.pg, gl.lists, gl.lengths,
                                                     eps2=0.01), 10)
-        _, _, pairs, issued = lists_work(gl, 4)
+        _, _, pairs, issued = lists_work(gl, 4, cuda_lists.k7_split(*gl.pg.shape[:2], sms))
         counts, per_pair, lanes = floors[dtype]
         floor = ("not measured" if counts is None else
                  f"{issue_floor_ms(per_pair(counts), pairs, lanes, sms):.4f} ms "
                  f"({per_pair(counts):.2f} instructions a pair)")
-        before = (f" (before the redesign {BEFORE_MS['K7 fp64 1M']} ms, "
-                  f"{ms[nb, dtype] / BEFORE_MS['K7 fp64 1M']:.3f}x)"
-                  if (nb, dtype) == (BH_N, f64) else "")
-        print(f"  K7 {'f32' if dtype == f32 else 'fp64'} at n={nb}: kernel "
-              f"{ms[nb, dtype]:.4f} ms{before} ({issued / ms[nb, dtype] / 1e-3:.4e} issued "
-              f"thread-pairs/s, {pairs / ms[nb, dtype] / 1e-3:.4e} real pairs/s), "
-              f"issue floor {floor}, plain {plain_ms:.4f} ms (one run) [{card}]")
-    # K7's fp64 entry at every number of list slices a block, each held
-    # against the plain version, with bit-identical reruns
-    for nb in (n, BH_N):
-        gl, want = k7[nb, f64][0], k7_want[nb]
+        name = "f32" if dtype == f32 else "fp64"
+        before = (f" (before the redesign {BEFORE_MS[f'K7 {name} 1M']} ms, "
+                  f"{ms[nb, dtype] / BEFORE_MS[f'K7 {name} 1M']:.3f}x)" if nb == BH_N else "")
+        print(f"  K7 {name} at n={nb}: kernel {ms[nb, dtype]:.4f} ms{before} "
+              f"({issued / ms[nb, dtype] / 1e-3:.4e} issued slot-pairs/s, "
+              f"{pairs / ms[nb, dtype] / 1e-3:.4e} real pairs/s), issue floor {floor}, "
+              f"plain {plain_ms:.4f} ms (one run) [{card}]")
+    # both entries at every number of list slices a block, each held against
+    # the plain version (f32: K1's bound; fp64: F64_BOUND of the force
+    # scale), with bit-identical reruns
+    for (nb, dtype), (gl, _, _) in k7.items():
+        want, wrap = k7_want[nb, dtype], wrappers[dtype]
         g_, b_, _ = gl.pg.shape
+        scale = want.abs().max().item()
         split_ms, rels = {}, {}
         for split in (1, 2, 4, 8):
-            got = cuda_lists.eval_lists_f64(gl.pg, gl.lists, gl.lengths, eps2=0.01,
-                                            _split=split)
-            rels[split] = (got - want).abs().max().item() / want.abs().max().item()
-            check(rels[split] <= F64_BOUND and torch.equal(cuda_lists.eval_lists_f64(
-                gl.pg, gl.lists, gl.lengths, eps2=0.01, _split=split), got),
-                f"K7 fp64 at {split} list slices against its plain version, reruns")
-            split_ms[split] = cuda_ms(torch, lambda: cuda_lists.eval_lists_f64(
+            got = wrap(gl.pg, gl.lists, gl.lengths, eps2=0.01, _split=split)
+            err = (got - want).abs()
+            rels[split] = err.max().item() / scale
+            ok = (bool((err <= ATOL_REL * scale + RTOL * want.abs()).all())
+                  if dtype == f32 else rels[split] <= F64_BOUND)
+            check(ok and bool(torch.isfinite(got).all()) and torch.equal(
+                wrap(gl.pg, gl.lists, gl.lengths, eps2=0.01, _split=split), got),
+                f"K7 {dtype} at {split} list slices against its plain version, reruns")
+            split_ms[split] = cuda_ms(torch, lambda: wrap(
                 gl.pg, gl.lists, gl.lengths, eps2=0.01, _split=split), 5)
-        print(f"  K7 fp64 at n={nb} ({g_} group slots, B {b_}; the pick "
-              f"{cuda_lists.k7_split(g_, b_, sms)} list slices): 1/2/4/8 slices "
-              + " / ".join(f"{split_ms[k]:.4f}" for k in (1, 2, 4, 8)) + " ms, rel err "
-              + " / ".join(f"{rels[k]:.2e}" for k in (1, 2, 4, 8))
-              + f" (bound {F64_BOUND:g}), reruns bit-identical [{card}]")
+        bound_s = (f"{ATOL_REL:g}*scale + {RTOL:g}*|want|" if dtype == f32
+                   else f"{F64_BOUND:g}")
+        print(f"  K7 {'f32' if dtype == f32 else 'fp64'} at n={nb} ({g_} group slots, B "
+              f"{b_}; the pick {cuda_lists.k7_split(g_, b_, sms)} list slices): 1/2/4/8 "
+              "slices " + " / ".join(f"{split_ms[k]:.4f}" for k in (1, 2, 4, 8))
+              + " ms, max |err| / scale " + " / ".join(f"{rels[k]:.2e}" for k in (1, 2, 4, 8))
+              + f" (bound {bound_s}), reruns bit-identical [{card}]")
     del k7_want, want, got
     kw = dict(list_size=list_1m)
     gs, sl, lc, depth = barneshut.list_layout(BH_N, 9, 0, 0)
@@ -765,7 +773,7 @@ def list_phases(torch, dev, card: str, sass: dict, arr, arr1m, csv1m: str, tmp: 
                                        (f64, "group_lists_f64", k7_64_l)):
         gl, err, plain_ms = k7[BH_N, dtype]
         real = 4 if dtype == f32 else 8
-        nbytes, ops, _, _ = lists_work(gl, real)
+        nbytes, ops, _, _ = lists_work(gl, real, 1)
         bd = bound(nbytes, ops, FP32_PEAK if dtype == f32 else FP64_PEAK)
         entries.append(
             {"name": name, "route": "cuda", "source": "nbody_tpu_torch/csrc/group_lists.cu",
@@ -1126,7 +1134,10 @@ def fp64_phases(torch, dev, card: str, sass: dict, arr, arr1m, csv1m: str, tmp: 
     return entries
 
 
-K2_OPS = 13  # CUDA-core operations per pair of K2: the force's 19 less the 6 of the j-sum
+# CUDA-core operations per pair of K2: 3 sub, 6 for r^2 + eps, the rsqrt and
+# 2 multiplies for r^-3; the j-sum and gm ride B = diag(gm) [x - c, 1] on
+# the tensor cores
+K2_OPS = 12
 K2_TC_FLOPS = 8  # tensor-core flops per pair of the contraction W @ [x y z 1]
 TF32_PEAK = 495e12  # dense TF32 tensor-core FLOP/s
 OFFSET = (8.0, -8.0, 8.0)  # [24]'s cloud off the origin
@@ -1269,7 +1280,8 @@ def stage_phase(torch, dev, card: str, b100k, k1_rate: float) -> dict:
     return entry
 
 
-def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> dict:
+def robust_phases(torch, dev, card: str, sass: dict, arr, k1_100k, tmp: str,
+                  csv1m: str) -> dict:
     """Phases [24]-[28]: K2 against its plain version and K1, and the robust
     Barnes-Hut hybrid (K6 + K1, K6 df + K4) at 1M bodies.  Returns K2's
     entry of the JSON line and K6 df's launches and evaluations on the
@@ -1359,6 +1371,25 @@ def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> 
     f32_close(torch, got_o, cuda_accelerations(off, b.mass), "offset cloud against K1")
     k2_launches = cuda_rect_accelerations_mxu.launches
     print(f"  K2 launches in [24]: {k2_launches} (no CLI path takes K2, as in JAX)")
+    # K2's SASS a pair (the hot loop's instructions per MUFU.RSQ, [1]), its
+    # issue floor (every instruction takes an issue slot: 128 lanes an SM a
+    # clock) and its MUFU floor (one MUFU.RSQ a pair, MUFU_LANES an SM a
+    # clock) at n x n
+    from nbody_tpu_torch.diag import sass as sa
+    from nbody_tpu_torch.ops import _cuda
+
+    sms, pairs = _cuda.sm_count(dev), float(n) ** 2
+    k2_floors = {"MUFU": pairs / (MUFU_LANES * sms * CLOCK_HZ) * 1e3}
+    loop = sass_of(sass, "allpairs_mma_kernelILb0", "loop")
+    if loop:
+        per_all, per_fp32 = sa.per(loop, "MUFU.RSQ", None), sa.per(loop, "MUFU.RSQ", sa.FP32)
+        k2_floors["issue"] = issue_floor_ms(per_all, pairs, 128, sms)
+        print(f"  K2 SASS a pair (hot loop per MUFU.RSQ): fp32 {per_fp32:.2f}, all issued "
+              f"{per_all:.2f} (" + ", ".join(f"{k} {v / loop['MUFU.RSQ']:.2f}"
+                                             for k, v in loop.most_common()) + ")")
+    print(f"  K2 floors at {n} x {n}: issue "
+          + (f"{k2_floors['issue']:.4f} ms" if "issue" in k2_floors else "not measured")
+          + f", MUFU {k2_floors['MUFU']:.4f} ms ({sms} SMs at {CLOCK_HZ / 1e6:.0f} MHz)")
     del want, got_u, got_pb, got_o, c, pi, pj, mj, off
 
     # 25. robust forces at 1M
@@ -1491,6 +1522,10 @@ def robust_phases(torch, dev, card: str, arr, k1_100k, tmp: str, csv1m: str) -> 
           f"CUDA-core operations a pair at 67 TFLOP/s {t_cc * 1e3:.4f} ms, the contraction "
           f"{K2_TC_FLOPS} flops a pair at 495 TF32 TFLOP/s {t_tc * 1e3:.4f} ms), "
           f"{k2_ms / k2_bound[0]:.2f}x it; plain {k2_plain_ms:.4f} ms (one run) [{card}]")
+    print(f"  K2 before the redesign {BEFORE_MS['K2 100k']} ms "
+          f"({k2_ms / BEFORE_MS['K2 100k']:.3f}x); "
+          + "; ".join(f"{k} floor {v:.4f} ms ({v / k2_ms:.0%} of the time)"
+                      for k, v in k2_floors.items()) + f" [{card}]")
     center, border, out_idx = bh_fused.robust_box(br.pos)
     box_ms = cuda_ms(torch, lambda: bh_fused.robust_box(br.pos), 10)
     t0 = time.perf_counter()
@@ -1952,7 +1987,7 @@ def main() -> int:
         list_kernels = list_phases(torch, dev, card, sass, arr, arr1m, csv1m, tmp, exact,
                                    frames_ex, drift_ex, drift_bh)
         del exact
-        k2_entry, robust_df = robust_phases(torch, dev, card, arr, got, tmp, csv1m)
+        k2_entry, robust_df = robust_phases(torch, dev, card, sass, arr, got, tmp, csv1m)
         fp64_kernels[-1].update(robust_df)
         k6_entry = stage_phase(torch, dev, card, b, pairs / k1_ms * 1e3)
 

@@ -35,18 +35,14 @@
 // 1,953 (PERF.md); 256 threads a block, tiles of 512 rows and two or
 // eight targets a thread were slower.
 //
-// The rsqrt is rsqrt.approx.ftz.f32: MUFU.RSQ alone, without the scaling
-// that CUDA's rsqrtf wraps around it for subnormal inputs (two fp32
-// instructions a pair, 10-18 % of the time in the same trial).  |d|^2 +
-// eps2 is a normal float whenever eps2 is (the softening is 1e-2 by
-// default); a zero softening gives inf and NaN for a coincident pair
-// either way.
-//
-// rsqrt_ftz is rsqrt.cuh's.
+// The pair term is pair_f32.cuh's, shared with K7's f32 entry: its rsqrt
+// is rsqrt.approx.ftz.f32, MUFU.RSQ alone, without the scaling that CUDA's
+// rsqrtf wraps around it for subnormal inputs (two fp32 instructions a
+// pair, 10-18 % of the time in the same trial).
 
 #include <cuda_runtime.h>
 
-#include "rsqrt.cuh"
+#include "pair_f32.cuh"
 #include "split_sum.cuh"
 
 namespace {
@@ -104,18 +100,9 @@ allpairs_kernel(const float* __restrict__ pos_i, const float* __restrict__ pos_j
       const float4 r = src[q];
       const float ej = kPerBody ? src_e[q] : 0.f;
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        const float dx = r.x - xi[k];
-        const float dy = r.y - yi[k];
-        const float dz = r.z - zi[k];
-        const float e = kPerBody ? ei[k] + ej : ei[k];
-        const float r2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, e)));
-        const float inv_r = rsqrt_ftz(r2);
-        const float w = (r.w * inv_r) * (inv_r * inv_r);
-        ax[k] = fmaf(w, dx, ax[k]);
-        ay[k] = fmaf(w, dy, ay[k]);
-        az[k] = fmaf(w, dz, az[k]);
-      }
+      for (int k = 0; k < kPer; ++k)
+        accumulate_f32(r, xi[k], yi[k], zi[k], kPerBody ? ei[k] + ej : ei[k], ax[k], ay[k],
+                       az[k]);
     }
     __syncthreads();
   }

@@ -1,5 +1,5 @@
 // split_sum.cuh — the fixed-order meeting of a block's source slices, shared
-// by K1 (allpairs.cu), K4 (allpairs_f64.cu) and K7's fp64 entry
+// by K1 (allpairs.cu), K4 (allpairs_f64.cu) and both entries of K7
 // (group_lists.cu).
 //
 // Those kernels hold kPer targets a thread and, where the targets alone

@@ -1,4 +1,4 @@
-"""K1 and K7 timed on the card, through calls that the kernels' earlier
+"""K1, K2 and K7 timed on the card, through calls that the kernels' earlier
 designs took as well, so the same file times an older checkout too (copy
 it there and run it from that checkout's root):
 
@@ -7,21 +7,23 @@ it there and run it from that checkout's root):
 Prints, each beside the card's name and power limit: K1
 (``cuda_rect_accelerations``) on the 100k main-path bodies
 (``tests/data/100k_bodies.csv``) and on the 100,003 x 4,099 and
-1,000,000 x 1,953 rectangles of ``random_cloud``; the SM clock and power
-draw while K1 runs at 100k (nvidia-smi); and K7's f32 and fp64 entries
+1,000,000 x 1,953 rectangles of ``random_cloud``; K2 (the same call with
+``use_mxu=True``) on the 100k bodies; the SM clock and power draw while
+K1 and K2 run at 100k (nvidia-smi); and K7's f32 and fp64 entries
 (``eval_lists``, ``eval_lists_f64``) on the lists that the flat traversal
 builds for the 1M uniform cloud (``random_cloud(1M, seed 0)``), with
 their real pairs.  Each time is the best of 5 after a warm-up, each call
 queued behind a spin kernel (``fused_stages.best_ms``).  With
-``--splits`` it also times K1 and K7's fp64 entry at every forced number
-of source slices a block (the wrappers' ``_split=``, which earlier
-checkouts lack).  The last line is one JSON object {label: ms}.  It runs
-on the card only: with no card it exits 1 and says why.
+``--splits`` it also times K1 and both K7 entries at every forced number
+of source slices a block (the wrappers' ``_split=``), and says so for an
+entry whose checkout lacks it.  The last line is one JSON object {label:
+ms}.  It runs on the card only: with no card it exits 1 and says why.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import sys
@@ -87,8 +89,13 @@ def main(argv: list[str] | None = None) -> int:
                                                                          _split=split))
                 print(f"  {key}: {times[key]:.4f} ms", flush=True)
     square = shapes["K1 100k x 100k"]
-    load = clock_and_power(lambda: cuda_rect_accelerations(*square))
-    print(f"K1 100k x 100k running: SM clock, power draw {'; '.join(load)} [{card}]")
+    times["K2 100k x 100k"] = fs.best_ms(lambda: cuda_rect_accelerations(*square,
+                                                                         use_mxu=True))
+    print(f"K2 100k x 100k: {times['K2 100k x 100k']:.4f} ms [{card}]", flush=True)
+    for name, mxu in (("K1", False), ("K2", True)):
+        load = clock_and_power(lambda: cuda_rect_accelerations(*square, use_mxu=mxu))
+        print(f"{name} 100k x 100k running: SM clock, power draw {'; '.join(load)} "
+              f"[{card}]")
     del shapes, square
     for dtype, name, wrap in ((torch.float32, "f32", cuda_lists.eval_lists),
                               (torch.float64, "fp64", cuda_lists.eval_lists_f64)):
@@ -99,7 +106,9 @@ def main(argv: list[str] | None = None) -> int:
         times[label] = fs.best_ms(lambda: wrap(gl.pg, gl.lists, gl.lengths, eps2=0.01))
         print(f"{label} ({g} group slots, B {b}, M {gl.lists.shape[1]}, real pairs "
               f"{pairs:.4e}): {times[label]:.4f} ms [{card}]", flush=True)
-        if args.splits and dtype == torch.float64:
+        if args.splits and "_split" not in inspect.signature(wrap).parameters:
+            print(f"  {label}: this checkout's {wrap.__name__} has no _split", flush=True)
+        elif args.splits:
             for split in SPLITS:
                 key = f"{label} split {split}"
                 times[key] = fs.best_ms(lambda: wrap(gl.pg, gl.lists, gl.lengths,

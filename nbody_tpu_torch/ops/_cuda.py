@@ -101,9 +101,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
             _F, eps2, _I, _I, _I, _I, _P, _P, _P, *extra,
         ]
-    # the fp64 entry takes its number of list slices after eps2
+    # both entries take their number of list slices after eps2
     lib.nbody_group_lists_f32.restype = _I
-    lib.nbody_group_lists_f32.argtypes = [_P, _P, _P, _I, _I, _I, _F, _P, _P]
+    lib.nbody_group_lists_f32.argtypes = [_P, _P, _P, _I, _I, _I, _F, _I, _P, _P]
     lib.nbody_group_lists_f64.restype = _I
     lib.nbody_group_lists_f64.argtypes = [_P, _P, _P, _I, _I, _I, _D, _I, _P, _P]
     lib.nbody_cuda_error_string.restype = ctypes.c_char_p

@@ -31,13 +31,13 @@ def _check(pos_groups, lists, lengths, dtype: torch.dtype):
         raise ValueError("eval_lists: B or M exceeds the kernel's C int")
 
 
-# the fp64 entry's blocks: 128 threads of 4 slots, four resident an SM
+# both entries' blocks: 128 threads of 4 slots, four resident an SM
 K7_THREADS, K7_PER_THREAD, K7_BLOCKS_PER_SM = 128, 4, 64
 
 
 def k7_split(g: int, b: int, sms: int) -> int:
-    """The fp64 entry's list slices per block for g groups of b slots on a
-    card of `sms` SMs: the fewest that give every SM K7_BLOCKS_PER_SM
+    """K7's list slices per block (both entries) for g groups of b slots on
+    a card of `sms` SMs: the fewest that give every SM K7_BLOCKS_PER_SM
     blocks, 16 rounds of its four resident ones, so that the groups'
     uneven list lengths even out (on 132 SMs: 8 at 100k bodies, 4 at 1M;
     PERF.md)."""
@@ -48,21 +48,21 @@ def k7_split(g: int, b: int, sms: int) -> int:
 def launch(lib, pos_groups, lists, lengths, stream, *, eps2: float, split: int = 1):
     """Call K7's launcher in `lib` for pos_groups' dtype on checked
     tensors; returns (cudaError_t, accelerations (G, B, 3)).  `split` is
-    the fp64 entry's number of list slices a block (the f32 entry has
-    none).  The tensors' pointers go to the kernel as they are, so the CPU
-    emulation of the kernel source takes the same call."""
+    the number of list slices a block.  The tensors' pointers go to the
+    kernel as they are, so the CPU emulation of the kernel source takes
+    the same call."""
     g, b, _ = pos_groups.shape
     out = torch.empty_like(pos_groups)
-    args = (pos_groups.data_ptr(), lists.data_ptr(), lengths.data_ptr(), g, b,
-            lists.shape[1], float(eps2))
-    if pos_groups.dtype == torch.float64:
-        err = lib.nbody_group_lists_f64(*args, split, out.data_ptr(), stream)
-    else:
-        err = lib.nbody_group_lists_f32(*args, out.data_ptr(), stream)
+    entry = (lib.nbody_group_lists_f64 if pos_groups.dtype == torch.float64
+             else lib.nbody_group_lists_f32)
+    err = entry(pos_groups.data_ptr(), lists.data_ptr(), lengths.data_ptr(), g, b,
+                lists.shape[1], float(eps2), split, out.data_ptr(), stream)
     return err, out
 
 
-def _kernel(pos_groups, lists, lengths, eps2: float, split: int = 1) -> torch.Tensor:
+def _kernel(pos_groups, lists, lengths, eps2: float, split: int) -> torch.Tensor:
+    """Launch K7 on checked CUDA tensors with `split` list slices a block,
+    or 0 for ``k7_split``'s pick for this card; raise on a launch error."""
     device = pos_groups.device
     if device.type != "cuda":
         raise ValueError(f"no interaction-list kernel for device {device}")
@@ -71,6 +71,8 @@ def _kernel(pos_groups, lists, lengths, eps2: float, split: int = 1) -> torch.Te
                          "16-byte aligned")
     from nbody_tpu_torch.ops import _cuda
 
+    g, b, _ = pos_groups.shape
+    split = split or k7_split(g, b, _cuda.sm_count(device))
     kernels = _cuda.library()
     with torch.cuda.device(device):
         err, out = launch(kernels.lib, pos_groups, lists, lengths,
@@ -82,14 +84,17 @@ def _kernel(pos_groups, lists, lengths, eps2: float, split: int = 1) -> torch.Te
 
 
 def eval_lists(pos_groups: torch.Tensor, lists: torch.Tensor, lengths: torch.Tensor,
-               *, eps2: float) -> torch.Tensor:
+               *, eps2: float, _split: int = 0) -> torch.Tensor:
     """f32 accelerations (G, B, 3) of every slot of `pos_groups` (G, B, 3)
     against its group's first lengths[g] rows of `lists` (G, M, 4) [x y z
-    G·m] (the rest must have G·m = 0, as the traversals write them)."""
+    G·m] (the rest must have G·m = 0, as the traversals write them).
+    `_split` forces the kernel's number of list slices a block, for the
+    card tests and chip_smoke.py's sweep only (0, as every caller of the
+    port leaves it: ``k7_split``'s pick for this card)."""
     _check(pos_groups, lists, lengths, torch.float32)
     if pos_groups.device.type == "cpu":
         return eval_lists_reference(pos_groups, lists, lengths, eps2=eps2)
-    out = _kernel(pos_groups, lists, lengths, eps2)
+    out = _kernel(pos_groups, lists, lengths, eps2, _split)
     eval_lists.launches += 1
     return out
 
@@ -99,18 +104,12 @@ eval_lists.launches = 0
 
 def eval_lists_f64(pos_groups: torch.Tensor, lists: torch.Tensor, lengths: torch.Tensor,
                    *, eps2: float, _split: int = 0) -> torch.Tensor:
-    """The same in native fp64, from f64 bodies and lists.  `_split` forces
-    the kernel's number of list slices a block, for the card tests and
-    chip_smoke.py's sweep only (0, as every caller of the port leaves it:
-    ``k7_split``'s pick for this card)."""
+    """The same in native fp64, from f64 bodies and lists, `_split` as
+    there."""
     _check(pos_groups, lists, lengths, torch.float64)
     if pos_groups.device.type == "cpu":
         return eval_lists_reference(pos_groups, lists, lengths, eps2=eps2)
-    from nbody_tpu_torch.ops import _cuda
-
-    g, b, _ = pos_groups.shape
-    split = _split or k7_split(g, b, _cuda.sm_count(pos_groups.device))
-    out = _kernel(pos_groups, lists, lengths, eps2, split)
+    out = _kernel(pos_groups, lists, lengths, eps2, _split)
     eval_lists_f64.launches += 1
     return out
 

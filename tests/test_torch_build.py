@@ -26,7 +26,7 @@ def test_headers_are_hashed_not_compiled(monkeypatch, tmp_path):
     """A header the kernels include is not compiled on its own, but a change
     to it names a new library, so a stale build is never loaded."""
     assert [os.path.basename(h) for h in _cuda.headers()] == [
-        "pair_f64.cuh", "pe_triangle.cuh", "rsqrt.cuh", "split_sum.cuh"]
+        "pair_f32.cuh", "pair_f64.cuh", "pe_triangle.cuh", "rsqrt.cuh", "split_sum.cuh"]
     (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
     (tmp_path / "h.cuh").write_text("// one\n")
     monkeypatch.setattr(_cuda, "CSRC_DIR", str(tmp_path))

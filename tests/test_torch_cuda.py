@@ -369,24 +369,30 @@ def test_group_lists_kernel_matches_plain(dev, dtype):
     assert torch.equal(wrapper(gl.pg, gl.lists, gl.lengths, eps2=0.01), got)
 
 
-@pytest.mark.parametrize("split", [1, 2, 4, 8])
-def test_group_lists_f64_kernel_split(dev, split):
-    """K7's fp64 entry at each forced number of list slices a block, on the
-    flat traversal's lists at 20k bodies with B = 1,000 (a partial last
-    chunk of slots at every split): 1e-12 of the force scale of its plain
-    version, pad slots equal to slot 0, bit-identical reruns; the card's
-    own pick (``k7_split`` on its SM count) gives the bits of that split
-    forced."""
+@pytest.mark.parametrize("dtype,split", [
+    *(pytest.param(torch.float64, s, id=str(s)) for s in (1, 2, 4, 8)),
+    *(pytest.param(torch.float32, s, id=f"f32-{s}") for s in (1, 2, 4, 8))])
+def test_group_lists_f64_kernel_split(dev, dtype, split):
+    """K7's entries (the fp64 one, and the f32 one, ids f32-*) at each
+    forced number of list slices a block, on the flat traversal's lists at
+    20k bodies with B = 1,000 (a partial last chunk of slots at every
+    split): K1's bound in f32, 1e-12 of the force scale in fp64, of the
+    plain version; pad slots equal to slot 0, bit-identical reruns; the
+    card's own pick (``k7_split`` on its SM count) gives the bits of that
+    split forced."""
     pos, mass = _cloud(20_000, dev, seed=13)
-    gl = barneshut.group_lists(pos.double(), mass.double(), group_size=1000)
+    gl = barneshut.group_lists(pos.to(dtype), mass.to(dtype), group_size=1000)
     g, b, _ = gl.pg.shape
-    wrapper = cuda_lists.eval_lists_f64
+    wrapper = cuda_lists.eval_lists_f64 if dtype == torch.float64 else cuda_lists.eval_lists
     before = wrapper.launches
     got = wrapper(gl.pg, gl.lists, gl.lengths, eps2=0.01, _split=split)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     want = barneshut.eval_lists_reference(gl.pg, gl.lists, gl.lengths, eps2=0.01)
-    assert _rel(got, want) <= 1e-12
+    if dtype == torch.float32:
+        _assert_f32_close(got, want)
+    else:
+        assert _rel(got, want) <= 1e-12
     pad = ~gl.group_valid
     assert bool(pad.any())
     assert torch.equal(got[pad], got[:, :1].expand(g, b, 3)[pad])
@@ -442,11 +448,15 @@ def test_cli_flat_runs_through_k7(dev, tmp_path, capsys, dtype):
 
 
 @pytest.mark.parametrize("m,n,per_body", [(4096, 4096, False), (3001, 257, False),
-                                          (1, 9, False), (2000, 2000, True)])
+                                          (1, 9, False), (2000, 2000, True),
+                                          (256, 512, False), (257, 513, False),
+                                          (65, 65, True)])
 def test_allpairs_mma_kernel_matches_plain(dev, m, n, per_body):
     """K2 within K1's bound of its plain version and of K1, one launch
     counted, bit-identical reruns; unaligned shapes check the fragment
-    layout; per-body ε² in [1e-3, 1e-2]."""
+    layout, and shapes on and one past the tile edges (a block's 256
+    targets, a tile's 512 sources, a warp's 64 rows and a tensor-core
+    chain's 64 sources); per-body ε² in [1e-3, 1e-2]."""
     pos, mass = _cloud(m + n, dev, seed=m + n)
     # targets apart from sources: at these force scales a softened
     # self-term's weight G m / eps^3, which the W @ [x 1] - x * sum(w) form
@@ -465,6 +475,24 @@ def test_allpairs_mma_kernel_matches_plain(dev, m, n, per_body):
     _assert_f32_close(got, rect_accelerations_mxu_reference(pi, pj, mj, G=0.7, **kw))
     _assert_f32_close(got, cuda_rect_accelerations(pi, pj, mj, G=0.7, **kw))
     assert torch.equal(got, cuda_rect_accelerations(pi, pj, mj, G=0.7, use_mxu=True, **kw))
+
+
+@pytest.mark.parametrize("per_body", [False, True])
+def test_allpairs_mma_kernel_off_origin(dev, per_body):
+    """K2 on a cloud offset by (8, -8, 8) from the origin (chip_smoke.py
+    [24]'s offset), 3,001 targets x 4,099 other sources: within K1's bound
+    of K1 and of K1's plain version."""
+    pos, mass = _cloud(7100, dev, seed=8)
+    pos = pos + torch.tensor([8.0, -8.0, 8.0], device=dev)
+    pi, pj, mj = pos[:3001].contiguous(), pos[3001:].contiguous(), mass[3001:].contiguous()
+    kw = {}
+    if per_body:
+        e = torch.as_tensor(np.random.default_rng(8).uniform(1e-3, 1e-2, 7100),
+                            dtype=torch.float32, device=dev)
+        kw = dict(eps2_i=e[:3001].contiguous(), eps2_all=e[3001:].contiguous())
+    got = cuda_rect_accelerations(pi, pj, mj, G=0.7, use_mxu=True, **kw)
+    _assert_f32_close(got, cuda_rect_accelerations(pi, pj, mj, G=0.7, **kw))
+    _assert_f32_close(got, rect_accelerations_reference(pi, pj, mj, G=0.7, **kw))
 
 
 def _plummer_with_escapers(n, dev, dtype=torch.float32):

@@ -194,6 +194,64 @@ def test_pair_kernels_profiler_needs_a_card(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+def test_sass_hot_loop_is_the_unrolled_body():
+    """diag.sass takes cuobjdump's listing apart: the hot loop is the
+    innermost loop with the most rsqrts (an unrolled body, not its
+    remainder loop or the tile loop around both), and per() divides by
+    its rsqrts."""
+    from nbody_tpu_torch.diag import sass
+
+    ops = ["LDS.128", "FADD", "FFMA", "MUFU.RSQ", "FADD", "MUFU.RSQ", "@P0 BRA 0x20",
+           "FFMA", "MUFU.RSQ", "@!P1 BRA 0x90", "BAR.SYNC.DEFER_BLOCKING 0x0",
+           "@P2 BRA 0x10", "EXIT", "BRA 0xe0"]
+    listing = "\n".join(["\t\tFunction : _Z3fooPf", "/*0000*/  LDC R1, c[0x0][0x28] ;"]
+                         + [f"        /*{16 * (k + 2):04x}*/   {op} ;" for k, op in enumerate(ops)])
+    (fn, instrs), = sass.kernels(listing).items()
+    assert fn == "_Z3fooPf" and len(instrs) == 15
+    assert sass.whole(instrs)["MUFU.RSQ"] == 3
+    loop = sass.hot_loop(instrs, "MUFU.RSQ")
+    assert loop == {"LDS": 1, "FADD": 2, "FFMA": 1, "MUFU.RSQ": 2, "BRA": 1}
+    assert sass.per(loop, "MUFU.RSQ", sass.FP32) == 1.5
+    assert sass.per(loop, "MUFU.RSQ", None) == 3.5
+    assert not sass.hot_loop(instrs, "MUFU.RSQ64H")
+
+
+def test_sass_counts_each_kernel_apart():
+    """diag.sass keeps each function of a listing apart, counts MUFU
+    instructions in full (the f32 and fp64 rsqrts apart) and every other
+    opcode without its modifiers, and per() takes the fp64 names too."""
+    from nbody_tpu_torch.diag import sass
+
+    listing = "\n".join([
+        "\t\tFunction : _Z1aPf",
+        "        /*0000*/   FADD.FTZ R1, R2, R3 ;",
+        "        /*0010*/   MUFU.RSQ R4, R1 ;",
+        "        /*0020*/   @!P0 FMUL.FTZ R5, R4, R4 ;",
+        "\t\tFunction : _Z1bPd",
+        "        /*0000*/   MUFU.RSQ64H R1, R3 ;",
+        "        /*0010*/   DFMA.RM R4, R2, R2, R4 ;",
+        "        /*0020*/   DMUL R6, R4, R2 ;",
+        "        /*0030*/   @P1 BRA 0x0 ;",
+    ])
+    fns = sass.kernels(listing)
+    assert list(fns) == ["_Z1aPf", "_Z1bPd"]
+    assert sass.whole(fns["_Z1aPf"]) == {"FADD": 1, "MUFU.RSQ": 1, "FMUL": 1}
+    assert sass.per(sass.whole(fns["_Z1aPf"]), "MUFU.RSQ", sass.FP32) == 2
+    loop = sass.hot_loop(fns["_Z1bPd"], "MUFU.RSQ64H")
+    assert loop == {"MUFU.RSQ64H": 1, "DFMA": 1, "DMUL": 1, "BRA": 1}
+    assert sass.per(loop, "MUFU.RSQ64H", sass.FP64) == 2
+
+
+def test_sass_without_cuobjdump(tmp_path):
+    """With no cuobjdump beside nvcc, diag.sass gives None, so the smoke
+    run prints no counts and goes on."""
+    from nbody_tpu_torch.diag import sass
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("")
+    assert sass.cuobjdump_sass(str(nvcc), str(tmp_path / "lib.so")) is None
+
+
 @pytest.mark.parametrize("case", [
     "f64", "bad_shape", "mass_len", "non_contiguous", "one_sided_eps",
     "eps_len", "mixed_device",

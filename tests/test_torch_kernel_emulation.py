@@ -49,7 +49,7 @@ EMU_HEADER = r"""// CPU emulation of the CUDA features the port's kernels use.  
 // __shared__`; __syncthreads is a barrier over the block.  The 32 lanes of
 // each warp share an exchange buffer and a warp barrier, for the shuffles,
 // __ballot_sync and the twin of allpairs_mma.cu's tensor-core helper
-// mma_3xtf32.  bh_fused.cu's asynchronous near-row copies have twins that
+// mma_tf32.  bh_fused.cu's asynchronous near-row copies have twins that
 // copy synchronously, with a block barrier for the wait.
 // It checks the kernels' indexing, masking, fragment mapping and reductions,
 // not the card's arithmetic: rsqrtf and rsqrt here are 1/sqrt, and nothing
@@ -79,6 +79,7 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
+struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
@@ -213,37 +214,32 @@ inline float emu_tf32(float v) {
   return __uint_as_float((__float_as_uint(v) + 0x1000u) & ~0x1fffu);
 }
 
-// Twin of allpairs_mma.cu's mma_3xtf32, c += a @ b over the warp's
-// m16n8k8 fragments (PTX ISA layout for .tf32): lane (g, t) = (lane / 4,
-// lane % 4) holds A's a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
-// t + 4), B's b0 (t, g), b1 (t + 4, g), and C's c0 (g, 2t), c1 (g, 2t + 1),
-// c2 (g + 8, 2t), c3 (g + 8, 2t + 1).  Each lane posts its fragments, the
-// warp meets, each lane computes its four C entries in 3xTF32 (lo·hi, hi·lo,
-// then hi·hi added to c, as the three mma.sync of the helper), and the warp
-// meets again before the slots are reused.
+// Twins of allpairs_mma.cu's tensor-core helpers.  tf32_rna is
+// cvt.rna.tf32.f32.  mma_tf32 is d += a @ b over the warp's m16n8k8
+// fragments (PTX ISA layout for .tf32): lane (g, t) = (lane / 4, lane % 4)
+// holds A's a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4), B's
+// b0 (t, g), b1 (t + 4, g), and C's c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8,
+// 2t), c3 (g + 8, 2t + 1).  The tensor cores read an operand's top 19 bits
+// (TF32) and drop the low 13, and so does the twin.  Each lane posts its
+// fragments, the warp meets, each lane sums its four C entries in f32, and
+// the warp meets again before the slots are reused.
 #define NBODY_EMULATED_MMA 1
-inline void mma_3xtf32(float c[4], const float a[4], const float b[2]) {
+inline float tf32_rna(float v) { return emu_tf32(v); }
+inline float emu_tf32_operand(unsigned bits) { return __uint_as_float(bits & ~0x1fffu); }
+inline void mma_tf32(float d[4], const unsigned a[4], float2 b) {
   EmuWarp& w = *emu_warp;
   const unsigned lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int q = 0; q < 4; ++q) w.a[lane][q] = a[q];
-  w.b[lane][0] = b[0];
-  w.b[lane][1] = b[1];
+  for (int q = 0; q < 4; ++q) w.a[lane][q] = emu_tf32_operand(a[q]);
+  w.b[lane][0] = emu_tf32_operand(__float_as_uint(b.x));
+  w.b[lane][1] = emu_tf32_operand(__float_as_uint(b.y));
   w.bar.arrive_and_wait();
   auto A = [&](int row, int k) { return w.a[(row & 7) * 4 + (k & 3)][(row >> 3) + 2 * (k >> 2)]; };
   auto B = [&](int k, int col) { return w.b[col * 4 + (k & 3)][k >> 2]; };
   for (int q = 0; q < 4; ++q) {
     const int row = g + 8 * (q >> 1), col = 2 * t + (q & 1);
-    float lh = 0.f, hl = 0.f, hh = 0.f;
-    for (int k = 0; k < 8; ++k) {
-      const float ah = emu_tf32(A(row, k)), bh = emu_tf32(B(k, col));
-      const float al = emu_tf32(A(row, k) - ah), bl = emu_tf32(B(k, col) - bh);
-      lh += al * bh;
-      hl += ah * bl;
-      hh += ah * bh;
-    }
-    c[q] += lh;
-    c[q] += hl;
-    c[q] += hh;
+    float sum = 0.f;
+    for (int k = 0; k < 8; ++k) sum += A(row, k) * B(k, col);
+    d[q] += sum;
   }
   w.bar.arrive_and_wait();
 }
@@ -336,7 +332,7 @@ void emu_launch(dim3 grid, int block, size_t smem_bytes, F body) {
   }
 }
 """
-_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);", re.S)
+_LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\((.*?)\);", re.S)
 _DYNAMIC_SMEM = re.compile(
     r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?([\w ]+?)\s+(\w+)\[\];")
 
@@ -460,18 +456,40 @@ def _emu_allpairs_mma(lib, pos_i, pos_j, mass_j, eps2, eps2_i=None, eps2_j=None)
     return out
 
 
-@pytest.mark.parametrize("m,n", [(1, 9), (137, 300), (300, 517)])
+@pytest.mark.parametrize("m,n", [(1, 9), (137, 300), (300, 517), (64, 64), (65, 65),
+                                 (256, 512), (257, 513)])
 @pytest.mark.parametrize("per_body", [False, True])
 def test_allpairs_mma_kernel_source(emu, m, n, per_body):
     """K2 (tensor-core j-sum) within K1's bound of its plain version, on
     unaligned, asymmetric rectangles (m not a multiple of the 16-row tile,
-    n not of the 8-source k-step or the 256-row tile), so a wrong lane to
-    fragment (row, column) map cannot pass.  The targets are not sources:
-    at these tiny force scales the softened self-term's weight G m / eps^3,
-    which the W @ [x 1] - x * sum(w) form cancels in 3xTF32, would set the
-    error (the card checks that case at the main path's scale)."""
+    n not of the 8-source k-step or the 512-row tile), so a wrong lane to
+    fragment (row, column) map cannot pass, and on the tile edges and one
+    past them: a warp's 64 rows, a block's 256, a tensor-core chain's 64
+    sources and a tile's 512.  The targets are not sources: at these tiny
+    force scales the softened self-term's weight G m / eps^3, which the W @
+    [x 1] - x * sum(w) form cancels in 3xTF32, would set the error (the
+    card checks that case at the main path's scale)."""
+    _check_mma_case(emu, m, n, per_body, (0.5, -0.25, 0.125),
+                    rect_accelerations_mxu_reference)
+
+
+@pytest.mark.parametrize("per_body", [False, True])
+def test_allpairs_mma_kernel_source_off_origin(emu, per_body):
+    """K2 on a cloud at chip_smoke.py's offset (8, -8, 8) from the origin,
+    where the columns' offsets from the block's first target, not the
+    coordinates, keep the tensor cores' sums small: within K1's bound of
+    K1's plain version (the displacement form).  K2's own plain version,
+    W @ [x y z 1] - x * sum(w) in f32, is off by its own cancellation
+    here, ~7e-5 of the force scale against the fp64 formula."""
+    _check_mma_case(emu, 300, 517, per_body, (8.0, -8.0, 8.0),
+                    rect_accelerations_reference)
+
+
+def _check_mma_case(emu, m, n, per_body, offset, plain):
+    """K2's source on m targets and n other sources of a random cloud moved
+    by `offset` (asymmetric), against the plain version `plain`."""
     arr = random_cloud(m + n, seed=3 * m + n)
-    arr[:, :3] += np.array([0.5, -0.25, 0.125])  # off the origin, asymmetric
+    arr[:, :3] += np.array(offset)
     pos_j, mass_j = _f32(arr[m:, :3]), _f32(arr[m:, 6])
     pos_i = _f32(arr[:m, :3])
     kw = {}
@@ -480,7 +498,7 @@ def test_allpairs_mma_kernel_source(emu, m, n, per_body):
         kw = dict(eps2_i=_f32(e[:m]), eps2_all=_f32(e[m:]))
     got = _emu_allpairs_mma(emu, pos_i, pos_j, mass_j, 0.01, kw.get("eps2_i"),
                             kw.get("eps2_all"))
-    want = rect_accelerations_mxu_reference(pos_i, pos_j, mass_j, G=1.0, **kw)
+    want = plain(pos_i, pos_j, mass_j, G=1.0, **kw)
     scale = want.abs().max().item()
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale,
                                rtol=2e-4)
@@ -493,7 +511,7 @@ def test_allpairs_mma_kernel_source(emu, m, n, per_body):
     (cuda_lists.k7_split, (120, 1792, 132), 8), (cuda_lists.k7_split, (1001, 2048, 132), 4),
     (cuda_lists.k7_split, (1, 64, 132), 8)])
 def test_split_picks(pick, args, split):
-    """The source (list) slices a block that K1, K4 and K7's fp64 entry
+    """The source (list) slices a block that K1, K4 and K7 (both entries)
     take on a 132-SM card: at the 100k main path (K7: its 120 groups of B
     = 1,792), at 1M (K1 and K4: the robust path's 1M-target rectangle; K7:
     1,001 groups of B = 2,048) and at a single target or group."""
@@ -818,12 +836,12 @@ def test_bh_fused_unknown_debug_mode_raises():
 
 
 def _lists_case(dtype):
-    """Four groups of B = 300 slots (two blocks, the second partial) against
-    lists of M = 600 rows: lengths 517 and 300 (not multiples of the
-    256-row tile), 0, and the full 600; group 2 holds 200 bodies and 100
-    pad slots repeating its first body; each group's list holds one of its
-    own bodies (a zero self-term).  Rows past a length are zero, as the
-    traversals leave them."""
+    """Four groups of B = 300 slots (a partial last block of slots at every
+    split) against lists of M = 600 rows: lengths 517 and 300 (not
+    multiples of a list slice), 0, and the full 600; group 2 holds 200
+    bodies and 100 pad slots repeating its first body; each group's list
+    holds one of its own bodies (a zero self-term).  Rows past a length are
+    zero, as the traversals leave them."""
     rng = np.random.default_rng(17)
     g, b, m = 4, 300, 600
     pg = rng.uniform(-2, 2, (g, b, 3))
@@ -868,21 +886,24 @@ def test_group_lists_kernel_source(emu, dtype):
     _check_lists_case(emu, dtype)
 
 
-@pytest.mark.parametrize("split", [1, 2, 4, 8])
-def test_group_lists_f64_kernel_source_split(emu, split):
-    """K7's fp64 entry with each block's list tiles split over 1-8 thread
-    groups: B = 300 slots is a partial last chunk of slots at every split
-    (512 / split a block, four a thread), the lengths 517, 0, 300 and 600
-    are empty, ragged against the 512-row tile and full, and group 2 holds
-    pad slots; within 1e-12 of the force scale, pad slots equal slot 0,
+@pytest.mark.parametrize("dtype,split", [
+    *(pytest.param(torch.float64, s, id=str(s)) for s in (1, 2, 4, 8)),
+    *(pytest.param(torch.float32, s, id=f"f32-{s}") for s in (1, 2, 4, 8))])
+def test_group_lists_f64_kernel_source_split(emu, dtype, split):
+    """K7's entries (the fp64 one, and the f32 one, ids f32-*) with each
+    block's list tiles split over 1-8 thread groups: B = 300 slots is a
+    partial last chunk of slots at every split (512 / split a block, four a
+    thread), the lengths 517, 0, 300 and 600 are empty, ragged against the
+    list slices and full, and group 2 holds pad slots; f32 within K1's
+    bound, fp64 within 1e-12 of the force scale, pad slots equal slot 0,
     reruns bit-identical."""
-    _check_lists_case(emu, torch.float64, split)
+    _check_lists_case(emu, dtype, split)
 
 
 def _pipeline(lib, dtype):
     """(through K7's source, through the plain version) of the list-based
-    path on 600 bodies: the flat traversal's own lists, the fp64 entry at
-    the split it takes on a 132-SM card."""
+    path on 600 bodies: the flat traversal's own lists, at the split
+    ``k7_split`` takes on a 132-SM card."""
     arr = random_cloud(600, seed=8)
     pos = torch.as_tensor(arr[:, :3], dtype=dtype)
     mass = torch.as_tensor(arr[:, 6], dtype=dtype)
