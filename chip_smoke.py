@@ -9,7 +9,8 @@ f32 with --energy), the fused Barnes-Hut run (--algo auto at 1M bodies, 5
 KDK steps, f32, --energy), both again with --dtype f64, the list-based
 Barnes-Hut run (--bh-traversal flat at 1M bodies, 5 KDK steps, f32 and
 f64), the tensor-core all-pairs kernel, and the robust Barnes-Hut run
-(--algo auto on a 1M Plummer sphere with escapers, f32 and f64).  Phases (each raises on failure, so the script exits non-zero and
+(--algo auto on a 1M Plummer sphere with escapers, f32 and f64), and the
+persistent Morton layout (--resort-every, plain and robust).  Phases (each raises on failure, so the script exits non-zero and
 prints no result):
 
 1. card and build: nvidia-smi's name and power limit, nvcc's version, the
@@ -123,7 +124,24 @@ prints no result):
     full, the full cut bit-identical to the production entry and to the
     heaviest-first launch; ms per cut and the increments, real and issued
     pairs, the source-weighted lane fill, K6's bound and its pairs at K1's
-    rate; the df mode's cuts at 100k, 1M and on the robust input, timed.
+    rate; the df mode's cuts at 100k, 1M and on the robust input, timed;
+30. the persistent Morton layout (--resort-every 4) at 1M uniform bodies:
+    the CLI run with --energy --write-every 5, counters reset just before
+    and read just after, its final positions and drift against [9]'s
+    one-shot run; its forces after 4 unsorted steps against exact ones on
+    sampled bodies; an evaluation rerun bit-identical; one step split into
+    table rebuild, K6, kick and drift, and one resort, beside [11]'s
+    one-shot split; --no-output s/step in turns one-shot, persistent,
+    persistent, one-shot; the table rebuild at ld 5-8 and its cost per
+    dense-grid node (the depth pricer's NS_PER_TABLE_NODE);
+31. the robust persistent layout (K6 + K1 every step) on [25]'s input:
+    the depth pricer's pick, the first evaluation against exact forces
+    (the escapers against their own scale), a rerun bit-identical, one
+    step split, the CLI run with counters reset and read, s/step in turns
+    beside the one-shot robust run, and the rebuild's fit on this input;
+32. --timers on the fused and the flat traversal at 1M (the phases' sum
+    over the whole evaluation), a --trace of the 100k run read back for
+    its device kernels, and --devices.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
@@ -1619,6 +1637,302 @@ def robust_phases(torch, dev, card: str, sass: dict, arr, k1_100k, tmp: str,
             "library_ms": None}, {"launches": k6df_r64, "evaluations": k6df_e64}
 
 
+# [30]-[32]: 20 KDK steps for the --no-output s/step turns (C-float count)
+TURN_WINDOW = ["0", "0.002", "0.0001"]
+RESORT_EVERY = 4
+
+
+def table_node_fit(torch, bp, pos, vel, mass, lds, robust_slots: int, label: str,
+                   card: str) -> float:
+    """The persistent layout's per-step table rebuild (``_ft_from_state``)
+    timed at each depth in `lds` on these bodies, and its slope in ns per
+    dense-grid node by least squares: the depth pricer's
+    NS_PER_TABLE_NODE."""
+    nodes, ms = [], []
+    for ld in lds:
+        st = bp.init_state(pos, vel, mass, G=1.0, robust_slots=robust_slots, ld=ld)
+        ms.append(cuda_ms(torch, lambda: bp._ft_from_state(st), 10))
+        nodes.append((8 ** (ld + 1) - 1) // 7)
+        print(f"  {label} ld {ld}: table rebuild {ms[-1]:.4f} ms over {nodes[-1]} nodes "
+              f"({st.src.shape[0]} slots) [{card}]")
+    del st
+    slope = float(np.polyfit(nodes, [m * 1e6 for m in ms], 1)[0])
+    print(f"  {label}: NS_PER_TABLE_NODE fit {slope:.4f} ns per node over ld "
+          f"{lds[0]}-{lds[-1]} [{card}]")
+    return slope
+
+
+def persistent_split(torch, bp, bh_fused, st, kw: dict, dt: float) -> dict:
+    """One persistent step's parts, device ms (CUDA events, mean of 10 after
+    a warm-up): the table rebuild, K6 (pricing pass and full kernel), the
+    outliers' K1 rectangle in robust mode, kick and drift, the whole step,
+    and one resort.  Steps run on a copy of the state."""
+    from nbody_tpu_torch.ops.cuda_exhaustive import cuda_rect_accelerations
+
+    tree = bp._ft_from_state(st)
+    b = st.group_size
+    gstart = torch.arange(0, st.src.shape[0], b, dtype=torch.int32, device=st.src.device)
+    out = {"rebuild": cuda_ms(torch, lambda: bp._ft_from_state(st), 10),
+           "K6": cuda_ms(torch, lambda: bh_fused.fused_group_forces(
+               tree, gstart, st.gcount, st.src, st.bsq, theta=kw["theta"],
+               eps2=kw["softening_sq"], leaf_cap=kw["leaf_cap"], ld=st.ld, group_size=b), 10)}
+    if st.out_gm is not None:
+        targets = st.src[:, :3].contiguous()
+        src_o = targets[st.out_slots].contiguous()
+        out["K1 rectangle"] = cuda_ms(torch, lambda: cuda_rect_accelerations(
+            targets, src_o, st.out_gm, G=1.0, softening_sq=kw["softening_sq"]), 10)
+    work = st._replace(src=st.src.clone(), vel=st.vel.clone())
+    half = dt * 0.5
+
+    def kick_drift():
+        work.vel.add_(work.acc * half)
+        work.src[:, :3] += work.vel * dt
+        work.vel.add_(work.acc * half)
+
+    out["kick+drift"] = cuda_ms(torch, kick_drift, 10)
+    out["whole step"] = cuda_ms(torch, lambda: bp.kdk_steps(work, 1, dt, **kw), 10)
+    out["resort"] = cuda_ms(torch, lambda: bp.resort(st, 0 if st.out_gm is None
+                                                     else st.out_slots.numel()), 10)
+    return out
+
+
+def profile_line(torch, fn, label: str, card: str) -> None:
+    """Print one profiled call of `fn` (after a warm-up): its wall time, the
+    kernels' device time and busy share, the kernel launches and the three
+    costliest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:3]
+    print(f"  profile of {label}: wall {wall_ms:.4f} ms (profiled), kernels {device_ms:.4f} "
+          f"ms on the device, busy share {device_ms / wall_ms:.3f}, {launches} kernel "
+          "launches; top: " + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.4f} ms"
+                                        for e in top) + f" [{card}]")
+
+
+def split_line(parts: dict, k: int) -> str:
+    amort = parts["whole step"] + parts["resort"] / k
+    return (" + ".join(f"{name} {parts[name]:.4f}" for name in parts
+                       if name not in ("whole step", "resort"))
+            + f" ms (parts timed apart); one whole step {parts['whole step']:.4f} ms; one "
+            f"resort {parts['resort']:.4f} ms; a step with a resort every {k} steps "
+            f"{amort:.4f} ms")
+
+
+def no_output_turns(csv: str, tmp: str, card: str, label: str) -> None:
+    """--no-output s/step over TURN_WINDOW in turns one-shot, persistent,
+    persistent, one-shot (each its own CLI call in this process)."""
+    for persistent in (False, True, True, False):
+        flags = ["--resort-every", str(RESORT_EVERY)] if persistent else []
+        text = run_cli([csv, *TURN_WINDOW, os.path.join(tmp, "x.csv"), "--no-output",
+                        "--algo", "auto", *flags])
+        steps = int(re.search(r"time steps: (\d+)", text).group(1))
+        sim = cli_number(text, "Elapsed wall time:")
+        how = f"--resort-every {RESORT_EVERY}" if persistent else "one-shot"
+        print(f"  {label} --no-output {how}: simulate {sim:.4f} s over {steps} steps -> "
+              f"{sim / steps:.5f} s/step [{card}]")
+
+
+def persistent_phases(torch, dev, card: str, b1m, csv1m: str, tmp: str, frames_bh,
+                      drift_bh: float, dmax: float, oneshot: dict) -> dict:
+    """Phases [30]-[32]: the persistent Morton layout at 1M bodies, uniform
+    ([30]) and robust ([31]), and the CLI's report flags ([32]).  Returns
+    the launches of the persistent main paths (K6 and K1)."""
+    from nbody_tpu_torch.core.types import Bodies
+    from nbody_tpu_torch.diag.energy import cuda_potential_energy
+    from nbody_tpu_torch.ops import bh_autold, bh_fused
+    from nbody_tpu_torch.ops import bh_persistent as bp
+    from nbody_tpu_torch.ops.cuda_exhaustive import cuda_accelerations, cuda_rect_accelerations
+    from nbody_tpu_torch.utils.fixtures import plummer_cloud, with_escapers
+
+    f32 = torch.float32
+    kw = dict(theta=0.5, softening_sq=0.01, leaf_cap=64)
+    counters = (bh_fused.fused_group_forces, cuda_rect_accelerations, cuda_potential_energy)
+
+    def main_path(argv):
+        for c in counters:
+            c.launches = 0
+        bh_fused.fused_group_forces.evaluations = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (text, wall, [c.launches for c in counters],
+                bh_fused.fused_group_forces.evaluations)
+
+    # 30. the persistent layout on the uniform cloud
+    print(f"[30] persistent Morton layout (nbody_tpu_torch/ops/bh_persistent.py): {BH_N} "
+          f"bodies (random_cloud seed 0) x {BH_STEPS} KDK steps, --algo auto --resort-every "
+          f"{RESORT_EVERY} --energy --write-every 5")
+    out_p = os.path.join(tmp, "persistent.csv")
+    text, wall, (k6_l, k1_l, k3_l), k6_e = main_path(
+        [csv1m, *BH_WINDOW, out_p, "--energy", "--write-every", "5", "--algo", "auto",
+         "--resort-every", str(RESORT_EVERY)])
+    print(f"  launches: K6 {k6_l} in {k6_e} evaluations (want {BH_STEPS + 2}: the one-shot "
+          f"probe, the first evaluation and {BH_STEPS} steps, two launches each), K1 {k1_l} "
+          f"(want 0), potential {k3_l} (want 2); whole CLI call {wall:.4f} s")
+    check("backend: cuda/fused/persistent, dtype: f32" in text,
+          "--resort-every took the persistent layout")
+    check(k6_e == BH_STEPS + 2 and k6_l == 2 * k6_e and k1_l == 0 and k3_l == 2,
+          "persistent K6 / K1 / K3 launches")
+    persistent_launches = k6_l
+    frames_p = load_frames(out_p, BH_N, frames=2)
+    drift_p = cli_number(text, "Relative energy drift:")
+    t_bh = BH_STEPS * BH_DT
+    pos_bound = dmax * t_bh * t_bh + 2e-6
+    dpos = float(np.abs(frames_p[-1, :, 1:4] - frames_bh[-1, :, 1:4]).max())
+    print(f"  final positions against the one-shot run's ([9]) max |diff| {dpos:.3e} (bound "
+          f"max|da| T^2 + 2e-6 = {pos_bound:.3e}); drift persistent {drift_p:.6e} vs "
+          f"one-shot {drift_bh:.6e}, |diff| {abs(drift_p - drift_bh):.3e} (bound 1e-3)")
+    check(dpos < pos_bound, "persistent final positions agree with the one-shot run")
+    check(abs(drift_p - drift_bh) < 1e-3, "persistent drift agrees with the one-shot run")
+    del frames_p
+
+    st = bp.init_state(b1m.pos, b1m.vel, b1m.mass, G=1.0)
+    st, stats = bp.prime(st, **kw)
+    st, ovf, _ = bp.kdk_steps(st, RESORT_EVERY, BH_DT, **kw)
+    check(int(ovf) == 0 and int(stats[:, bh_fused.S_OVF].max()) == 0, "no frontier overflow")
+    sample = st.real[::97]
+    pos_r = st.src[st.real, :3].contiguous()
+    exact = cuda_rect_accelerations(st.src[sample, :3].contiguous(), pos_r,
+                                    st.src[st.real, 3].contiguous(), G=1.0)
+    rel = ((st.acc[sample] - exact).abs().max() / exact.abs().max()).item()
+    print(f"  forces after {RESORT_EVERY} unsorted steps (ld {st.ld}, {st.gcount.shape[0]} "
+          f"groups of {st.group_size} slots, {st.src.shape[0]} slots) against exact on "
+          f"{sample.numel()} sampled bodies: max |a - exact| / max |a| = {rel:.4e} "
+          f"(bound {BH_BOUND})")
+    check(rel < BH_BOUND and bool(torch.isfinite(st.acc[st.real]).all()),
+          "persistent forces within 0.02 of exact")
+    acc1, s1 = bp.state_forces(st, **kw)
+    acc2, s2 = bp.state_forces(st, **kw)
+    check(torch.equal(acc1, acc2) and torch.equal(s1, s2),
+          "persistent evaluations rerun bit-identical")
+    print("  two persistent evaluations bit-identical: True")
+    parts = persistent_split(torch, bp, bh_fused, st, kw, BH_DT)
+    print(f"  one persistent step at {BH_N}: " + split_line(parts, RESORT_EVERY) + f" [{card}]")
+    print(f"  one one-shot evaluation at {BH_N} ([11]): whole {oneshot['whole']:.4f} ms = "
+          f"set-up {oneshot['set-up']:.4f} + K6 {oneshot['K6']:.4f} + scatter "
+          f"{oneshot['scatter']:.4f} ms (parts timed apart) [{card}]")
+    # where a chunk's time goes: RESORT_EVERY persistent steps and their
+    # resort, against as many one-shot KDK steps
+    from nbody_tpu_torch.integrate.leapfrog import leapfrog_steps
+
+    def chunk():
+        work = st._replace(src=st.src.clone(), vel=st.vel.clone())
+        work, _, _ = bp.kdk_steps(work, RESORT_EVERY, BH_DT, **kw)
+        bp.resort(work)
+
+    profile_line(torch, chunk, f"{RESORT_EVERY} persistent steps and a resort", card)
+    acc0 = torch.zeros_like(b1m.pos)  # the carry's value does not change the work
+    profile_line(torch, lambda: leapfrog_steps(b1m, RESORT_EVERY, BH_DT,
+                                               bh_fused.barneshut_fused, acc0=acc0),
+                 f"{RESORT_EVERY} one-shot steps", card)
+    no_output_turns(csv1m, tmp, card, f"{BH_N} uniform")
+    del st, acc1, acc2, exact, pos_r
+    table_node_fit(torch, bp, b1m.pos, b1m.vel, b1m.mass, (5, 6, 7, 8), 0, "uniform", card)
+
+    # 31. the robust persistent layout
+    k_out = max(128, BH_N // 512)
+    print(f"[31] robust persistent layout: plummer_cloud({BH_N}, seed=0) with 8 escapers, "
+          f"--algo auto --resort-every {RESORT_EVERY} (K6 + K1 every step, K = {k_out})")
+    arr_r = with_escapers(plummer_cloud(BH_N, seed=0))
+    csv_r = os.path.join(tmp, "robust_1m.csv")
+    check(os.path.exists(csv_r), "[26] wrote the robust input")
+    br = Bodies.from_numpy(arr_r, dtype=f32, device=dev)
+    t0 = time.perf_counter()
+    ld_p, _ = bh_autold.choose_ld(arr_r[:, 0:3], arr_r[:, 6], robust=True, persistent=True)
+    ld_o, _ = bh_autold.choose_ld(arr_r[:, 0:3], arr_r[:, 6], robust=True)
+    print(f"  the depth pricer's pick: ld {ld_p} persistent, ld {ld_o} one-shot "
+          f"(NS_PER_TABLE_NODE {bh_autold.NS_PER_TABLE_NODE}; {time.perf_counter() - t0:.2f} "
+          "s, host)")
+    for c in counters:
+        c.launches = 0
+    st = bp.init_state(br.pos, br.vel, br.mass, G=1.0, robust_slots=k_out, ld=ld_p)
+    st, _ = bp.prime(st, **kw)
+    torch.cuda.synchronize()
+    check([c.launches for c in counters[:2]] == [2, 1], "one K6 evaluation and one K1 launch")
+    acc = torch.empty_like(br.pos)
+    acc[st.orig[st.real].long()] = st.acc[st.real]
+    exact_r = cuda_accelerations(br.pos, br.mass)
+    rel_r = ((acc - exact_r).abs().max() / exact_r.abs().max()).item()
+    own = ((acc[:8] - exact_r[:8]).abs().amax(dim=1) / exact_r[:8].abs().amax(dim=1))
+    print(f"  first evaluation (ld {st.ld}): max |a - exact| / max |a| = {rel_r:.4e} (bound "
+          f"{BH_BOUND}); escapers against their own force scale: max "
+          f"{own.max().item():.4e} (bound {BH_BOUND})")
+    check(rel_r < BH_BOUND and own.max().item() < BH_BOUND
+          and bool(torch.isfinite(acc).all()), "robust persistent forces within 0.02 of exact")
+    acc1, _ = bp.state_forces(st, **kw)
+    check(torch.equal(acc1, st.acc), "robust persistent evaluations rerun bit-identical")
+    del exact_r, acc, acc1
+    parts = persistent_split(torch, bp, bh_fused, st, kw, BH_DT)
+    print(f"  one robust persistent step: " + split_line(parts, RESORT_EVERY) + f" [{card}]")
+    del st
+    text, wall, (k6_l, k1_l, _), k6_e = main_path(
+        [csv_r, *TURN_WINDOW, os.path.join(tmp, "x.csv"), "--no-output", "--algo", "auto",
+         "--resort-every", str(RESORT_EVERY)])
+    steps = int(re.search(r"time steps: (\d+)", text).group(1))
+    print(f"  robust persistent main path over {steps} steps: K6 {k6_l} in {k6_e} evaluations, "
+          f"K1 {k1_l} (want {steps + 2} each: the one-shot probe, the first evaluation and "
+          f"{steps} steps); simulate {cli_number(text, 'Elapsed wall time:'):.4f} s, whole "
+          f"CLI call {wall:.4f} s [{card}]")
+    check("backend: cuda/fused/robust/persistent, dtype: f32" in text,
+          "the robust persistent layout ran")
+    check(k6_e == k1_l == steps + 2 and k6_l == 2 * k6_e, "robust persistent launches")
+    robust_launches = (k6_l, k1_l)
+    no_output_turns(csv_r, tmp, card, f"{BH_N} Plummer with escapers (robust)")
+    ns_node = table_node_fit(torch, bp, br.pos, br.vel, br.mass, (5, 6, 7, 8), k_out,
+                             "robust", card)
+    print(f"  the port's NS_PER_TABLE_NODE now: {bh_autold.NS_PER_TABLE_NODE}; this "
+          f"card's fit on the robust input {ns_node:.4f} [{card}]")
+    del br
+
+    # 32. the report flags
+    print(f"[32] --timers, --trace, --devices [{card}]")
+    for flags in (["--algo", "auto"], ["--algo", "barnes-hut", "--bh-traversal", "flat"]):
+        text = run_cli([csv1m, "0", "0.0001", "0.0001", os.path.join(tmp, "x.csv"),
+                        "--no-output", "--timers", *flags])
+        check("Per-phase force-eval breakdown:" in text, "--timers printed its report")
+        ratio = cli_number(text, "phases / total")
+        print(f"  {' '.join(flags)}: the phases sum to {ratio:.4f} of one whole evaluation "
+              f"[{card}]")
+        check(abs(ratio - 1.0) < 0.1, "the phases sum to within 10 % of one whole evaluation")
+    # the trace in a process of its own, as a user runs it: in this one,
+    # after [23]'s and [30]'s profiles, torch.profiler (torch 2.11 on an
+    # H100) recorded no device kernel
+    tdir = os.path.join(tmp, "trace")
+    r = subprocess.run([sys.executable, "-m", "nbody_tpu_torch", CSV_100K, "0", "0.0001",
+                        "0.0001", os.path.join(tmp, "x.csv"), "--no-output", "--trace", tdir],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"--trace run exit code {r.returncode}: {r.stderr[-400:]}")
+    path = os.path.join(tdir, "trace.json")
+    check(os.path.exists(path), "--trace wrote a trace")
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    k1_dev = sum(e.get("dur", 0) for e in kern if "allpairs" in e.get("name", "")) / 1e3
+    print(f"  --trace: {os.path.getsize(path)} bytes, {len(events)} events, {len(kern)} "
+          f"device kernels, K1 {k1_dev:.4f} ms on the device (two launches) [{card}]")
+    check(len(kern) > 0, "the trace holds device kernels")
+    text = run_cli([CSV_10, "0", "0.1", "0.1", os.path.join(tmp, "x.csv"), "--no-output",
+                    "--devices"])
+    check(torch.cuda.get_device_name(0) in text and " SMs, " in text,
+          "--devices printed the card")
+    return {"K6 persistent": persistent_launches, "K6 robust persistent": robust_launches[0],
+            "K1 robust persistent": robust_launches[1]}
+
+
 def main() -> int:
     import torch
 
@@ -1990,6 +2304,9 @@ def main() -> int:
         k2_entry, robust_df = robust_phases(torch, dev, card, sass, arr, got, tmp, csv1m)
         fp64_kernels[-1].update(robust_df)
         k6_entry = stage_phase(torch, dev, card, b, pairs / k1_ms * 1e3)
+        persistent_launches = persistent_phases(
+            torch, dev, card, b1m, csv1m, tmp, frames_bh, drift_bh, dmax,
+            {"whole": whole_ms, "set-up": prep_ms, "K6": k6_ms, "scatter": scatter_ms})
 
     small = (2 * n * 3 + n + n * 3) * 4  # pos_i, pos_j, mass, out (f32)
     k1_bound = bound(small, pairs * FORCE_OPS, FP32_PEAK)
@@ -2000,7 +2317,8 @@ def main() -> int:
          "replaces": "nbody_tpu/ops/pallas_exhaustive.py:64",
          "launches": k1_launches, "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "bound_by": k1_bound[1], "library_ms": None,
+         "launches_robust_persistent": persistent_launches["K1 robust persistent"]},
         k2_entry,
         {"name": "potential_f32", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/potential.cu",
@@ -2008,7 +2326,9 @@ def main() -> int:
          "launches": k3_launches, "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None},
-        {**k6_entry, "launches": k6_launches, "evaluations": k6_evals},
+        {**k6_entry, "launches": k6_launches, "evaluations": k6_evals,
+         "launches_persistent": persistent_launches["K6 persistent"],
+         "launches_robust_persistent": persistent_launches["K6 robust persistent"]},
         *fp64_kernels,
         *list_kernels,
     ]}))

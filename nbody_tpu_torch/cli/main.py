@@ -37,12 +37,21 @@ Routing:
   ``--bh-ld`` the depth comes from ``ops/bh_autold.choose_ld_cached``
   (cli/main.py:668-699).  The tree goes through K6 (or its df mode) and
   the outliers' rectangle through K1 (or K4).
-* Options that are not ported exit 2 and name what is missing:
-  ``--resort-every`` on the fused traversal (the persistent layout, with
-  or without the robust hybrid) and ``--timers``.  None runs another
-  computation in its place.  On a list traversal ``--bh-robust`` and
-  ``--resort-every`` do nothing in JAX either: the port prints JAX's note
-  or warning and runs.
+* ``--resort-every K`` on the fused traversal in f32 with the KDK
+  integrator is the persistent Morton layout
+  (``ops/bh_persistent.py::simulate_persistent``, cli/main.py:1091-1125):
+  K6 every step on the stale partition, a resort every K steps, and with
+  the robust hybrid its K1 rectangle.  Elsewhere it prints JAX's warning
+  and the run goes on one-shot; on a list traversal ``--bh-robust`` does
+  nothing in JAX either, and the port prints JAX's note.
+* ``--timers`` prints the per-phase breakdown of one Barnes-Hut
+  evaluation before the run (``diag/bh_phases.py``, cli/main.py:777-797),
+  fused or flat; ``--trace DIR`` writes a ``torch.profiler`` trace of the
+  run; ``--devices`` prints the card and the run goes on; ``--debug-nans``
+  stops the run at a non-finite position or force (exit 1);
+  ``--progress K`` prints a heartbeat every K steps.  ``--block-i`` and
+  ``--block-j`` are the Pallas all-pairs tile sizes: K1 picks its own tile
+  and source split, so the port prints a note and ignores them.
 * Barnes-Hut runs a startup capacity probe (one extra force evaluation
   through the run's own traversal and evaluator: ``check_fused``, or
   ``check_capacities``) unless ``--no-capacity-check``; an overflow exits
@@ -185,14 +194,40 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--resort-every", type=int, default=0, metavar="K",
-        help="persistent Morton order of the fused Barnes-Hut path (not "
-        "ported yet: K > 0 exits 2 there; elsewhere it is ignored with a "
-        "warning)",
+        help="persistent Morton order: integrate in the fused kernel's "
+        "group layout and resort only every K steps (fused Barnes-Hut, f32, "
+        "KDK; elsewhere it is ignored with a warning; 0 = off)",
     )
     p.add_argument(
         "--timers", action="store_true",
-        help="per-phase Barnes-Hut timing breakdown (not ported yet: exits 2)",
+        help="print a per-phase Barnes-Hut timing breakdown of one force "
+        "evaluation before the run (fused: sort / grid / group / kernel / "
+        "scatter; flat: sort+build+group / traverse / eval / scatter)",
     )
+    p.add_argument(
+        "--progress", type=int, default=0, metavar="K",
+        help="print a heartbeat (step, s/step, ETA) every K steps; 0 = off",
+    )
+    p.add_argument(
+        "--trace", default=None, metavar="DIR",
+        help="write a torch.profiler trace (Chrome format) of the run to DIR",
+    )
+    p.add_argument(
+        "--debug-nans", action="store_true",
+        help="stop the run with an error at the first non-finite position or "
+        "force (a host sync per force evaluation)",
+    )
+    p.add_argument(
+        "--devices", action="store_true",
+        help="print the device report (name, SMs, memory, power limit) and "
+        "continue",
+    )
+    p.add_argument("--block-i", type=int, default=0,
+                   help="Pallas all-pairs i-block size: K1 picks its own tile, "
+                   "so this is ignored with a note")
+    p.add_argument("--block-j", type=int, default=0,
+                   help="Pallas all-pairs j-tile size: K1 picks its own tile "
+                   "and source split, so this is ignored with a note")
     return p
 
 
@@ -229,21 +264,13 @@ def wants_persistent(args, algo: str, traversal: str) -> bool:
             and args.integrator == "leapfrog" and args.dtype != "f64")
 
 
-def unported_bh_option(args, backend: str, traversal: str) -> str | None:
+def refused_bh_option(args, backend: str, traversal: str) -> str | None:
     """Why a Barnes-Hut run cannot go ahead as asked, or None."""
     from nbody_tpu_torch.ops.bh_fused import MAX_GROUP_SIZE as max_b
     from nbody_tpu_torch.ops.bh_fused import MAX_LD as max_ld
 
-    if args.timers:
-        part = ("the per-phase breakdown of the list-based path (K7's pipeline, "
-                "nbody_tpu/diag/bh_phases.py::flat_phase_times)" if traversal != "fused"
-                else "the per-phase Barnes-Hut breakdown (nbody_tpu/diag/bh_phases.py)")
-        return f"--timers with --bh-traversal {traversal} needs {part}, which is not ported yet"
     if traversal != "fused":
         return None
-    if wants_persistent(args, "barnes-hut", traversal):
-        return ("--resort-every needs the persistent Morton layout "
-                "(nbody_tpu/ops/bh_persistent.py), which is not ported yet")
     if not 0 <= args.bh_ld <= max_ld:
         return f"--bh-ld must be in [0, {max_ld}], got {args.bh_ld}"
     if args.bh_group_size < 0 or (backend == "cuda" and args.bh_group_size > max_b):
@@ -362,6 +389,47 @@ def build_force_fn(backend: str, G: float, softening_sq: float,
     return partial(exhaustive_accelerations, G=G, softening_sq=softening_sq, **per_body)
 
 
+def device_report(device) -> str:
+    """The ``--devices`` report: for the card, its name, SMs, memory and
+    power limit (nvidia-smi); for the CPU, torch's threads."""
+    import torch
+
+    if device.type != "cuda":
+        return f"device cpu: {torch.get_num_threads()} torch threads"
+    import subprocess
+
+    lines = []
+    for i in range(torch.cuda.device_count()):
+        props = torch.cuda.get_device_properties(i)
+        try:
+            limit = subprocess.run(
+                ["nvidia-smi", "-i", str(i), "--query-gpu=power.limit",
+                 "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=30, check=True).stdout.strip()
+        except (OSError, subprocess.SubprocessError):
+            limit = "not read (no nvidia-smi)"
+        lines.append(f"device cuda:{i}: {props.name}, {props.multi_processor_count} SMs, "
+                     f"{props.total_memory / 2**30:.1f} GiB, compute capability "
+                     f"{props.major}.{props.minor}, power limit {limit}")
+    return "\n".join(lines)
+
+
+def finite_forces(force):
+    """`force` with its positions and accelerations checked
+    (``--debug-nans``): FloatingPointError at the first non-finite value."""
+    import torch
+
+    def fn(pos, mass):
+        if not bool(torch.isfinite(pos).all()):
+            raise FloatingPointError("non-finite position")
+        acc = force(pos, mass)
+        if not bool(torch.isfinite(acc).all()):
+            raise FloatingPointError("non-finite force")
+        return acc
+
+    return fn
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -375,6 +443,7 @@ def main(argv=None) -> int:
     )
     from nbody_tpu_torch.integrate.leapfrog import simulate
     from nbody_tpu_torch.io.csv import read_bodies, write_frames
+    from nbody_tpu_torch.ops.barneshut import CapacityError
     from nbody_tpu_torch.ops.cuda_fp64 import cuda_potential_energy_f64
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -387,6 +456,12 @@ def main(argv=None) -> int:
     if args.delta_time == 0:
         print("error: delta_time must be nonzero", file=sys.stderr)
         return 2
+    if args.devices:
+        print(device_report(torch.device(args.device)))
+    if args.block_i or args.block_j:
+        print("note: --block-i/--block-j are the Pallas all-pairs tile sizes; K1 "
+              "picks its own tile and source split (cuda_exhaustive.k1_split), so "
+              "they are ignored", file=sys.stderr)
 
     try:
         arr = read_bodies(args.input)
@@ -402,7 +477,7 @@ def main(argv=None) -> int:
     traversal = resolve_traversal(args.bh_traversal, backend)
     robust = False
     if algo == "barnes-hut":
-        why = unported_bh_option(args, backend, traversal)
+        why = refused_bh_option(args, backend, traversal)
         if why is not None:
             print(f"error: {why}", file=sys.stderr)
             return 2
@@ -432,7 +507,8 @@ def main(argv=None) -> int:
                   + ("(cached probe; " if was_cached else
                      "(measured-cost pricing of the Morton occupancy histogram; ")
                   + "override with --bh-ld)", file=sys.stderr)
-    if args.resort_every > 0 and not wants_persistent(args, algo, traversal):
+    persistent = wants_persistent(args, algo, traversal)
+    if args.resort_every > 0 and not persistent:
         # cli/main.py:935-957
         print("warning: --resort-every requires the fused Barnes-Hut path with "
               "the KDK integrator"
@@ -464,15 +540,12 @@ def main(argv=None) -> int:
     backend_label = backend
     if algo == "barnes-hut":
         if not listed:
-            backend_label = f"{backend}/fused" + ("/robust" if robust else "")
+            backend_label = (f"{backend}/fused" + ("/robust" if robust else "")
+                             + ("/persistent" if persistent else ""))
         if not args.no_capacity_check:
             # startup capacity probe, one force evaluation through the run's
             # own traversal and evaluator (cli/main.py:728-775)
-            from nbody_tpu_torch.ops.barneshut import (
-                CapacityError,
-                ResolutionError,
-                check_capacities,
-            )
+            from nbody_tpu_torch.ops.barneshut import ResolutionError, check_capacities
             from nbody_tpu_torch.ops.bh_fused import check_fused
 
             probe = check_capacities if listed else partial(check_fused, robust=robust)
@@ -483,6 +556,21 @@ def main(argv=None) -> int:
                 return 3
             except ResolutionError as e:
                 print(f"warning: {e}", file=sys.stderr)
+
+    if args.timers and algo == "barnes-hut":
+        # one evaluation split into its phases (cli/main.py:777-797)
+        from nbody_tpu_torch.diag import bh_phases
+
+        kw = dict(G=args.G, softening_sq=args.softening2, theta=args.theta,
+                  group_forces=force.keywords["group_forces"])
+        if listed:
+            times = bh_phases.flat_phase_times(bodies.pos, bodies.mass, **kw, **bh_kw)
+        else:
+            times = bh_phases.fused_phase_times(
+                bodies.pos, bodies.mass, **kw,
+                **{k: v for k, v in bh_kw.items() if k in ("group_size", "leaf_cap")})
+        print("Per-phase force-eval breakdown:")
+        print(bh_phases.report(times))
 
     # Reference banner (serial/exhaustive.c:55-57), extended with our config.
     print(
@@ -524,19 +612,47 @@ def main(argv=None) -> int:
 
         open(args.output, "w").close()
 
+    progress_fn = None
+    if args.progress > 0:
+        beat = {"last": time.perf_counter(), "done": 0}
+
+        def progress_fn(done, note=""):
+            # the heartbeat of cli/main.py:980-997
+            now = time.perf_counter()
+            sps = (now - beat["last"]) / max(1, done - beat["done"])
+            beat["last"], beat["done"] = now, done
+            extra = f"  [{note}]" if note else ""
+            print(f"progress: step {done}/{n_steps} "
+                  f"({100.0 * done / max(1, n_steps):.1f}%), {sps:.3g} s/step, "
+                  f"ETA {sps * (n_steps - done):.0f} s{extra}", file=sys.stderr, flush=True)
+
+    from nbody_tpu_torch.diag.timing import pairs_per_sec, trace
+
     t_wall0 = time.perf_counter()
-    bodies = simulate(
-        bodies, n_steps, dt, force,
-        frame_writer=writer, chunk_steps=args.chunk_steps,
-        integrator=args.integrator,
-    )
+    try:
+        with trace(args.trace):
+            if persistent:
+                bodies = run_persistent(args, bodies, n_steps, dt, force.keywords,
+                                        robust, writer, progress_fn)
+            else:
+                bodies = simulate(
+                    bodies, n_steps, dt, finite_forces(force) if args.debug_nans else force,
+                    frame_writer=writer, chunk_steps=args.chunk_steps,
+                    integrator=args.integrator, progress_every=args.progress,
+                    progress_fn=progress_fn,
+                )
+    except FloatingPointError as e:
+        print(f"error: --debug-nans: {e}; stopping the run", file=sys.stderr)
+        return 1
+    except CapacityError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 3
     elapsed = time.perf_counter() - t_wall0
 
     print(f"Completed. Output file: {args.output}")
     print(f"Elapsed wall time: {elapsed:f} s")
-    pairs = float(n_steps + 1) * float(bodies.n) ** 2
     if algo == "exhaustive" and elapsed > 0 and n_steps > 0:
-        print(f"Pair interactions/sec: {pairs / elapsed:.3e}")
+        print(f"Pair interactions/sec: {pairs_per_sec(bodies.n, n_steps, elapsed):.3e}")
 
     if args.energy:
         ke1, pe1 = measure_energy(bodies)
@@ -545,6 +661,28 @@ def main(argv=None) -> int:
         print(f"Relative energy drift: {energy_drift(e1, e0):.3e}")
 
     return 0
+
+
+def run_persistent(args, bodies, n_steps: int, dt: float, force_kw: dict, robust: bool,
+                   writer, progress_fn):
+    """The persistent Morton layout's run (cli/main.py:1091-1125) with the
+    run's evaluators from `force_kw`, the fused force function's keywords:
+    K6's wrapper, and K1's in robust mode, or their plain versions.
+    Returns the final Bodies."""
+    from nbody_tpu_torch.core.types import Bodies
+    from nbody_tpu_torch.ops.bh_fused import FRONTIER_CAP
+    from nbody_tpu_torch.ops.bh_persistent import simulate_persistent
+
+    evaluators = {k: force_kw[k] for k in ("group_forces", "rect_forces") if k in force_kw}
+    pos, vel = simulate_persistent(
+        bodies.pos, bodies.vel, bodies.mass, n_steps, dt, G=args.G,
+        softening_sq=args.softening2, theta=args.theta, resort_every=args.resort_every,
+        group_size=args.bh_group_size or 1024, leaf_cap=args.bh_leaf_cap or 64,
+        frontier_cap=args.bh_frontier_cap or FRONTIER_CAP, frame_writer=writer,
+        progress_every=args.progress, progress_fn=progress_fn,
+        robust_slots=max(128, bodies.n // 512) if robust else 0, ld=args.bh_ld,
+        debug_nans=args.debug_nans, **evaluators)
+    return Bodies(pos, vel, bodies.mass)
 
 
 if __name__ == "__main__":

@@ -17,8 +17,8 @@ each candidate terminal level before the run:
 The unit costs are the port's own, measured on the H100 by
 ``chip_smoke.py`` [28] from K6's stats lanes and times and the set-up time
 over the dense-grid nodes (PERF.md, PR 5).  ``NS_PER_TABLE_NODE`` prices
-the persistent layout's per-step table rebuild, which is not ported: it
-keeps the JAX package's value, measured on a TPU v5e.
+the persistent layout's per-step table rebuild (``ops/bh_persistent.py``),
+measured on the H100 by ``chip_smoke.py`` [31] (PERF.md, the persistent layout).
 
 The pick is cached on disk (``choose_ld_cached``) in the port's own file,
 so the two packages never share picks made with different costs.
@@ -48,12 +48,17 @@ import numpy as np
 NS_PER_SOURCE = 0.6271
 NS_PER_POP = 2.8972
 NS_PER_BUILD_NODE = 0.1120
-# The persistent rebuild's cost per node, not ported: the JAX package's
-# value (TPU v5e, nbody_tpu/ops/bh_autold.py:52), used only when
-# `persistent` is asked for.
-NS_PER_TABLE_NODE = 9.7
+# The persistent layout's per-step table rebuild (bh_persistent._ft_from_state)
+# per dense-grid node, used when `persistent` is asked for: its time on an
+# NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py [31]) over ld 5-8 of the
+# robust input's state (1M Plummer sphere with 8 escapers, K = 1,953),
+# 0.9649 / 1.0094 / 1.5589 / 5.7281 ms, against the nodes, by least squares
+# (the 1M uniform cloud's state gave 0.2517).  The JAX package's v5e value,
+# 9.7, priced an ld-8 rebuild at 186 ms and made the persistent robust run
+# pick ld 7, where K6 took 86.5 ms against 32.8 at ld 8.
+NS_PER_TABLE_NODE = 0.2492
 
-_CACHE_SCHEMA = 3  # bump when pricing constants / probe semantics change
+_CACHE_SCHEMA = 4  # bump when pricing constants / probe semantics change
 
 
 def _np_spread3(v: np.ndarray) -> np.ndarray:

@@ -503,37 +503,49 @@ def prepare_fused(
     in f64 (the df mode, ``nbody_tpu/ops/bh_fused_df.py:121-178``); bsq is
     f32 in both, as the MAC is.  Checks the predicted device residency
     against the budget (doubled in f64, as ``bh_fused_df.py:146-149``).
-    No host sync."""
-    n = pos.shape[0]
-    device = pos.device
-    cdt = torch.float64 if pos.dtype == torch.float64 else torch.float32
-    ld = ld or auto_ld(n)
-    b = group_size
-    sl = auto_split_level(n, b)
+    No host sync.  The three stages are ``sort_bodies``, ``build_grid`` and
+    ``group_inputs``."""
+    ld = ld or auto_ld(pos.shape[0])
+    perm, pos_s, gm_s, keys_s, border = sort_bodies(pos, mass, G=G, border=border)
+    tree = build_grid(pos_s, gm_s, keys_s, MORTON_DEPTH, ld)
+    gstart, gcount, src, bsq, trimmed = group_inputs(
+        pos_s, gm_s, keys_s, border, ld=ld, group_size=group_size, keep_groups=keep_groups)
+    return FusedInputs(perm, tree, gstart, gcount, src, bsq, ld, group_size, trimmed)
 
+
+def sort_bodies(pos: torch.Tensor, mass: torch.Tensor, *, G: float = constants.BIG_G,
+                border: torch.Tensor | None = None):
+    """(perm, pos_s, gm_s, keys_s, border): the bodies in Morton order, in
+    f32, or f64 for f64 bodies, with G·m."""
+    cdt = torch.float64 if pos.dtype == torch.float64 else torch.float32
     perm, keys, border = morton_sort(pos, MORTON_DEPTH, border=border)
-    pos_s = pos[perm].to(cdt)
     # G rounded to the compute dtype times the masses, as JAX's f32 G * mass
     # (a Python scalar enters the multiply in the tensor's dtype, with no
     # host-to-device copy)
-    gm_s = mass[perm].to(cdt) * G
-    keys_s = keys[perm]
-    tree = build_grid(pos_s, gm_s, keys_s, MORTON_DEPTH, ld)
-    gstart, gcount = group_ranges(keys_s, n, MORTON_DEPTH, b, sl)
+    return perm, pos[perm].to(cdt), mass[perm].to(cdt) * G, keys[perm], border
 
+
+def group_inputs(pos_s, gm_s, keys_s, border, *, ld: int, group_size: int,
+                 keep_groups: int = 0):
+    """(gstart, gcount, src, bsq, trimmed): the Morton groups of the sorted
+    bodies, packed and cut to the device-memory budget's slot count (or
+    `keep_groups`), K6's source rows and the MAC's f32 bsq."""
+    n, device = pos_s.shape[0], pos_s.device
+    b = group_size
+    sl = auto_split_level(n, b)
+    gstart, gcount = group_ranges(keys_s, n, MORTON_DEPTH, b, sl)
     g_max = group_capacity(n, b, sl, MORTON_DEPTH)
     budget = capacity.budget_bytes(device)
     keep = min(keep_groups or capacity.auto_keep(n, b, g_max, budget), g_max)
     est = capacity.estimate_fused_bytes(n, b, keep, ld)
-    if cdt == torch.float64:  # f64 sources and tables: twice the f32 bytes
+    if pos_s.dtype == torch.float64:  # f64 sources and tables: twice the f32 bytes
         est = {k: 2 * v for k, v in est.items()}
     capacity.ensure_fits(est, f"fused Barnes-Hut at n={n}", budget=budget)
     gstart, gcount, _, _, trimmed = compact_groups(gstart, gcount, None, None, keep)
-
     src = torch.cat([pos_s, gm_s[:, None]], dim=1)
     lev = torch.arange(ld + 2, dtype=torch.float32, device=device)
     bsq = (border.to(torch.float32) / torch.exp2(lev)) ** 2
-    return FusedInputs(perm, tree, gstart, gcount, src, bsq, ld, b, trimmed)
+    return gstart, gcount, src, bsq, trimmed
 
 
 def barneshut_fused(

@@ -1,5 +1,5 @@
 """Dense-grid octree — counterpart of ``nbody_tpu/ops/bh_grid.py``
-(``grid_offsets``, ``GridTree``, ``build_grid``).
+(``grid_offsets``, ``GridTree``, ``build_grid``, ``grid_from_terminal``).
 
 Levels 0..ld are stored as complete 8^d grids in which a cell's id is its
 Morton prefix, so the children of cell c at level d are always cells
@@ -15,8 +15,10 @@ on the card, since the tables decide what the traversal opens: CUDA's
 ``torch.segment_reduce`` over the contiguous runs that Morton order gives
 each terminal cell.
 
-``grid_from_terminal`` (the persistent and sharded layouts) is not ported
-yet.
+``grid_from_terminal`` builds the grid from terminal-level accumulators
+and per-cell slot ranges in a layout the caller evaluates from (the
+persistent group layout, ``ops/bh_persistent.py``): there ``cnt`` is a
+span of slots, pads included, not a count of bodies.
 """
 
 from __future__ import annotations
@@ -101,4 +103,40 @@ def build_grid(
         gm=gm.contiguous(),
         cnt=torch.cat(counts).to(torch.int32),
         start=torch.cat(starts).to(torch.int32),
+    )
+
+
+def grid_from_terminal(w: torch.Tensor, gm: torch.Tensor, cnt: torch.Tensor,
+                       start_t: torch.Tensor, end_t: torch.Tensor, ld: int) -> GridTree:
+    """Dense levels 0..ld from terminal-level accumulators
+    (``nbody_tpu/ops/bh_grid.py:127-165``): `w` (8^ld, 3) the G·m-weighted
+    positions, `gm` (8^ld,) G·m, `cnt` (8^ld,) the bodies of each cell,
+    `start_t`/`end_t` (8^ld,) each cell's first and last + 1 slot in the
+    caller's layout, int32 max / -1 where the cell is empty.  Coarse cells
+    take the min and max over their 8 children.  The result's ``cnt`` is the
+    span end - start (0, with start 0, for an empty cell), so a cell's
+    range covers the layout's pad slots between its bodies: those must carry
+    G·m = 0."""
+    ws, gms, cnts, sts, ens = [w], [gm], [cnt], [start_t], [end_t]
+    for _ in range(ld):
+        ws.append(ws[-1].reshape(-1, 8, 3).sum(dim=1))
+        gms.append(gms[-1].reshape(-1, 8).sum(dim=1))
+        cnts.append(cnts[-1].reshape(-1, 8).sum(dim=1))
+        sts.append(sts[-1].reshape(-1, 8).amin(dim=1))
+        ens.append(ens[-1].reshape(-1, 8).amax(dim=1))
+    for seq in (ws, gms, cnts, sts, ens):
+        seq.reverse()  # level 0 first
+    w_all, gm_all = torch.cat(ws), torch.cat(gms)
+    cnt_all, st_all, en_all = torch.cat(cnts), torch.cat(sts), torch.cat(ens)
+    com = w_all / torch.clamp_min(gm_all, 1e-30)[:, None]
+    occupied = cnt_all > 0
+    span = torch.where(occupied, en_all - st_all, 0)
+    start = torch.where(occupied, st_all, 0)
+    return GridTree(
+        cx=com[:, 0].contiguous(),
+        cy=com[:, 1].contiguous(),
+        cz=com[:, 2].contiguous(),
+        gm=gm_all.to(torch.float32),
+        cnt=span.to(torch.int32),
+        start=start.to(torch.int32),
     )

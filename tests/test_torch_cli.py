@@ -119,24 +119,27 @@ def test_cli_end_before_start_runs_zero_steps(tmp_path):
 
 @pytest.mark.parametrize("algo", ["barnes-hut", "auto"])
 def test_cli_refuses_unported_algo(tmp_path, capsys, algo):
-    """A Barnes-Hut run that needs a part not ported yet exits 2 and names
-    it: --timers on the list-based path (K7's pipeline), and the persistent
+    """The Barnes-Hut runs that once exited 2 as not ported now run:
+    --timers on the list-based path (K7's pipeline), and the persistent
     layout under the robust hybrid of the fused traversal, here on the
-    Barnes-Hut side of --algo auto (> 32,768 bodies), refused before the
-    depth pricer runs."""
+    Barnes-Hut side of --algo auto (> 32,768 bodies; no steps, so the run
+    is the state's build, its first evaluation and the final frame)."""
     if algo == "barnes-hut":
-        src, flags, missing = TEN, ["--bh-traversal", "flat", "--timers"], "K7"
+        src, flags, said = TEN, ["--bh-traversal", "flat", "--timers", "--bh-list-size",
+                                 "1024"], "traverse"
+        window = ["0", "0.1", "0.1"]
     else:
         src = tmp_path / "big.csv"
         write_fixture(src, random_cloud(BH_AUTO_MIN_N + 1, seed=1))
-        flags = ["--bh-robust", "on", "--bh-traversal", "fused", "--resort-every", "4"]
-        missing = "persistent Morton layout"
+        flags = ["--bh-robust", "on", "--bh-traversal", "fused", "--resort-every", "4",
+                 "--bh-ld", "6", "--bh-group-size", "64", "--no-capacity-check"]
+        said, window = "backend: torch/fused/robust/persistent", ["0", "0", "0.1"]
     out = tmp_path / "o.csv"
-    assert main([str(src), "0", "1", "0.1", str(out), "--device", "cpu",
-                 "--algo", algo, *flags]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and missing in err
-    assert not out.exists()
+    assert main([str(src), *window, str(out), "--device", "cpu", "--algo", algo,
+                 *flags]) == 0
+    captured = capsys.readouterr()
+    assert said in captured.out and "not ported" not in captured.err
+    assert out.exists()
 
 
 def test_cli_auto_runs_exhaustive_at_10_bodies(tmp_path, capsys):
@@ -187,16 +190,10 @@ def test_cli_barnes_hut_f32_matches_plain_call(tmp_path):
 
 
 @pytest.mark.parametrize("flags,missing", [
-    (["--bh-traversal", "padded", "--timers"], "K7"),
-    (["--resort-every", "4", "--bh-traversal", "fused", "--dtype", "f32"],
-     "persistent Morton layout"),
-    (["--timers"], "per-phase"),
     (["--bh-ld", "9", "--bh-traversal", "fused"], "--bh-ld must be in [0, 8]"),
 ])
 def test_cli_barnes_hut_unported_options(tmp_path, capsys, flags, missing):
-    """--timers (either traversal) and, on the fused traversal, the
-    persistent layout (f32 KDK, where JAX takes it) and a dense grid deeper
-    than K6 takes exit 2."""
+    """A dense grid deeper than K6 takes exits 2 on the fused traversal."""
     assert main([TEN, "0", "1", "0.1", str(tmp_path / "o.csv"), *CPU64,
                  "--algo", "barnes-hut", *flags]) == 2
     assert missing in capsys.readouterr().err
@@ -214,9 +211,8 @@ def _outlier_cloud(tmp_path):
 def test_cli_robust_auto_resolves_on_and_refuses(tmp_path, capsys):
     """--bh-robust auto on an outlier-dominated cloud resolves to on
     (cli/main.py:642-666) and runs the exact hybrid; --bh-robust off runs
-    the plain fused path; with --resort-every the hybrid still refuses (the
-    persistent layout is not ported): exit 2, never another path in its
-    place."""
+    the plain fused path; with --resort-every the hybrid runs on the
+    persistent layout."""
     argv = [str(_outlier_cloud(tmp_path)), "0", "0.1", "0.1", str(tmp_path / "o.csv"),
             "--device", "cpu", "--algo", "barnes-hut", "--bh-traversal", "fused"]
     assert main(argv) == 0
@@ -225,8 +221,10 @@ def test_cli_robust_auto_resolves_on_and_refuses(tmp_path, capsys):
     assert "backend: torch/fused/robust" in captured.out
     assert main([*argv, "--bh-robust", "off"]) == 0
     assert "backend: torch/fused," in capsys.readouterr().out
-    assert main([*argv, "--resort-every", "2"]) == 2
-    assert "persistent Morton layout" in capsys.readouterr().err
+    assert main([*argv, "--resort-every", "2"]) == 0
+    captured = capsys.readouterr()
+    assert "backend: torch/fused/robust/persistent" in captured.out
+    assert "enabling --bh-robust on" in captured.err
 
 
 @pytest.mark.parametrize("flags,fix", [
@@ -534,3 +532,81 @@ def test_cli_backend_torch_takes_the_mxu_mode_above_2048(tmp_path):
     rows, n = read_trajectory(out)
     np.testing.assert_allclose(rows.reshape(2, n, 5)[1, :, 1:4], want.numpy(), atol=1.1e-6,
                                rtol=0)
+
+
+def _cloud_csv(tmp_path, n=400, seed=3):
+    src = tmp_path / "cloud.csv"
+    write_fixture(src, random_cloud(n, seed=seed))
+    return str(src)
+
+
+PERSISTENT = ["--device", "cpu", "--algo", "barnes-hut", "--bh-traversal", "fused",
+              "--bh-group-size", "128"]
+
+
+@pytest.mark.parametrize("robust", ["off", "on"])
+def test_cli_resort_every_matches_per_step_resort(tmp_path, capsys, robust):
+    """--resort-every 4 (the persistent layout, 4 unsorted steps) gives the
+    frames of --resort-every 1 within the persistent tests' 1e-5
+    (tests/test_bh_persistent.py:68-84), plain and robust; the banner names
+    the layout."""
+    src = _cloud_csv(tmp_path)
+    frames = {}
+    for k in (4, 1):
+        out = tmp_path / f"k{k}.csv"
+        assert main([src, "0", "0.004", "0.001", str(out), *PERSISTENT, "--resort-every",
+                     str(k), "--bh-robust", robust]) == 0
+        assert "/persistent, dtype: f32" in capsys.readouterr().out
+        rows, n = read_trajectory(out)
+        frames[k] = rows.reshape(-1, n, 5)
+    assert frames[4].shape[0] == 5
+    np.testing.assert_allclose(frames[4], frames[1], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("traversal,phases", [
+    ("fused", ("sort", "grid", "group", "kernel", "scatter")),
+    ("flat", ("sort+build+group", "traverse", "eval", "scatter")),
+])
+def test_cli_timers(tmp_path, capsys, traversal, phases):
+    """--timers prints the per-phase breakdown of one evaluation before the
+    run (cli/main.py:777-797), on either traversal."""
+    assert main([_cloud_csv(tmp_path), "0", "0.001", "0.001", str(tmp_path / "o.csv"),
+                 "--device", "cpu", "--algo", "barnes-hut", "--bh-traversal", traversal,
+                 "--bh-list-size", "1024", "--timers", "--no-output"]) == 0
+    text = capsys.readouterr().out
+    report = text[text.index("Per-phase force-eval breakdown:"):text.index("Start:")]
+    for name in (*phases, "TOTAL (one call)", "phases / total"):
+        assert re.search(rf"^  {re.escape(name)} +[0-9.]+( ms)?$", report, re.M), name
+
+
+def test_cli_trace_devices_progress_block(tmp_path, capsys):
+    """--trace writes a Chrome trace, --devices prints the device and the
+    run goes on, --progress prints a heartbeat every K steps, --block-i and
+    --block-j are noted and ignored (K1 picks its own tile)."""
+    out = tmp_path / "o.csv"
+    assert main([TEN, "0", "0.4", "0.1", str(out), *CPU64, "--trace",
+                 str(tmp_path / "tr"), "--devices", "--progress", "2", "--block-i", "64",
+                 "--block-j", "128"]) == 0
+    captured = capsys.readouterr()
+    assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
+    assert captured.out.startswith("device cpu:")
+    beats = re.findall(r"^progress: step (\d+)/4 ", captured.err, re.M)
+    assert beats == ["2", "4"]
+    assert "--block-i/--block-j are the Pallas all-pairs tile sizes" in captured.err
+    assert read_trajectory(out)[0].shape[0] == 5 * 10
+
+
+@pytest.mark.parametrize("flags", [[], PERSISTENT + ["--resort-every", "2"]])
+def test_cli_debug_nans_stops(tmp_path, capsys, flags):
+    """--debug-nans stops a run whose input holds a NaN with exit 1 and a
+    message, exhaustive and persistent; without it the run goes on."""
+    arr = random_cloud(300, seed=5)
+    arr[7, 1] = np.nan
+    src = tmp_path / "nan.csv"
+    write_fixture(src, arr)
+    argv = [str(src), "0", "0.002", "0.001", str(tmp_path / "o.csv"), "--device", "cpu",
+            "--no-capacity-check", *flags]
+    assert main([*argv, "--debug-nans"]) == 1
+    err = capsys.readouterr().err
+    assert "--debug-nans: non-finite" in err and "stopping the run" in err
+    assert main(argv) == 0

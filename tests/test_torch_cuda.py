@@ -555,3 +555,59 @@ def test_cli_robust_runs_through_k6_and_k1(dev, tmp_path, capsys):
     captured = capsys.readouterr()
     assert "enabling --bh-robust on" in captured.err
     assert "backend: cuda/fused/robust, dtype: f32" in captured.out
+
+
+@pytest.mark.parametrize("robust_slots,ld", [(0, 0), (128, 7)])
+def test_persistent_state_forces_match_plain(dev, robust_slots, ld):
+    """state_forces on the persistent layout after drift-only steps (a
+    stale partition, whose cell spans cover pad slots) through K6 (and K1
+    in robust mode) against the plain versions on the same state: the f32
+    kernel bound on the real slots, equal stats, zero on the pads, and
+    reruns bit-identical."""
+    from nbody_tpu_torch.ops import bh_persistent as bp
+
+    if robust_slots:
+        pos, mass, _ = _plummer_with_escapers(60_000, dev)
+    else:
+        pos, mass = _cloud(60_000, dev, seed=3)
+    vel = torch.randn_like(pos) * 0.5
+    st = bp.init_state(pos, vel, mass, G=1.0, group_size=1024,
+                       robust_slots=robust_slots, ld=ld or None)
+    for _ in range(3):
+        st.src[:, :3] += st.vel * 1e-3
+    kw = dict(theta=0.5, softening_sq=0.01, leaf_cap=64)
+    before = (bh_fused.fused_group_forces.launches, cuda_rect_accelerations.launches)
+    acc, stats = bp.state_forces(st, **kw)
+    torch.cuda.synchronize()
+    assert (bh_fused.fused_group_forces.launches - before[0],
+            cuda_rect_accelerations.launches - before[1]) == (2, 1 if robust_slots else 0)
+    want, stats_p = bp.state_forces(st, **kw, group_forces=bh_fused.fused_group_forces_reference,
+                                    rect_forces=rect_accelerations_reference)
+    _assert_f32_close(acc[st.real], want[st.real])
+    assert torch.equal(stats, stats_p)
+    assert int(stats[:, bh_fused.S_OVF].max()) == 0 and int(stats[:, bh_fused.S_FAR].sum()) > 0
+    if not robust_slots:
+        assert not acc[~st.valid].any()
+    again, stats2 = bp.state_forces(st, **kw)
+    assert torch.equal(again, acc) and torch.equal(stats2, stats)
+
+
+def test_cli_persistent_runs_through_k6(dev, tmp_path, capsys):
+    """--resort-every 2 on a 40k cloud: the persistent banner, the probe
+    and 4 persistent evaluations (K6 two launches each) over 3 steps, and
+    the frames of --resort-every 1 within 1e-5."""
+    arr = random_cloud(40_000, seed=6)
+    src = tmp_path / "in.csv"
+    write_fixture(str(src), arr)
+    frames = {}
+    for k in (2, 1):
+        out = tmp_path / f"o{k}.csv"
+        bh_fused.fused_group_forces.launches = bh_fused.fused_group_forces.evaluations = 0
+        assert main([str(src), "0", "0.003", "0.001", str(out), "--algo", "auto",
+                     "--resort-every", str(k), "--bh-robust", "off"]) == 0
+        assert bh_fused.fused_group_forces.evaluations == 5
+        assert bh_fused.fused_group_forces.launches == 10
+        assert "backend: cuda/fused/persistent, dtype: f32" in capsys.readouterr().out
+        rows, n = read_trajectory(out)
+        frames[k] = rows.reshape(-1, n, 5)
+    np.testing.assert_allclose(frames[2], frames[1], atol=1e-5, rtol=0)

@@ -47,7 +47,8 @@ def test_every_module_imports_clean_and_builds_nothing():
         "nbody_tpu_torch.diag.treedump, nbody_tpu_torch.ops.bh_autold, "
         "nbody_tpu_torch.diag.fused_stages, nbody_tpu_torch.diag.fp64_kernels, "
         "nbody_tpu_torch.diag.pair_kernels, nbody_tpu_torch.diag.pe_kernels, "
-        "nbody_tpu_torch.diag.sass, "
+        "nbody_tpu_torch.diag.sass, nbody_tpu_torch.ops.bh_persistent, "
+        "nbody_tpu_torch.diag.timing, nbody_tpu_torch.diag.bh_phases, "
         "nbody_tpu_torch.__main__; " + CHECK
     )
     assert _kernel_libs() == before
