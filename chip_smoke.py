@@ -9,8 +9,10 @@ f32 with --energy), the fused Barnes-Hut run (--algo auto at 1M bodies, 5
 KDK steps, f32, --energy), both again with --dtype f64, the list-based
 Barnes-Hut run (--bh-traversal flat at 1M bodies, 5 KDK steps, f32 and
 f64), the tensor-core all-pairs kernel, and the robust Barnes-Hut run
-(--algo auto on a 1M Plummer sphere with escapers, f32 and f64), and the
-persistent Morton layout (--resort-every, plain and robust).  Phases (each raises on failure, so the script exits non-zero and
+(--algo auto on a 1M Plummer sphere with escapers, f32 and f64), the
+persistent Morton layout (--resort-every, plain and robust), and the run
+options checkpoint/resume, adaptive dt, merging and block time-step
+tiers.  Phases (each raises on failure, so the script exits non-zero and
 prints no result):
 
 1. card and build: nvidia-smi's name and power limit, nvcc's version, the
@@ -141,7 +143,26 @@ prints no result):
     beside the one-shot robust run, and the rebuild's fit on this input;
 32. --timers on the fused and the flat traversal at 1M (the phases' sum
     over the whole evaluation), a --trace of the 100k run read back for
-    its device kernels, and --devices.
+    its device kernels, and --devices;
+33. checkpoint and resume: the 100k run over 10 steps with
+    --checkpoint-every 5, and the same run stopped at step 5 and resumed
+    from its checkpoint: frames and final state byte-identical; the 1M
+    --resort-every 4 run checkpointed at step 4 and resumed, held to [9]'s
+    one-shot run within [30]'s bound; the 1M checkpoint's write time;
+34. adaptive dt: 100k through K1 against --backend torch (steps taken,
+    drift within 5 % of it, and in-process the landing on f32(t_end) and
+    the final positions against the plain force's within [30]'s bound),
+    and 1M with --resort-every 4 through K6 against the one-shot adaptive
+    run (the same checks, the final positions in-process); s/step;
+35. merging: a cold 100k clump (equal masses 2^-17) with --merge-radius
+    through K1, the plain backend and the persistent layout (K6): merged
+    counts equal, mass conserved exactly, momentum to rounding, the
+    ghosts in the frames' mass column; one merge pass timed;
+36. block tiers on the stratified 1M input (a hot Plummer core in a cold
+    halo): the tier histogram, --block-tiers 3 masked and --block-prefix
+    through the CLI (final states bit-identical), K6 launches a macro
+    step, and ms a macro step in turns masked, prefix, prefix, masked
+    beside plain KDK at dt and at dt/4.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
@@ -158,6 +179,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 
@@ -1933,6 +1955,357 @@ def persistent_phases(torch, dev, card: str, b1m, csv1m: str, tmp: str, frames_b
             "K1 robust persistent": robust_launches[1]}
 
 
+# [33]-[36]: checkpoint and resume, adaptive dt, merging, block tiers
+MERGE_SEED, MERGE_RADIUS = 7, 0.005  # ~40 pairs in contact in the 100k clump
+MERGE_MASS = 2.0**-17  # equal masses: a root's sum is exact in f32
+
+
+# Two runs of one integration agree on the energy drift within 5 % of it,
+# plus the f32 resolution of the energies it is read from (~1e-7 of E).
+DRIFT_REL, DRIFT_ABS = 0.05, 5e-7
+
+
+def drifts_agree(got: float, want: float) -> bool:
+    return abs(got - want) <= DRIFT_REL * abs(want) + DRIFT_ABS
+
+
+def _write7(path: str, arr: np.ndarray) -> None:
+    """Write bodies in the input format through the native writer (the
+    Python one takes ~5 s at 1M)."""
+    from nbody_tpu_torch.native import loader
+
+    lib = loader.get()
+    check(lib is not None and lib.write7(path, arr), f"native write7 of {path}")
+
+
+def _same_file(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def option_phases(torch, dev, card: str, b, b1m, csv1m: str, tmp: str, frames_bh,
+                  dmax: float, n_small: int = 100_000, csv_small: str = CSV_100K,
+                  n_big: int = BH_N) -> dict:
+    """Phases [33]-[36]: checkpoint and resume, adaptive dt, merging and the
+    block time-step tiers, through the CLI on the hand-written kernels
+    (K1 one-shot, K6 on the persistent layout), each checked against the
+    uninterrupted, plain or one-shot run.  Returns the launches and times
+    of the kernels line."""
+    from nbody_tpu_torch.core.types import Bodies
+    from nbody_tpu_torch.diag.energy import cuda_potential_energy
+    from nbody_tpu_torch.integrate.adaptive import adaptive_steps, simulate_adaptive
+    from nbody_tpu_torch.io.checkpoint import CheckpointManager, load_checkpoint, save_checkpoint
+    from nbody_tpu_torch.ops import bh_fused
+    from nbody_tpu_torch.ops import bh_persistent as bp
+    from nbody_tpu_torch.ops.collisions import merge_pass
+    from nbody_tpu_torch.ops.cuda_exhaustive import cuda_accelerations, cuda_rect_accelerations
+    from nbody_tpu_torch.ops.exhaustive import exhaustive_accelerations
+    from nbody_tpu_torch.utils.fixtures import random_cloud, stratified_cloud
+
+    f32 = np.float32
+    out = {}
+    x = os.path.join(tmp, "x.csv")
+
+    def counted(argv):
+        """run_cli with K1's, K6's and K3's counters set to 0 just before
+        and read just after: (stdout, K1 launches, K6 launches, K6
+        evaluations, simulate wall s)."""
+        for c in (cuda_rect_accelerations, bh_fused.fused_group_forces, cuda_potential_energy):
+            c.launches = 0
+        bh_fused.fused_group_forces.evaluations = 0
+        text = run_cli(argv)
+        return (text, cuda_rect_accelerations.launches, bh_fused.fused_group_forces.launches,
+                bh_fused.fused_group_forces.evaluations, cli_number(text, "Elapsed wall time:"))
+
+    # 33. checkpoint and resume
+    print(f"[33] checkpoint and resume: {n_small} bodies x {STEPS} KDK steps (K1), "
+          f"--checkpoint-every 5, then --resume from step 5 [{card}]")
+    full, part = os.path.join(tmp, "ck_full.csv"), os.path.join(tmp, "ck_part.csv")
+    ck_full, ck_a, ck_b = (os.path.join(tmp, f"ck_{k}.ckpt.csv") for k in ("f", "a", "b"))
+    run_cli([csv_small, *MAIN_WINDOW, full, "--checkpoint-every", "5", "--checkpoint", ck_full])
+    run_cli([csv_small, "0", "0.0005", "0.0001", part, "--checkpoint-every", "5",
+             "--checkpoint", ck_a])
+    _, meta = load_checkpoint(ck_a)
+    check(meta.get("step") == 5, f"the step-5 checkpoint's sidecar {meta}")
+    text, k1_resume, _, _, _ = counted([ck_a, *MAIN_WINDOW, part, "--resume",
+                                        "--checkpoint-every", "5", "--checkpoint", ck_b])
+    check("Resuming from" in text and k1_resume == 6, f"resumed run: K1 {k1_resume} (want 6)")
+    same_frames, same_state = _same_file(part, full), _same_file(ck_b, ck_full)
+    same_meta = _same_file(ck_b + ".meta.json", ck_full + ".meta.json")
+    print(f"  frames byte-identical to the uninterrupted run: {same_frames}; final state "
+          f"(step-10 checkpoints) byte-identical: {same_state}, sidecars {same_meta}; K1 "
+          f"launches in the resumed run {k1_resume}")
+    check(same_frames and same_state and same_meta, "the resumed 100k run is byte-identical")
+    out["K1 resume"] = k1_resume
+    ck4, ck5 = os.path.join(tmp, "ck1m_4.ckpt.csv"), os.path.join(tmp, "ck1m_5.ckpt.csv")
+    pflags = ["--no-output", "--algo", "auto", "--resort-every", str(RESORT_EVERY)]
+    run_cli([csv1m, "0", "0.0004", "0.0001", x, *pflags, "--checkpoint-every", "4",
+             "--checkpoint", ck4])
+    text, _, k6_l, k6_e, _ = counted([ck4, *BH_WINDOW, x, *pflags, "--resume",
+                                      "--checkpoint-every", "1", "--checkpoint", ck5])
+    arr5, meta5 = load_checkpoint(ck5)
+    t_bh = BH_STEPS * BH_DT
+    pos_bound = dmax * t_bh * t_bh + 2e-6
+    dpos = float(np.abs(arr5[:, :3] - frames_bh[-1, :, 1:4]).max())
+    print(f"  1M --resort-every {RESORT_EVERY}: checkpoint at step 4, resumed for one step "
+          f"(K6 {k6_l} launches in {k6_e} evaluations, sidecar {meta5}); final state against "
+          f"the one-shot run's ([9]) max |diff| {dpos:.3e} (bound {pos_bound:.3e}, [30]'s)")
+    check("/persistent" in text and meta5.get("step") == BH_STEPS and dpos < pos_bound,
+          "the resumed persistent run agrees with the one-shot run")
+    path = os.path.join(tmp, "w1m.ckpt.csv")
+    t0 = time.perf_counter()
+    save_checkpoint(path, b1m, step=1, time=0.0001)
+    t_save = time.perf_counter() - t0
+    with CheckpointManager(path, keep=2) as mgr:
+        t0 = time.perf_counter()
+        mgr.save(b1m, step=2, time=0.0002)
+        t_sync = time.perf_counter() - t0
+    t_close = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    print(f"  checkpoint write at {b1m.n}: save_checkpoint {t_save:.4f} s ({size / 1e6:.1f} MB, "
+          f"device to host, native write7, sidecar); CheckpointManager.save returned after "
+          f"{t_sync:.4f} s (the device-to-host copy), the background write done at "
+          f"{t_close:.4f} s [{card}]")
+    check(np.array_equal(load_checkpoint(path)[0], b1m.to_numpy().astype(np.float64)),
+          "the 1M checkpoint reads back exactly")
+    out["checkpoint s"] = t_save
+
+    # 34. adaptive dt
+    print(f"[34] adaptive dt (--adaptive-eta), eta sized so the first step is the window "
+          f"over 24.5 (100k) and 12.5 (1M) [{card}]")
+    eps = float(np.sqrt(0.01))
+    amax = float(cuda_accelerations(b.pos, b.mass).norm(dim=1).max())
+    t_end, dt_max = float(MAIN_WINDOW[1]), float(f32(float(MAIN_WINDOW[2])))
+    eta = (t_end / 24.5) ** 2 * amax / (2 * eps)
+    aflags = ["--no-output", "--energy", "--adaptive-eta", repr(eta)]
+    res = {}
+    for label in ("cuda", "torch"):
+        res[label] = counted([csv_small, *MAIN_WINDOW, x, *aflags, "--backend", label])
+    taken = {k: int(cli_number(v[0], "Adaptive steps taken:")) for k, v in res.items()}
+    drift = {k: cli_number(v[0], "Relative energy drift:") for k, v in res.items()}
+    k1_adaptive = res["cuda"][1]
+    print(f"  {n_small} all-pairs, eta {eta:.6e}: steps taken K1 {taken['cuda']}, plain "
+          f"{taken['torch']}; K1 launches {k1_adaptive} (want {taken['cuda'] + 1}); drift "
+          f"{drift['cuda']:.6e} vs {drift['torch']:.6e}; simulate {res['cuda'][4]:.4f} s -> "
+          f"{res['cuda'][4] / taken['cuda']:.6f} s/step (plain {res['torch'][4]:.4f} s) [{card}]")
+    check(taken["cuda"] == taken["torch"] > STEPS, "adaptive steps equal the plain backend's")
+    check(k1_adaptive == taken["cuda"] + 1 and drifts_agree(drift["cuda"], drift["torch"]),
+          f"adaptive K1 launches and drift (bound {DRIFT_REL:g} of it + {DRIFT_ABS:g})")
+    # the final states, in-process through the same chunk function as the
+    # CLI's simulate_adaptive, K1 against the plain force
+    force = lambda p, m: cuda_accelerations(p, m, G=1.0, softening_sq=0.01)  # noqa: E731
+    plain = lambda p, m: exhaustive_accelerations(p, m, G=1.0, softening_sq=0.01)  # noqa: E731
+    b_k1, _, t_dev, (ts, dts) = adaptive_steps(b, 4096, 0.0, t_end, force, eta=eta, eps=eps,
+                                               dt_min=0.0, dt_max=dt_max)
+    b_pl, _, t_pl, (ts_pl, _) = adaptive_steps(b, 4096, 0.0, t_end, plain, eta=eta, eps=eps,
+                                               dt_min=0.0, dt_max=dt_max)
+    da = float((force(b.pos, b.mass) - plain(b.pos, b.mass)).abs().max())
+    pos_bound = da * t_end * t_end + 2e-6
+    dpos = float((b_k1.pos - b_pl.pos).abs().max())
+    print(f"  in-process: {ts.shape[0]} steps (plain {ts_pl.shape[0]}), lands at t = "
+          f"{float(t_dev)!r} (f32 t_end {float(f32(t_end))!r}), dt {float(dts.min()):.4e}-"
+          f"{float(dts.max()):.4e}; final positions K1 against plain max |diff| {dpos:.3e} "
+          f"(bound max|da| T^2 + 2e-6 = {pos_bound:.3e}, [30]'s)")
+    check(float(t_dev) == float(f32(t_end)) == float(t_pl) and ts.shape[0] == taken["cuda"]
+          == ts_pl.shape[0] and bool((dts > 0).all()) and float(dts.max()) <= dt_max,
+          "adaptive landing")
+    check(dpos < pos_bound, "adaptive final positions, K1 against plain")
+    del b_k1, b_pl
+    out["K1 adaptive"], out["adaptive s/step 100k"] = k1_adaptive, res["cuda"][4] / taken["cuda"]
+    acc1m = bh_fused.barneshut_fused(b1m.pos, b1m.mass)
+    amax1m = float(acc1m.norm(dim=1).max())
+    t_end1m = float(BH_WINDOW[1])
+    eta1m = (t_end1m / 12.5) ** 2 * amax1m / (2 * eps)
+    aflags = ["--no-output", "--energy", "--algo", "auto", "--adaptive-eta", repr(eta1m)]
+    res = {"persistent": counted([csv1m, *BH_WINDOW, x, *aflags, "--resort-every",
+                                  str(RESORT_EVERY)]),
+           "one-shot": counted([csv1m, *BH_WINDOW, x, *aflags])}
+    taken = {k: int(cli_number(v[0], "Adaptive steps taken:")) for k, v in res.items()}
+    drift = {k: cli_number(v[0], "Relative energy drift:") for k, v in res.items()}
+    k6_e = res["persistent"][3]
+    print(f"  {BH_N} fused, eta {eta1m:.6e}: steps taken persistent {taken['persistent']}, "
+          f"one-shot {taken['one-shot']}; K6 {res['persistent'][2]} launches in {k6_e} "
+          f"evaluations (want {taken['persistent'] + 2}: probe, prime, a step); drift "
+          f"{drift['persistent']:.6e} vs {drift['one-shot']:.6e}; simulate "
+          f"{res['persistent'][4]:.4f} s -> {res['persistent'][4] / taken['persistent']:.6f} "
+          f"s/step (one-shot {res['one-shot'][4] / taken['one-shot']:.6f}) [{card}]")
+    check(taken["persistent"] == taken["one-shot"] > BH_STEPS and k6_e == taken["persistent"] + 2
+          and drifts_agree(drift["persistent"], drift["one-shot"]),
+          f"persistent adaptive against the one-shot adaptive run (drift bound {DRIFT_REL:g} "
+          f"of it + {DRIFT_ABS:g})")
+    kw = dict(theta=0.5, softening_sq=0.01, leaf_cap=64)
+    st, _ = bp.prime(bp.init_state(b1m.pos, b1m.vel, b1m.mass, G=1.0), **kw)
+    _, _, t_dev, (ts, _), _ = bp.kdk_adaptive_steps(
+        st, 4096, 0.0, t_end1m, eta=eta1m, eps=eps, dt_min=0.0, dt_max=dt_max, **kw)
+    del st
+    # the final states, in-process through the CLI's two functions
+    # (run_persistent's simulate_persistent_adaptive, simulate_adaptive)
+    p_pa, _, taken_pa = bp.simulate_persistent_adaptive(
+        b1m.pos, b1m.vel, b1m.mass, 0.0, t_end1m, eta=eta1m, dt_max=float(BH_WINDOW[2]),
+        G=1.0, resort_every=RESORT_EVERY, group_size=1024, **kw)
+    fused = partial(bh_fused.barneshut_fused, G=1.0, **kw)
+    b_os, taken_os = simulate_adaptive(b1m, 0.0, t_end1m, fused, eta=eta1m, softening_sq=0.01,
+                                       dt_max=float(BH_WINDOW[2]))
+    pos_bound = dmax * t_end1m * t_end1m + 2e-6
+    dpos = float((p_pa - b_os.pos).abs().max())
+    print(f"  in-process on the layout (no resort): {ts.shape[0]} steps, lands at t = "
+          f"{float(t_dev)!r} (f32 t_end {float(f32(t_end1m))!r}); final positions persistent "
+          f"({taken_pa} steps) against one-shot ({taken_os}) max |diff| {dpos:.3e} (bound "
+          f"{pos_bound:.3e}, [30]'s)")
+    check(float(t_dev) == float(f32(t_end1m)), "persistent adaptive landing")
+    check(taken_pa == taken_os == taken["persistent"] and dpos < pos_bound,
+          "persistent adaptive final positions against the one-shot run")
+    del acc1m, p_pa, b_os
+    out["K6 persistent adaptive"] = res["persistent"][2]
+    out["adaptive s/step 1M"] = res["persistent"][4] / taken["persistent"]
+
+    # 35. merging
+    print(f"[35] merging: a cold {n_small}-body clump (random_cloud seed {MERGE_SEED}, v = 0, "
+          f"m = 2^-17), --merge-radius {MERGE_RADIUS} --merge-every 5 over {STEPS} steps "
+          f"[{card}]")
+    arr = random_cloud(n_small, seed=MERGE_SEED)
+    arr[:, 3:6] = 0.0
+    arr[:, 6] = MERGE_MASS
+    csv_m = os.path.join(tmp, "clump.csv")
+    _write7(csv_m, arr)
+    mflags = ["--merge-radius", repr(MERGE_RADIUS), "--merge-every", "5", "--write-every",
+              str(STEPS), "--checkpoint-every", str(STEPS)]
+    runs = {"K1": [], "plain": ["--backend", "torch"],
+            "persistent": ["--algo", "barnes-hut", "--bh-traversal", "fused",
+                           "--resort-every", str(RESORT_EVERY)]}
+    merged, states = {}, {}
+    for label, extra in runs.items():
+        frames_m, ck_m = os.path.join(tmp, f"m_{label}.csv"), os.path.join(tmp, f"m_{label}.ck")
+        text, k1_l, k6_l, _, _ = counted([csv_m, *MAIN_WINDOW, frames_m, *mflags,
+                                          "--checkpoint", ck_m, *extra])
+        merged[label] = int(cli_number(text, "Merged bodies:"))
+        states[label] = load_checkpoint(ck_m)[0]
+        last = load_frames(frames_m, n_small, frames=2)[-1]
+        mass_t = states[label][:, 6]
+        mom = (mass_t[:, None] * states[label][:, 3:6]).sum(0)
+        scale = float((mass_t[:, None] * np.abs(states[label][:, 3:6])).sum())
+        print(f"  {label}: merged {merged[label]}, K1 {k1_l}, K6 {k6_l} launches; mass "
+              f"{mass_t.sum()!r} vs {arr[:, 6].sum()!r}; momentum {np.abs(mom).max():.3e} "
+              f"(sum m|v| {scale:.3e}); ghosts in the last frame {int((last[:, 4] == 0).sum())}")
+        check(mass_t.sum() == arr[:, 6].sum() and int((mass_t == 0).sum()) == merged[label]
+              and int((last[:, 4] == 0).sum()) == merged[label],
+              f"{label}: mass conserved exactly, ghosts in the mass column")
+        # all-pairs forces are antisymmetric to f32 rounding, Barnes-Hut's
+        # only to its force error
+        bound_p = 1e-3 if label == "persistent" else 1e-5
+        check(np.abs(mom).max() <= bound_p * scale + 1e-12,
+              f"{label}: momentum within {bound_p:g} of sum m|v|")
+        if label == "K1":
+            out["K1 merge"] = k1_l
+            check(k1_l >= STEPS + 1, "the merge run went through K1")
+        if label == "persistent":
+            check(k6_l > 0, "the persistent merge run went through K6")
+    check(merged["K1"] > 0 and merged["K1"] == merged["plain"] == merged["persistent"],
+          f"merged counts {merged}")
+    dpos = float(np.abs(states["K1"][:, :3] - states["plain"][:, :3]).max())
+    print(f"  final state K1 against plain max |diff| {dpos:.3e} (bound 1e-5)")
+    check(dpos < 1e-5, "merge run K1 against plain")
+    bm = Bodies.from_numpy(states["K1"], dtype=torch.float32, device=dev)
+    bm = bm._replace(mass=torch.as_tensor(arr[:, 6], dtype=torch.float32, device=dev))
+    bm = bm._replace(vel=bm.vel + torch.as_tensor(  # a velocity field to carry momentum
+        np.random.default_rng(1).uniform(-1, 1, (n_small, 3)), dtype=torch.float32, device=dev))
+    _, v_m, m_m, nm = merge_pass(bm.pos, bm.vel, bm.mass, MERGE_RADIUS)
+    p0 = (bm.mass.double()[:, None] * bm.vel.double()).sum(0)
+    p1 = (m_m.double()[:, None] * v_m.double()).sum(0)
+    dp = float((p1 - p0).abs().max())
+    scale = float((bm.mass.double()[:, None] * bm.vel.double().abs()).sum())
+    merge_ms = cuda_ms(torch, lambda: merge_pass(bm.pos, bm.vel, bm.mass, MERGE_RADIUS), 3)
+    print(f"  merge pass at {n_small} on the final positions with the initial masses: {int(nm)} "
+          f"merges, mass {float(m_m.double().sum())!r} vs {float(bm.mass.double().sum())!r}, "
+          f"momentum change {dp:.3e} (sum m|v| {scale:.3e}, bound 1e-6 of it); "
+          f"{merge_ms:.4f} ms [{card}]")
+    check(int(nm) > 0 and float(m_m.double().sum()) == float(bm.mass.double().sum())
+          and dp <= 1e-6 * scale, "one merge pass conserves mass exactly, momentum to f32 rounding")
+    out["merge ms"] = merge_ms
+
+    # 36. block tiers
+    n_tiers, eta_b, eps2_b = 3, 0.01, 1e-4
+    arr = stratified_cloud(n_big)
+    csv_s = os.path.join(tmp, "stratified.csv")
+    _write7(csv_s, arr)
+    fkw = dict(theta=0.5, softening_sq=eps2_b, leaf_cap=64)
+    bs = Bodies.from_numpy(arr, dtype=torch.float32, device=dev)
+    st, _ = bp.prime(bp.init_state(bs.pos, bs.vel, bs.mass, G=1.0), **fkw)
+    amax_s = float(bp._valid_amax(st.acc, st.valid))
+    dt_b = float(f32(np.sqrt(2 * eta_b * np.sqrt(eps2_b) / amax_s) * (1 << (n_tiers - 1)) * 0.9))
+    tiers = bp.assign_tiers(st, dt_b, eta=eta_b, eps=float(np.sqrt(eps2_b)), n_tiers=n_tiers)
+    occ = (st.gcount > 0).cpu().numpy()
+    hist = np.bincount(tiers.cpu().numpy()[occ], minlength=n_tiers)
+    order, sizes = bp.tier_order_sizes(tiers, n_tiers)
+    print(f"[36] block tiers: stratified_cloud({n_big}) (tools/profile_block.py:43-58), "
+          f"--block-tiers {n_tiers} --block-eta {eta_b} --softening2 {eps2_b} --G 1, dt "
+          f"{dt_b!r} (the hottest group's need x {1 << (n_tiers - 1)} x 0.9), 8 macro steps, "
+          f"--resort-every {RESORT_EVERY}; tier histogram {hist.tolist()} over {int(occ.sum())} "
+          f"occupied groups, prefix sizes {sizes} [{card}]")
+    check(hist[0] > 0 and hist[-1] > 0, "the tiers split")
+    bflags = [csv_s, "0", repr(8.5 * dt_b), repr(dt_b), x, "--no-output", "--algo", "barnes-hut",
+              "--bh-traversal", "fused", "--resort-every", str(RESORT_EVERY), "--block-tiers",
+              str(n_tiers), "--block-eta", repr(eta_b), "--softening2", repr(eps2_b), "--G", "1",
+              "--checkpoint-every", "8"]
+    per_macro = {}
+    for label, extra in (("masked", []), ("prefix", ["--block-prefix"])):
+        ck_s = os.path.join(tmp, f"block_{label}.ck")
+        text, _, k6_l, k6_e, wall = counted([*bflags, "--checkpoint", ck_s, *extra])
+        check("/persistent" in text, "block tiers took the persistent layout")
+        per_macro[label] = (k6_l - 4) / 8  # less the probe's and the prime's
+        print(f"  {label}: K6 {k6_l} launches in {k6_e} evaluations, {per_macro[label]:.2f} "
+              f"launches a macro step (probe and prime apart); simulate {wall:.4f} s [{card}]")
+    same = _same_file(os.path.join(tmp, "block_masked.ck"), os.path.join(tmp, "block_prefix.ck"))
+    print(f"  prefix final state bit-identical to masked: {same}")
+    check(same, "prefix is bit-identical to masked on the card")
+    out["K6 block per macro"] = per_macro
+
+    def copy():
+        return st._replace(src=st.src.clone(), vel=st.vel.clone(), acc=st.acc.clone())
+
+    steppers = {
+        "masked": lambda: bp.kdk_block_steps(copy(), tiers, 1, dt_b, n_tiers=n_tiers, **fkw),
+        "prefix": lambda: bp.kdk_block_prefix_steps(copy(), tiers, order, 1, dt_b, sizes=sizes,
+                                                    n_tiers=n_tiers, **fkw),
+        "KDK dt": lambda: bp.kdk_steps(copy(), 1, dt_b, **fkw),
+        f"KDK dt/{1 << (n_tiers - 1)}": lambda: bp.kdk_steps(
+            copy(), 1 << (n_tiers - 1), dt_b / (1 << (n_tiers - 1)), **fkw),
+    }
+    turns = []
+    for label in ("masked", "prefix", "prefix", "masked", "KDK dt",
+                  f"KDK dt/{1 << (n_tiers - 1)}"):
+        turns.append((label, cuda_ms(torch, steppers[label], 3)))
+    print("  ms a macro step in turns: " + ", ".join(f"{k} {v:.4f}" for k, v in turns)
+          + f" [{card}]")
+    out["block ms"] = turns
+    # one sub-step's evaluation where only the finest tier closes, masked
+    # (all G slots, the rest gcount 0) and as the prefix order[:sizes[0]],
+    # whole (table rebuild + K6) and K6 alone
+    idx = torch.as_tensor(order[:sizes[0]], dtype=torch.int64, device=dev)
+    masked_gc = torch.where(tiers == n_tiers - 1, st.gcount, 0)
+    tree = bp._ft_from_state(st)
+    gstart = torch.arange(0, st.src.shape[0], st.group_size, dtype=torch.int32, device=dev)
+    k6kw = dict(theta=0.5, eps2=eps2_b, leaf_cap=64, ld=st.ld, group_size=st.group_size)
+    parts = {
+        "rebuild": lambda: bp._ft_from_state(st),
+        "masked whole": lambda: bp.state_forces(st._replace(gcount=masked_gc), **fkw),
+        "prefix whole": lambda: bp.subset_state_forces(st, idx, **fkw),
+        "masked K6": lambda: bh_fused.fused_group_forces(tree, gstart, masked_gc, st.src,
+                                                         st.bsq, **k6kw),
+        "prefix K6": lambda: bh_fused.fused_group_forces(tree, gstart[idx], st.gcount[idx],
+                                                         st.src, st.bsq, **k6kw),
+        "full K6": lambda: bh_fused.fused_group_forces(tree, gstart, st.gcount, st.src,
+                                                       st.bsq, **k6kw),
+    }
+    split = {k: cuda_ms(torch, fn, 5) for k, fn in parts.items()}
+    print(f"  a finest-tier sub-step ({int(hist[-1])} closing groups, prefix {sizes[0]} of "
+          f"{st.gcount.shape[0]} slots): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f" ms [{card}]")
+    out["block split"] = split
+    del st, bs
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2307,6 +2680,7 @@ def main() -> int:
         persistent_launches = persistent_phases(
             torch, dev, card, b1m, csv1m, tmp, frames_bh, drift_bh, dmax,
             {"whole": whole_ms, "set-up": prep_ms, "K6": k6_ms, "scatter": scatter_ms})
+        options = option_phases(torch, dev, card, b, b1m, csv1m, tmp, frames_bh, dmax)
 
     small = (2 * n * 3 + n + n * 3) * 4  # pos_i, pos_j, mass, out (f32)
     k1_bound = bound(small, pairs * FORCE_OPS, FP32_PEAK)
@@ -2318,7 +2692,9 @@ def main() -> int:
          "launches": k1_launches, "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
-         "launches_robust_persistent": persistent_launches["K1 robust persistent"]},
+         "launches_robust_persistent": persistent_launches["K1 robust persistent"],
+         "launches_resume": options["K1 resume"], "launches_adaptive": options["K1 adaptive"],
+         "launches_merge": options["K1 merge"]},
         k2_entry,
         {"name": "potential_f32", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/potential.cu",
@@ -2328,7 +2704,10 @@ def main() -> int:
          "bound_by": k3_bound[1], "library_ms": None},
         {**k6_entry, "launches": k6_launches, "evaluations": k6_evals,
          "launches_persistent": persistent_launches["K6 persistent"],
-         "launches_robust_persistent": persistent_launches["K6 robust persistent"]},
+         "launches_robust_persistent": persistent_launches["K6 robust persistent"],
+         "launches_persistent_adaptive": options["K6 persistent adaptive"],
+         "launches_per_macro_step_block_masked": options["K6 block per macro"]["masked"],
+         "launches_per_macro_step_block_prefix": options["K6 block per macro"]["prefix"]},
         *fp64_kernels,
         *list_kernels,
     ]}))

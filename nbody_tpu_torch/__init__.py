@@ -17,7 +17,10 @@ Barnes-Hut run (``--bh-traversal flat|padded``, and ``auto`` with
 of them, through native fp64 kernels; the tensor-core all-pairs kernel
 (``cuda_accelerations(use_mxu=True)``); and the exact outlier hybrid of
 the fused run (``--bh-robust``, ``ops/bh_fused.py``) with its depth
-pricer (``ops/bh_autold.py``).
+pricer (``ops/bh_autold.py``); the persistent Morton layout
+(``ops/bh_persistent.py``); and the run options: checkpoints
+(``io/checkpoint.py``), adaptive dt (``integrate/adaptive.py``),
+inelastic merging (``ops/collisions.py``) and block time-step tiers.
 
 The names below are re-exported lazily: importing the package imports
 neither jax nor triton and builds no kernel.

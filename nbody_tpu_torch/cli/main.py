@@ -52,6 +52,19 @@ Routing:
   ``--progress K`` prints a heartbeat every K steps.  ``--block-i`` and
   ``--block-j`` are the Pallas all-pairs tile sizes: K1 picks its own tile
   and source split, so the port prints a note and ignores them.
+* ``--checkpoint-every K`` writes the state every K steps in the input
+  format with a ``.meta.json`` sidecar (``io/checkpoint.py``; rotation
+  with ``--checkpoint-keep``), and ``--resume`` continues a checkpoint:
+  start time and step from the sidecar, frames appended with the global
+  frame numbering (cli/main.py:611-625, 884-931); an adaptive run's
+  checkpoint holds the time it reached, not JAX's t0 + steps · dt_max.
+  ``--adaptive-eta``
+  runs adaptive dt (``integrate/adaptive.py``), ``--merge-radius`` /
+  ``--merge-every`` inelastic merging (``ops/collisions.py``), one-shot or
+  on the persistent layout; ``--block-tiers`` / ``--block-eta`` /
+  ``--block-prefix`` the block time-step tiers of the persistent layout.
+  The combinations JAX refuses exit as JAX's do (cli/main.py:958-977,
+  1061-1065, 1146-1170).
 * Barnes-Hut runs a startup capacity probe (one extra force evaluation
   through the run's own traversal and evaluator: ``check_fused``, or
   ``check_capacities``) unless ``--no-capacity-check``; an overflow exits
@@ -68,6 +81,7 @@ Routing:
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from functools import partial
@@ -221,6 +235,63 @@ def build_parser() -> argparse.ArgumentParser:
         "--devices", action="store_true",
         help="print the device report (name, SMs, memory, power limit) and "
         "continue",
+    )
+    p.add_argument(
+        "--block-tiers", type=int, default=1,
+        help="tiered block time steps on the persistent path (needs --resort-every): "
+        "per-group dt tiers dt/2^k, k < BLOCK_TIERS, reassigned from the acceleration "
+        "scale at every resort, so only hot Morton groups pay fine steps "
+        "(ops/bh_persistent.py kdk_block_steps)",
+    )
+    p.add_argument(
+        "--block-eta", type=float, default=0.025,
+        help="tier criterion accuracy: dt_k <= sqrt(2 eta eps / |a|max) per group "
+        "(with --block-tiers)",
+    )
+    p.add_argument(
+        "--block-prefix", action="store_true",
+        help="with --block-tiers: evaluate each sub-step over a tier-sorted prefix of "
+        "the groups instead of all groups with the others masked (same bits; masked "
+        "is the default, as in the JAX package)",
+    )
+    p.add_argument(
+        "--adaptive-eta", type=float, default=0.0,
+        help="adaptive time stepping: dt = sqrt(2 eta eps / |a|_max) per step, clipped "
+        "to the positional delta_time as dt_max (integrate/adaptive.py).  Needs "
+        "--softening2 > 0 for the eps scale.  Leapfrog only; composes with "
+        "--resort-every (the persistent layout)",
+    )
+    p.add_argument(
+        "--merge-radius", type=float, default=0.0,
+        help="contact distance for perfectly inelastic body mergers "
+        "(ops/collisions.py).  Absorbed bodies continue as zero-mass tracers; mass and "
+        "momentum are conserved.  Composes with --resort-every (the persistent layout "
+        "rebuilds at merge boundaries)",
+    )
+    p.add_argument(
+        "--merge-every", type=int, default=1,
+        help="steps between merge passes (with --merge-radius); pick so bodies cannot "
+        "cross the contact radius between passes",
+    )
+    p.add_argument(
+        "--checkpoint-every", type=int, default=0,
+        help="write a resumable (pos,vel,mass) checkpoint every k steps in the input "
+        "CSV format, so a checkpoint is directly runnable",
+    )
+    p.add_argument(
+        "--checkpoint", default=None,
+        help="checkpoint file path (default: <output>.ckpt.csv)",
+    )
+    p.add_argument(
+        "--checkpoint-keep", type=int, default=1,
+        help="rotate checkpoints, keeping the last k (k > 1 keeps older ones at "
+        "<path>.1, <path>.2, ...)",
+    )
+    p.add_argument(
+        "--resume", action="store_true",
+        help="treat INPUT as a checkpoint and continue its run: the start time comes "
+        "from the .meta.json sidecar (the positional start_time is ignored) and frames "
+        "append to OUTPUT if it already exists",
     )
     p.add_argument("--block-i", type=int, default=0,
                    help="Pallas all-pairs i-block size: K1 picks its own tile, "
@@ -463,8 +534,20 @@ def main(argv=None) -> int:
               "picks its own tile and source split (cuda_exhaustive.k1_split), so "
               "they are ignored", file=sys.stderr)
 
+    t0 = args.start_time
+    resume_step = 0
     try:
-        arr = read_bodies(args.input)
+        if args.resume:
+            # cli/main.py:611-625: start time and step from the sidecar
+            from nbody_tpu_torch.io.checkpoint import load_checkpoint
+
+            arr, meta = load_checkpoint(args.input)
+            if "time" in meta:
+                t0 = float(meta["time"])
+            resume_step = int(meta.get("step", 0))
+            print(f"Resuming from {args.input}: step {resume_step}, t = {t0:g}")
+        else:
+            arr = read_bodies(args.input)
     except (ValueError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -530,7 +613,6 @@ def main(argv=None) -> int:
 
     # Reference semantics: dt parsed as C float, n_steps truncated float div
     # (serial/exhaustive.c:50-52).
-    t0 = args.start_time
     dt = SimConfig.c_float(args.delta_time)
     n_steps = max(0, SimConfig.n_steps(t0, args.end_time, args.delta_time))
     listed = algo == "barnes-hut" and traversal != "fused"
@@ -597,20 +679,60 @@ def main(argv=None) -> int:
         e0 = ke0 + pe0
         print(f"Initial energy: KE={ke0:.9g} PE={pe0:.9g} E={e0:.9g}")
 
-    writer = None
+    writer = mass_update = None
     if not args.no_output:
-        mass64 = bodies.mass.cpu().numpy().astype(np.float64)
+        # cli/main.py:884-916.  On --resume an existing trajectory file is
+        # continued: frames append, keep the global frame numbering (the
+        # --write-every stride), and skip the initial frame, which is the
+        # interrupted run's last written one.
+        resuming_output = (args.resume and os.path.exists(args.output)
+                           and os.path.getsize(args.output) > 0)
+        # merging runs push the running masses here, so later frames carry
+        # them in their mass column
+        mass_holder = {"m": bodies.mass.cpu().numpy().astype(np.float64)}
         stride = max(1, args.write_every)
-        count = [0]  # global frame index (0 = the initial state)
+        count = [resume_step if resuming_output else 0]  # global frame index
+        skip = [1 if resuming_output else 0]
 
         def writer(chunk: np.ndarray) -> None:
             idx = count[0] + np.arange(chunk.shape[0])
             count[0] += chunk.shape[0]
+            if skip[0]:
+                k = min(skip[0], chunk.shape[0])
+                chunk, idx = chunk[k:], idx[k:]
+                skip[0] -= k
             sel = chunk[idx % stride == 0]
             if len(sel):
-                write_frames(args.output, [sel], mass64, append=True)
+                write_frames(args.output, [sel], mass_holder["m"], append=True)
 
-        open(args.output, "w").close()
+        def mass_update(m) -> None:
+            mass_holder["m"] = np.asarray(m, dtype=np.float64)
+
+        if not resuming_output:
+            open(args.output, "w").close()
+
+    checkpoint_fn = ckpt_mgr = None
+    if args.checkpoint_every > 0:
+        from nbody_tpu_torch.io.checkpoint import CheckpointManager
+
+        ckpt_mgr = CheckpointManager(args.checkpoint or (args.output + ".ckpt.csv"),
+                                     keep=args.checkpoint_keep)
+
+        def checkpoint_fn(b, step, t=None):
+            # the time of a step, t0 + step * dt (cli/main.py:918-931); the
+            # adaptive run passes its own time t, where JAX's CLI writes
+            # t0 + step * dt_max, a time the state has not reached
+            ckpt_mgr.save(b, step=resume_step + step, time=t0 + step * dt if t is None else t)
+
+    # JAX's refusals of the flags' combinations (cli/main.py:958-977)
+    if args.block_tiers > 1 and not persistent:
+        raise SystemExit("--block-tiers requires the unsharded persistent path "
+                         "(--resort-every with the fused Barnes-Hut KDK integrator)")
+    if args.merge_radius > 0 and persistent and args.block_tiers > 1:
+        raise SystemExit("--merge-radius and --block-tiers cannot combine (a merge "
+                         "invalidates the tier assignment mid-macro-step); pick one")
+    if args.merge_radius > 0 and persistent and args.adaptive_eta > 0:
+        raise SystemExit("--adaptive-eta and --merge-radius cannot combine yet")
 
     progress_fn = None
     if args.progress > 0:
@@ -628,26 +750,57 @@ def main(argv=None) -> int:
 
     from nbody_tpu_torch.diag.timing import pairs_per_sec, trace
 
+    merge_kw = {}
+    if args.merge_radius > 0:
+        merge_kw = dict(merge_radius=args.merge_radius, merge_every=max(1, args.merge_every),
+                        merge_report=lambda k: print(f"Merged bodies: {k}"),
+                        mass_update=mass_update)
     t_wall0 = time.perf_counter()
     try:
         with trace(args.trace):
             if persistent:
-                bodies = run_persistent(args, bodies, n_steps, dt, force.keywords,
-                                        robust, writer, progress_fn)
+                bodies = run_persistent(args, bodies, n_steps, dt, t0, force.keywords,
+                                        robust, writer, progress_fn, checkpoint_fn, merge_kw)
+            elif args.adaptive_eta > 0:
+                # cli/main.py:1143-1162
+                from nbody_tpu_torch.integrate.adaptive import simulate_adaptive
+
+                if args.integrator != "leapfrog":
+                    raise SystemExit("--adaptive-eta requires an unsharded leapfrog run")
+                if args.merge_radius > 0:
+                    raise SystemExit("--adaptive-eta and --merge-radius cannot combine yet")
+                bodies, taken = simulate_adaptive(
+                    bodies, t0, args.end_time,
+                    finite_forces(force) if args.debug_nans else force,
+                    eta=args.adaptive_eta, softening_sq=args.softening2, dt_max=dt,
+                    chunk_steps=args.chunk_steps, frame_writer=writer)
+                print(f"Adaptive steps taken: {taken}")
             else:
+                if args.merge_radius > 0 and args.integrator != "leapfrog":
+                    raise SystemExit("--merge-radius requires an unsharded leapfrog run")
                 bodies = simulate(
                     bodies, n_steps, dt, finite_forces(force) if args.debug_nans else force,
                     frame_writer=writer, chunk_steps=args.chunk_steps,
+                    checkpoint_every=args.checkpoint_every, checkpoint_fn=checkpoint_fn,
                     integrator=args.integrator, progress_every=args.progress,
-                    progress_fn=progress_fn,
+                    progress_fn=progress_fn, **merge_kw,
                 )
+        # before the last checkpoint write is waited for, as JAX's
+        elapsed = time.perf_counter() - t_wall0
     except FloatingPointError as e:
         print(f"error: --debug-nans: {e}; stopping the run", file=sys.stderr)
         return 1
     except CapacityError as e:
         print(f"error: {e}", file=sys.stderr)
         return 3
-    elapsed = time.perf_counter() - t_wall0
+    except ValueError as e:
+        # the persistent path's refusals exit 2 (cli/main.py:1126-1129);
+        # elsewhere the adaptive criterion's refusals exit 1
+        print(f"error: {e}", file=sys.stderr)
+        return 2 if persistent and args.adaptive_eta <= 0 else 1
+    finally:
+        if ckpt_mgr is not None:
+            ckpt_mgr.close()
 
     print(f"Completed. Output file: {args.output}")
     print(f"Elapsed wall time: {elapsed:f} s")
@@ -663,26 +816,43 @@ def main(argv=None) -> int:
     return 0
 
 
-def run_persistent(args, bodies, n_steps: int, dt: float, force_kw: dict, robust: bool,
-                   writer, progress_fn):
-    """The persistent Morton layout's run (cli/main.py:1091-1125) with the
+def run_persistent(args, bodies, n_steps: int, dt: float, t0: float, force_kw: dict,
+                   robust: bool, writer, progress_fn, checkpoint_fn, merge_kw: dict):
+    """The persistent Morton layout's run (cli/main.py:1050-1141): with
+    --adaptive-eta ``simulate_persistent_adaptive``, else
+    ``simulate_persistent`` with checkpoints, merging and block tiers; the
     run's evaluators from `force_kw`, the fused force function's keywords:
     K6's wrapper, and K1's in robust mode, or their plain versions.
     Returns the final Bodies."""
     from nbody_tpu_torch.core.types import Bodies
     from nbody_tpu_torch.ops.bh_fused import FRONTIER_CAP
-    from nbody_tpu_torch.ops.bh_persistent import simulate_persistent
+    from nbody_tpu_torch.ops.bh_persistent import (
+        simulate_persistent,
+        simulate_persistent_adaptive,
+    )
 
-    evaluators = {k: force_kw[k] for k in ("group_forces", "rect_forces") if k in force_kw}
-    pos, vel = simulate_persistent(
-        bodies.pos, bodies.vel, bodies.mass, n_steps, dt, G=args.G,
-        softening_sq=args.softening2, theta=args.theta, resort_every=args.resort_every,
-        group_size=args.bh_group_size or 1024, leaf_cap=args.bh_leaf_cap or 64,
-        frontier_cap=args.bh_frontier_cap or FRONTIER_CAP, frame_writer=writer,
-        progress_every=args.progress, progress_fn=progress_fn,
-        robust_slots=max(128, bodies.n // 512) if robust else 0, ld=args.bh_ld,
-        debug_nans=args.debug_nans, **evaluators)
-    return Bodies(pos, vel, bodies.mass)
+    kw = dict(G=args.G, softening_sq=args.softening2, theta=args.theta,
+              resort_every=args.resort_every, group_size=args.bh_group_size or 1024,
+              leaf_cap=args.bh_leaf_cap or 64,
+              frontier_cap=args.bh_frontier_cap or FRONTIER_CAP, frame_writer=writer,
+              checkpoint_every=args.checkpoint_every, checkpoint_fn=checkpoint_fn,
+              progress_every=args.progress, progress_fn=progress_fn,
+              robust_slots=max(128, bodies.n // 512) if robust else 0, ld=args.bh_ld,
+              debug_nans=args.debug_nans,
+              **{k: force_kw[k] for k in ("group_forces", "rect_forces") if k in force_kw})
+    if args.adaptive_eta > 0:
+        if args.block_tiers > 1:
+            raise SystemExit("--adaptive-eta and --block-tiers both adjust dt; pick one")
+        pos, vel, taken = simulate_persistent_adaptive(
+            bodies.pos, bodies.vel, bodies.mass, t0, args.end_time, eta=args.adaptive_eta,
+            dt_max=dt, **kw)
+        print(f"Adaptive steps taken: {taken}")
+        return Bodies(pos, vel, bodies.mass)
+    out = simulate_persistent(
+        bodies.pos, bodies.vel, bodies.mass, n_steps, dt, block_tiers=max(1, args.block_tiers),
+        block_eta=args.block_eta, block_prefix=args.block_prefix, **merge_kw, **kw)
+    mass = out[2].to(bodies.mass.dtype) if merge_kw else bodies.mass
+    return Bodies(out[0].to(bodies.pos.dtype), out[1].to(bodies.vel.dtype), mass)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ reference `propagation` exactly (serial/exhaustive.c:192-255):
 The JAX ``lax.scan`` becomes a loop over steps: PyTorch runs eagerly and
 each step is a few elementwise ops around one force call.  ``simulate``
 runs the steps in chunks and hands each chunk's positions to a writer
-callback, the initial frame first.
+callback, the initial frame first; chunks end on checkpoint, progress and
+(with frames) merge boundaries, as JAX's (``leapfrog.py:154-219``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from nbody_tpu_torch.core.types import Bodies
+from nbody_tpu_torch.ops.collisions import simulate_merging
 
 ForceFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (pos, mass) -> acc
 
@@ -105,9 +107,15 @@ def simulate(
     *,
     frame_writer: Optional[Callable[[np.ndarray], None]] = None,
     chunk_steps: int = 64,
+    checkpoint_every: int = 0,
+    checkpoint_fn: Optional[Callable[[Bodies, int], None]] = None,
     integrator: str = "leapfrog",
     progress_every: int = 0,
     progress_fn: Optional[Callable[[int], None]] = None,
+    merge_radius: float = 0.0,
+    merge_every: int = 1,
+    merge_report: Optional[Callable[[int], None]] = None,
+    mass_update: Optional[Callable[[np.ndarray], None]] = None,
 ) -> Bodies:
     """Run a full simulation, optionally streaming trajectory frames.
 
@@ -115,21 +123,43 @@ def simulate(
     reference writes the initial state before the loop,
     serial/exhaustive.c:208-216) and then one (T, N, 3) numpy chunk of
     post-drift positions per chunk of at most `chunk_steps` steps.
-    `progress_fn(done)` fires every `progress_every` steps, after a device
-    fence, so callers can report wall-clock heartbeats.
+    `checkpoint_fn(bodies, step)` fires every `checkpoint_every` steps and
+    `progress_fn(done)` every `progress_every` steps, after a device fence,
+    so callers can report wall-clock heartbeats: chunks end on both.
+
+    `merge_radius > 0` turns on inelastic merging every `merge_every`
+    steps (``ops/collisions.py``; leapfrog only); `merge_report` receives
+    the number of absorbed bodies at the end, and `mass_update` the running
+    mass array after each chunk that merged.  With frames on, chunks also
+    end on merge boundaries, so each chunk's frames share one mass column.
     """
+    merging = merge_radius > 0
+    if merging and integrator != "leapfrog":
+        raise ValueError("merging supports the leapfrog integrator only")
     if frame_writer is not None:
         frame_writer(bodies.pos.cpu().numpy()[None])
 
     acc = None
     done = 0
-    chunked = frame_writer is not None or progress_every > 0
+    merged_total = 0
+    chunked = frame_writer is not None or checkpoint_every > 0 or progress_every > 0
     while done < n_steps:
         t = min(chunk_steps, n_steps - done) if chunked else n_steps - done
-        if progress_every > 0:
-            next_prog = ((done // progress_every) + 1) * progress_every
-            t = min(t, next_prog - done)
-        if frame_writer is not None:
+        for every in (checkpoint_every, progress_every,
+                      merge_every if merging and frame_writer is not None else 0):
+            if every > 0:
+                t = min(t, ((done // every) + 1) * every - done)
+        if merging:
+            out = simulate_merging(bodies, t, dt, force_fn, radius=merge_radius,
+                                   merge_every=merge_every, acc0=acc, k0=done,
+                                   with_history=frame_writer is not None)
+            bodies, acc, merged = out[:3]
+            if frame_writer is not None:
+                frame_writer(out[3].cpu().numpy())
+            merged_total += merged
+            if merged and mass_update is not None:
+                mass_update(bodies.mass.cpu().numpy())
+        elif frame_writer is not None:
             bodies, acc, hist = leapfrog_steps(
                 bodies, t, dt, force_fn, acc0=acc, with_history=True,
                 integrator=integrator,
@@ -140,8 +170,12 @@ def simulate(
                 bodies, t, dt, force_fn, acc0=acc, integrator=integrator
             )
         done += t
+        if checkpoint_every > 0 and checkpoint_fn is not None and done % checkpoint_every == 0:
+            checkpoint_fn(bodies, done)
         if progress_every > 0 and progress_fn is not None and done % progress_every == 0:
             _fence(bodies.pos)
             progress_fn(done)
     _fence(bodies.pos)
+    if merging and merge_report is not None:
+        merge_report(merged_total)
     return bodies

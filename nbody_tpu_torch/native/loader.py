@@ -1,12 +1,12 @@
 """Build + load the native fastcsv runtime via ctypes.
 
-Counterpart of ``nbody_tpu/native/loader.py``.  The C++ source is the JAX
-package's own ``nbody_tpu/native/fastcsv.cpp``, compiled here by path with
-g++ (reading a file imports nothing), into this package's gitignored
-``_build/`` directory keyed by a hash of the source text.  Any failure (no
-compiler, no source, read-only build dir) falls back to the NumPy
-implementations in ``nbody_tpu_torch.io.csv``: this is host I/O, not the
-device path.
+Counterpart of ``nbody_tpu/native/loader.py``.  The C++ source is this
+package's own copy of the JAX package's ``fastcsv.cpp``, beside this file,
+compiled with g++ into this package's gitignored ``_build/`` directory keyed
+by a hash of the source text.  Any failure (no compiler, read-only build
+dir) falls back to the NumPy implementations in ``nbody_tpu_torch.io.csv``
+and ``nbody_tpu_torch.io.checkpoint``: this is host I/O, not the device
+path.
 
 Set NBODY_TPU_NO_NATIVE=1 to force the pure-Python path.
 """
@@ -22,7 +22,7 @@ import threading
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG), "nbody_tpu", "native", "fastcsv.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fastcsv.cpp")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _LOCK = threading.Lock()
 _CACHED: "FastCsv | None" = None
@@ -42,6 +42,8 @@ class FastCsv:
         lib.fastcsv_write_frames.argtypes = [
             ctypes.c_char_p, _DOUBLE_P, _DOUBLE_P, ctypes.c_long, ctypes.c_long,
         ]
+        lib.fastcsv_write7.restype = ctypes.c_int
+        lib.fastcsv_write7.argtypes = [ctypes.c_char_p, _DOUBLE_P, ctypes.c_long]
 
     def read_csv7(self, path: str) -> np.ndarray | None:
         """Returns the (N, 7) float64 array, or raises ValueError if the
@@ -62,6 +64,15 @@ class FastCsv:
         if got < 0:
             return None
         return out[:got]
+
+    def write7(self, path: str, data: np.ndarray) -> bool:
+        """Write an (N, 7) float64 array as a checkpoint CSV, each value in
+        its shortest exact form; returns False on failure (the caller falls
+        back to Python formatting)."""
+        data = np.ascontiguousarray(data, dtype=np.float64)
+        rc = self._lib.fastcsv_write7(path.encode(), data.ctypes.data_as(_DOUBLE_P),
+                                      data.shape[0])
+        return rc == 0
 
     def write_frames(self, path: str, pos: np.ndarray, mass: np.ndarray) -> bool:
         """Append (T, N, 3) float64 frames; returns False on failure (the

@@ -40,12 +40,21 @@ few GB of the card's memory and one kernel launch has no time limit.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from nbody_tpu_torch.core import constants
+from nbody_tpu_torch.core.types import Bodies
+from nbody_tpu_torch.integrate.adaptive import (
+    check_adaptive,
+    host_time,
+    run_chunk,
+    stagnated,
+    step_size,
+)
 from nbody_tpu_torch.ops.barneshut import CapacityError, group_ranges
 from nbody_tpu_torch.ops.bh_fused import (
     FRONTIER_CAP,
@@ -60,6 +69,7 @@ from nbody_tpu_torch.ops.bh_fused import (
     outlier_rect,
 )
 from nbody_tpu_torch.ops.bh_grid import GridTree, grid_from_terminal, grid_offsets
+from nbody_tpu_torch.ops.collisions import merge_pass
 from nbody_tpu_torch.ops.cuda_exhaustive import cuda_rect_accelerations
 from nbody_tpu_torch.ops.morton import bounding_border, morton_encode
 
@@ -274,25 +284,50 @@ def _ft_from_state(state: GroupState) -> GridTree:
 def state_forces(state: GroupState, *, theta: float = constants.THETA,
                  softening_sq: float = constants.SOFTENING_SQ, leaf_cap: int = 64,
                  frontier_cap: int = FRONTIER_CAP, group_forces=fused_group_forces,
-                 rect_forces=cuda_rect_accelerations):
+                 rect_forces=cuda_rect_accelerations, groups: Optional[torch.Tensor] = None):
     """(accelerations (M, 3) f32 at the state's current positions, K6's
-    stats (G, N_STATS)).  `group_forces` is K6's wrapper (its pricing pass
-    and heaviest-first launch: two launches) or its plain version; pads get
+    stats).  `group_forces` is K6's wrapper (its pricing pass and
+    heaviest-first launch: two launches) or its plain version; pads get
     zero from it.  In robust mode the outliers' pull is added by one exact
-    (M, K) rectangle through `rect_forces` (K1, or its plain version), at
-    their current positions; G is folded into out_gm already."""
+    rectangle through `rect_forces` (K1, or its plain version), at their
+    current positions; G is folded into out_gm already.
+
+    `groups` (int64 (P,), or None for all G) evaluates those groups only,
+    as the target side: K6 takes their (gstart, gcount) and writes their
+    slots, the rest of the output stays zero, and the stats are (P,
+    N_STATS); the sources, and the tables rebuilt from them, stay the
+    whole layout, and the robust rectangle shrinks to the groups' slots."""
     tree = _ft_from_state(state)
     b = state.group_size
     gstart = torch.arange(0, state.src.shape[0], b, dtype=torch.int32,
                           device=state.src.device)
-    acc, stats = group_forces(tree, gstart, state.gcount, state.src, state.bsq, theta=theta,
+    gcount = state.gcount
+    if groups is not None:
+        gstart, gcount = gstart[groups], gcount[groups]
+    acc, stats = group_forces(tree, gstart, gcount, state.src, state.bsq, theta=theta,
                               eps2=softening_sq, leaf_cap=leaf_cap, ld=state.ld,
                               group_size=b, frontier_cap=frontier_cap)
     if state.out_gm is not None:
-        targets = state.src[:, :3].contiguous()
-        acc = acc + outlier_rect(targets, targets[state.out_slots], state.out_gm, G=1.0,
-                                 softening_sq=softening_sq, rect_forces=rect_forces)
+        src = state.src[state.out_slots, :3]
+        if groups is None:
+            targets = state.src[:, :3].contiguous()
+            acc = acc + outlier_rect(targets, src, state.out_gm, G=1.0,
+                                     softening_sq=softening_sq, rect_forces=rect_forces)
+        else:
+            rows = (groups[:, None] * b + torch.arange(b, device=groups.device)).reshape(-1)
+            side = outlier_rect(state.src[rows, :3].contiguous(), src, state.out_gm, G=1.0,
+                                softening_sq=softening_sq, rect_forces=rect_forces)
+            acc[rows] = acc[rows] + side
     return acc, stats
+
+
+def subset_state_forces(state: GroupState, idx: torch.Tensor, **force_kw):
+    """(accelerations (M, 3) with the slots of the target groups `idx`
+    written, stats (P, N_STATS)): ``state_forces`` over a prefix of the
+    tier order (``bh_persistent.py:914-954``).  K6 reads each group's
+    slots where they lie, so no target row is gathered; only the robust
+    rectangle gathers its targets."""
+    return state_forces(state, groups=idx, **force_kw)
 
 
 def prime(state: GroupState, **force_kw):
@@ -361,6 +396,212 @@ def _raise_overflow(ovf: int) -> None:
             f"(a level needed >= {ovf} octets): pass --bh-frontier-cap {need}")
 
 
+def _valid_amax(acc: torch.Tensor, valid: torch.Tensor, b: int | None = None):
+    """max |a| over the real slots, of all (0-dim) or of each group of `b`
+    slots ((G,)): pads, which the robust rectangle reaches, are left out."""
+    a2 = torch.where(valid, (acc * acc).sum(-1), 0.0)
+    return torch.sqrt(a2.max() if b is None else a2.reshape(-1, b).amax(dim=1))
+
+
+def kdk_adaptive_steps(state: GroupState, k_steps: int, t, t_end: float, *, eta: float,
+                       eps: float, dt_min: float, dt_max: float, with_history: bool = False,
+                       ovf: Optional[torch.Tensor] = None,
+                       debug_nans: bool = False, **force_kw):
+    """Adaptive-dt KDK on the persistent layout (``bh_persistent.py:
+    691-765``): each step's dt from the real slots' |a|_max by the
+    criterion of ``integrate/adaptive.py`` (``step_size``), t and dt f32
+    0-dim tensors on the device, the landing snapped to f32(t_end); at
+    most `k_steps`, stopping at arrival (``run_chunk``).  The state's
+    arrays are updated in place.  Returns (state, ovf, t, (ts, dts),
+    history) as ``kdk_steps`` and ``adaptive_steps``."""
+    f32 = torch.float32
+    dev = state.src.device
+    src, vel = state.src, state.vel
+    two_eta_eps = torch.tensor(2.0 * eta * eps, dtype=f32, device=dev)
+    t_end_t = torch.tensor(t_end, dtype=f32, device=dev)
+    ovf = torch.zeros((), dtype=torch.int32, device=dev) if ovf is None else ovf
+    dest = state.orig[state.real].long() if with_history else None
+    ts, dts, hist = [], [], []
+    box = [state, ovf, torch.as_tensor(t, dtype=f32).to(dev)]
+
+    def run(s: int) -> torch.Tensor:
+        state, ovf, t = box
+        for _ in range(s):
+            dt, rem = step_size(_valid_amax(state.acc, state.valid), t, t_end_t,
+                                two_eta_eps=two_eta_eps, dt_min=dt_min, dt_max=dt_max)
+            half = dt * 0.5
+            vel.add_(state.acc * half)
+            src[:, :3] += vel * dt
+            if debug_nans:
+                _check_finite("position", src[state.real, :3])
+            acc, stats = state_forces(state, **force_kw)
+            if debug_nans:
+                _check_finite("force", acc[state.real])
+            ovf = torch.maximum(ovf, stats[:, S_OVF].max())
+            vel.add_(acc * half)
+            state = state._replace(acc=acc)
+            t = torch.where(dt >= rem, t_end_t, t + dt)
+            ts.append(t)
+            dts.append(dt)
+            if with_history:
+                frame = torch.empty((state.n, 3), dtype=f32, device=dev)
+                frame[dest] = src[state.real, :3]
+                hist.append(frame)
+        box[:] = [state, ovf, t]
+        return t
+
+    run_chunk(k_steps, float(box[2]), float(np.float32(t_end)), dt_max, f32, run)
+    state, ovf, t = box
+    steps = (torch.stack(ts), torch.stack(dts)) if ts else (t.new_empty(0), t.new_empty(0))
+    return state, ovf, t, steps, (torch.stack(hist) if with_history and hist else None)
+
+
+# ---------------------------------------------------------------------------
+# Block (tiered) time steps: per-group step tiers on the persistent layout
+# (``bh_persistent.py:768-1060``).  Morton groups are spatially coherent, so
+# a group's acceleration scale is too: a hot core takes dt / 2^k while the
+# field takes dt.  Tier k of T has L = 2^(T-1-k) finest sub-steps
+# h = dt / 2^(T-1) a step of its own: it kicks dt_k / 2 at the start of its
+# step, drifts with that velocity, and kicks dt_k / 2 at its end with a force
+# evaluated there.  The tables rebuild every sub-step, so every force sees
+# sub-step-current sources.
+#
+# A group's position within its own step is its position at the opening
+# kick plus its velocity times the time since (j h, j the sub-steps taken);
+# JAX adds v h every sub-step, the same sum in exact arithmetic.  At the
+# group's closing j h = dt_k exactly, so the step is the KDK step at dt_k
+# to the bit: a uniform coarse tier is ``kdk_steps`` at dt, a uniform finest
+# tier ``kdk_steps`` at h.
+# ---------------------------------------------------------------------------
+
+
+def assign_tiers(state: GroupState, dt: float, *, eta: float, eps: float,
+                 n_tiers: int) -> torch.Tensor:
+    """(G,) int32 tier a group: the least k with dt / 2^k within the
+    criterion sqrt(2 eta eps / |a|_max) of the group's real slots, clipped
+    to [0, n_tiers - 1] (``bh_persistent.py:793-805``)."""
+    f32 = torch.float32
+    amax = _valid_amax(state.acc, state.valid, state.group_size)
+    dt_req = torch.sqrt(torch.tensor(2.0 * eta * eps, dtype=f32, device=amax.device)
+                        / torch.clamp_min(amax, 1e-30))
+    k = torch.ceil(torch.log2(torch.clamp_min(torch.tensor(dt, dtype=f32) / dt_req, 1e-30)))
+    return torch.clamp(k, 0, n_tiers - 1).to(torch.int32)
+
+
+def _val2(x: int) -> int:
+    """2-adic valuation of x > 0 (trailing zero bits)."""
+    return (x & -x).bit_length() - 1
+
+
+def tier_order_sizes(tiers, n_tiers: int, quant: int = 64):
+    """The prefix plan of ``kdk_block_prefix_steps``, on the host, as JAX's
+    (``bh_persistent.py:875-898``): (order, sizes), `order` the (G,)
+    int32 group permutation in descending tier order (stable), so the
+    groups closing at any sub-step are a prefix of it; `sizes[v]`, for the
+    sub-steps s + 1 of 2-adic valuation v, the groups of tier >= T-1-v
+    rounded up to `quant` and capped at G, sizes[T-1] exactly G.  Returns
+    numpy and a tuple of ints."""
+    t = np.asarray(tiers.cpu() if hasattr(tiers, "cpu") else tiers)
+    g = t.shape[0]
+    order = np.argsort(-t, kind="stable").astype(np.int32)
+    suffix = np.cumsum(np.bincount(t, minlength=n_tiers)[::-1])
+    sizes = tuple(g if v == n_tiers - 1 else int(min(g, -(-int(suffix[v]) // quant) * quant))
+                  for v in range(n_tiers))
+    return order, sizes
+
+
+def _block_steps(state: GroupState, tiers: torch.Tensor, n_macro: int, dt: float, *,
+                 n_tiers: int, evaluate, with_history: bool, ovf, debug_nans: bool,
+                 **force_kw):
+    """The synchronized block-KDK schedule shared by the masked and the
+    prefix steppers; `evaluate(state, s, closing)` gives sub-step s's
+    (accelerations, stats) or None where no group closes.  Updates the
+    state's arrays in place; returns (state, ovf, macro-boundary history)."""
+    f32 = torch.float32
+    s_per = 1 << (n_tiers - 1)
+    h = float(np.float32(dt)) / s_per
+    b = state.group_size
+    src, vel = state.src, state.vel
+    dev = src.device
+    big_l = (s_per >> tiers.long()).repeat_interleave(b)  # (M,) sub-steps a step
+    half_own = (big_l.to(f32) * (h * 0.5))[:, None]
+    anchor = src[:, :3].clone()
+    ovf = torch.zeros((), dtype=torch.int32, device=dev) if ovf is None else ovf
+    dest = state.orig[state.real].long() if with_history else None
+    hist = []
+    for _ in range(n_macro):
+        for s in range(s_per):
+            j = s % big_l
+            opening = (j == 0)[:, None]
+            vel.copy_(torch.where(opening, vel + state.acc * half_own, vel))
+            anchor.copy_(torch.where(opening, src[:, :3], anchor))
+            src[:, :3] = anchor + vel * ((j + 1).to(f32) * h)[:, None]
+            if debug_nans:
+                _check_finite("position", src[state.real, :3])
+            closing = ((s + 1) % big_l == 0)[:, None]
+            got = evaluate(state, s, closing)
+            if got is None:
+                continue
+            acc_new, stats = got
+            ovf = torch.maximum(ovf, stats[:, S_OVF].max()) if stats.numel() else ovf
+            acc = torch.where(closing, acc_new, state.acc)
+            if debug_nans:
+                _check_finite("force", acc[state.real])
+            vel.copy_(torch.where(closing, vel + acc * half_own, vel))
+            state = state._replace(acc=acc)
+        if with_history:
+            frame = torch.empty((state.n, 3), dtype=f32, device=dev)
+            frame[dest] = src[state.real, :3]
+            hist.append(frame)
+    return state, ovf, (torch.stack(hist) if with_history and hist else None)
+
+
+def kdk_block_steps(state: GroupState, tiers: torch.Tensor, n_macro: int, dt: float, *,
+                    n_tiers: int, with_history: bool = False,
+                    ovf: Optional[torch.Tensor] = None, debug_nans: bool = False,
+                    **force_kw):
+    """`n_macro` macro steps of dt with per-group tiers, the masked form
+    (``bh_persistent.py:808-871``, JAX's CLI default): every sub-step is one
+    evaluation of all G group slots with the groups that do not close
+    there given gcount 0, which K6's pricing pass gives no cost and its
+    full kernel skips.  state.acc must hold the force at the current
+    positions.  Returns (state, ovf, history): with `with_history` the
+    (n_macro, n, 3) positions at the macro boundaries, in input order."""
+    gcount = state.gcount
+
+    def evaluate(st, s, closing):
+        masked = torch.where(closing[::st.group_size, 0], gcount, 0)
+        return state_forces(st._replace(gcount=masked), **force_kw)
+
+    return _block_steps(state, tiers, n_macro, dt, n_tiers=n_tiers, evaluate=evaluate,
+                        with_history=with_history, ovf=ovf, debug_nans=debug_nans)
+
+
+def kdk_block_prefix_steps(state: GroupState, tiers: torch.Tensor, order, n_macro: int,
+                           dt: float, *, sizes: tuple, n_tiers: int,
+                           with_history: bool = False, ovf: Optional[torch.Tensor] = None,
+                           debug_nans: bool = False, **force_kw):
+    """``kdk_block_steps`` with per-tier prefixes (``bh_persistent.py:
+    957-1053``): sub-step s evaluates only the groups order[:sizes[v]],
+    v = val2(s + 1), and the last sub-step of a macro step, where every
+    tier closes, all G.  The prefix's quantization extras are evaluated and
+    dropped, never kicked.  The physics and the bits are the masked
+    form's; a prefix of size 0 launches nothing."""
+    s_per = 1 << (n_tiers - 1)
+    order = torch.as_tensor(np.asarray(order), dtype=torch.int64).to(state.src.device)
+
+    def evaluate(st, s, closing):
+        if s == s_per - 1:
+            return state_forces(st, **force_kw)
+        size = sizes[min(_val2(s + 1), n_tiers - 1)]
+        if size == 0:
+            return None
+        return subset_state_forces(st, order[:size], **force_kw)
+
+    return _block_steps(state, tiers, n_macro, dt, n_tiers=n_tiers, evaluate=evaluate,
+                        with_history=with_history, ovf=ovf, debug_nans=debug_nans)
+
+
 def simulate_persistent(
     pos: torch.Tensor,
     vel: torch.Tensor,
@@ -377,23 +618,49 @@ def simulate_persistent(
     resort_every: int = 8,
     max_drift_frac: float = 0.25,
     frame_writer: Optional[Callable[[np.ndarray], None]] = None,
+    checkpoint_every: int = 0,
+    checkpoint_fn: Optional[Callable[[Bodies, int], None]] = None,
     progress_every: int = 0,
     progress_fn: Optional[Callable[..., None]] = None,
+    block_tiers: int = 1,
+    block_eta: float = 0.025,
+    block_prefix: bool = False,
     robust_slots: int = 0,
     ld: int = 0,
+    merge_radius: float = 0.0,
+    merge_every: int = 1,
+    merge_report: Optional[Callable[[int], None]] = None,
+    mass_update: Optional[Callable[[np.ndarray], None]] = None,
     debug_nans: bool = False,
     group_forces=fused_group_forces,
     rect_forces=cuda_rect_accelerations,
 ):
     """Run `n_steps` KDK steps with a resort every `resort_every` steps;
-    returns (pos, vel) f32 in the input order.  `robust_slots` > 0 turns
-    on the robust scheme (``_resort``), with the grid at auto_ld + 2 (at
-    most 8) unless `ld` is given.
+    returns (pos, vel) f32 in the input order, and (pos, vel, mass) with
+    merging.  `robust_slots` > 0 turns on the robust scheme (``_resort``),
+    with the grid at auto_ld + 2 (at most 8) unless `ld` is given.
 
-    The steps run in chunks that end on resorts.  `frame_writer` receives
-    the initial frame, then each chunk's (T, N, 3) post-drift positions in
-    the input order; `progress_fn(done, note)` fires every
-    `progress_every` steps after a device fence.
+    The steps run in chunks that end on resorts, checkpoints, progress
+    beats and merge passes (``bh_persistent.py:1233-1340``).
+    `frame_writer` receives the initial frame, then each chunk's (T, N, 3)
+    post-drift positions in the input order; `checkpoint_fn(Bodies,
+    step)` fires every `checkpoint_every` steps with the state emitted to
+    the input order; `progress_fn(done, note)` every `progress_every`
+    steps after a device fence.
+
+    `merge_radius > 0` runs ``collisions.merge_pass`` every `merge_every`
+    steps on the state emitted to the input order; where it merged, the
+    layout is rebuilt from the merged bodies (``init_state`` + ``prime``,
+    so the tables, the robust outliers' G·m and the KDK carry follow the
+    new masses) and that boundary's resort is skipped.  `merge_report`
+    gets the number absorbed at the end, `mass_update` the running masses
+    after each merging boundary.
+
+    `block_tiers` T > 1 runs block time steps (``kdk_block_steps``, or
+    ``kdk_block_prefix_steps`` with `block_prefix`): `n_steps` counts
+    macro steps of dt, and the tiers are assigned from the acceleration
+    scale (`block_eta`) at the start and at every resort.  Both refuse
+    softening_sq <= 0, and merging refuses tiers.
 
     Drift guard: before each chunk the fastest real body's speed is read;
     if a full chunk would move it more than `max_drift_frac` of a terminal
@@ -403,16 +670,32 @@ def simulate_persistent(
     the last one, and an overflow raises CapacityError naming the cap that
     fits: forces are never returned with sources dropped."""
     n = pos.shape[0]
+    block = block_tiers > 1
+    merging = merge_radius > 0
+    if block and softening_sq <= 0:
+        raise ValueError("block tiers need softening_sq > 0 (the eps scale)")
+    if merging and block:
+        raise ValueError("merging and block tiers cannot combine (a merge invalidates the "
+                         "tier assignment mid-macro-step); pick one")
     if robust_slots > 0 and not ld:
         ld = min(MAX_LD, auto_ld(n) + 2)
     fkw = dict(theta=theta, softening_sq=softening_sq, leaf_cap=leaf_cap,
                frontier_cap=frontier_cap, group_forces=group_forces, rect_forces=rect_forces)
-    state = init_state(pos, vel, mass, G=G, group_size=group_size,
-                       robust_slots=robust_slots, ld=ld or None)
+    skw = dict(G=G, group_size=group_size, robust_slots=robust_slots, ld=ld or None)
+    state = init_state(pos, vel, mass, **skw)
     state, stats = prime(state, **fkw)
     ovf = stats[:, S_OVF].max()
     if debug_nans:
         _check_finite("force", state.acc[state.real])
+    mass_cur = mass.to(torch.float32)
+    merged_total = 0
+    eps = math.sqrt(softening_sq) if block else 0.0
+
+    def plan(state):
+        tiers = assign_tiers(state, dt, eta=block_eta, eps=eps, n_tiers=block_tiers)
+        return (tiers, *tier_order_sizes(tiers, block_tiers)) if block_prefix else (tiers,)
+
+    tier_plan = plan(state) if block else None
     if frame_writer is not None:
         frame_writer(pos.to(torch.float32).cpu().numpy()[None])
     done = 0
@@ -426,24 +709,153 @@ def simulate_persistent(
         if max_drift_frac > 0 and t > 1 and dt != 0:
             if vmax * abs(dt) * t > max_drift_frac * border / (1 << state.ld):
                 t, guarded = 1, True
-        if progress_every > 0:
-            t = min(t, ((done // progress_every) + 1) * progress_every - done)
-        state, ovf, hist = kdk_steps(state, t, dt, with_history=frame_writer is not None,
-                                     ovf=ovf, debug_nans=debug_nans, **fkw)
+        for every in (checkpoint_every, progress_every, merge_every if merging else 0):
+            if every > 0:
+                t = min(t, ((done // every) + 1) * every - done)
+        step_kw = dict(with_history=frame_writer is not None, ovf=ovf,
+                       debug_nans=debug_nans, **fkw)
+        if block and block_prefix:
+            tiers, order, sizes = tier_plan
+            state, ovf, hist = kdk_block_prefix_steps(state, tiers, order, t, dt, sizes=sizes,
+                                                      n_tiers=block_tiers, **step_kw)
+        elif block:
+            state, ovf, hist = kdk_block_steps(state, tier_plan[0], t, dt,
+                                               n_tiers=block_tiers, **step_kw)
+        else:
+            state, ovf, hist = kdk_steps(state, t, dt, **step_kw)
         if hist is not None:
             frame_writer(hist.cpu().numpy())
         done += t
+        rebuilt = False
+        if merging and done % merge_every == 0:
+            p_o, v_o = emit(state)
+            p_m, v_m, m_m, nm = merge_pass(p_o, v_o, mass_cur, merge_radius)
+            nm = int(nm)  # one host read a merge boundary
+            if nm > 0:
+                merged_total += nm
+                mass_cur = m_m
+                state = init_state(p_m, v_m, m_m, **skw)
+                state, stats = prime(state, **fkw)
+                ovf = torch.maximum(ovf, stats[:, S_OVF].max())
+                rebuilt = True
+                if mass_update is not None:
+                    mass_update(mass_cur.cpu().numpy())
+        if checkpoint_every > 0 and checkpoint_fn is not None and done % checkpoint_every == 0:
+            p_c, v_c = emit(state)
+            checkpoint_fn(Bodies(p_c, v_c, mass_cur), done)
         if progress_every > 0 and progress_fn is not None and done % progress_every == 0:
             if state.src.is_cuda:
                 torch.cuda.synchronize(state.src.device)
             progress_fn(done, "drift-guard: per-step resorts" if guarded else "")
-        if done < n_steps:
+        if done < n_steps and not rebuilt:
+            state = resort(state, robust_slots)
+            if block:
+                tier_plan = plan(state)
+    _raise_overflow(int(ovf))
+    p_out, v_out = emit(state)
+    if p_out.is_cuda:
+        torch.cuda.synchronize(p_out.device)
+    if merging:
+        if merge_report is not None:
+            merge_report(merged_total)
+        return p_out, v_out, mass_cur
+    return p_out, v_out
+
+
+def simulate_persistent_adaptive(
+    pos: torch.Tensor,
+    vel: torch.Tensor,
+    mass: torch.Tensor,
+    t_start: float,
+    t_end: float,
+    *,
+    G: float = constants.BIG_G,
+    softening_sq: float = constants.SOFTENING_SQ,
+    theta: float = constants.THETA,
+    eta: float = 0.025,
+    dt_min: float = 0.0,
+    dt_max: float,
+    group_size: int = 1024,
+    leaf_cap: int = 64,
+    frontier_cap: int = FRONTIER_CAP,
+    resort_every: int = 8,
+    max_drift_frac: float = 0.25,
+    frame_writer: Optional[Callable[[np.ndarray], None]] = None,
+    checkpoint_every: int = 0,
+    checkpoint_fn: Optional[Callable[[Bodies, int, float], None]] = None,
+    progress_every: int = 0,
+    progress_fn: Optional[Callable[..., None]] = None,
+    robust_slots: int = 0,
+    ld: int = 0,
+    max_steps: int = 10_000_000,
+    debug_nans: bool = False,
+    group_forces=fused_group_forces,
+    rect_forces=cuda_rect_accelerations,
+):
+    """Adaptive global dt on the persistent layout (``bh_persistent.py:
+    1344-1482``): from t_start to t_end, chunks of `resort_every` steps
+    (``kdk_adaptive_steps``, stopping at arrival) with a resort between.
+    Returns (pos, vel, steps taken) in the input order.  The drift guard
+    prices a chunk with dt_max (the adaptive dt is no larger);
+    checkpoints and progress beats fire on real step counts, where the
+    count crossed a multiple of theirs in the chunk, as JAX's;
+    `checkpoint_fn(Bodies, steps taken, t)` also gets the run's time t,
+    which a fixed step cannot give (JAX's CLI writes t0 + steps · dt_max);
+    frames are the initial one and one row a real step."""
+    eps = check_adaptive(softening_sq, dt_max)
+    n = pos.shape[0]
+    if robust_slots > 0 and not ld:
+        ld = min(MAX_LD, auto_ld(n) + 2)
+    fkw = dict(theta=theta, softening_sq=softening_sq, leaf_cap=leaf_cap,
+               frontier_cap=frontier_cap, group_forces=group_forces, rect_forces=rect_forces)
+    state = init_state(pos, vel, mass, G=G, group_size=group_size,
+                       robust_slots=robust_slots, ld=ld or None)
+    state, stats = prime(state, **fkw)
+    ovf = stats[:, S_OVF].max()
+    if frame_writer is not None:
+        frame_writer(pos.to(torch.float32).cpu().numpy()[None])
+    f32 = torch.float32
+    t_end_cmp = host_time(t_end, f32)
+    t = torch.tensor(t_start, dtype=f32, device=state.src.device)
+    t_host = float(t)
+    taken = 0
+    t_prev = float("-inf")
+    while t_host < t_end_cmp and taken < max_steps:
+        if t_host <= t_prev:
+            raise stagnated(t_host, t_end, dt_max)
+        t_prev = t_host
+        k = resort_every
+        vmax, ovf_seen, border = torch.stack(
+            [state.vel[state.real].abs().max(), ovf.float(), state.border]).tolist()
+        _raise_overflow(int(ovf_seen))
+        guarded = False
+        if max_drift_frac > 0 and k > 1:
+            if vmax * dt_max * k > max_drift_frac * border / (1 << state.ld):
+                k, guarded = 1, True
+        state, ovf, t, (_, dts), hist = kdk_adaptive_steps(
+            state, k, t, t_end, eta=eta, eps=eps, dt_min=dt_min, dt_max=dt_max,
+            with_history=frame_writer is not None, ovf=ovf,
+            debug_nans=debug_nans, **fkw)
+        real = (dts > 0).cpu().numpy()
+        if frame_writer is not None and real.any():
+            frame_writer(hist.cpu().numpy()[real])
+        taken += int(real.sum())
+        t_host = float(t)
+        if checkpoint_every > 0 and checkpoint_fn is not None and taken > 0 \
+                and taken % checkpoint_every < k:
+            p_c, v_c = emit(state)
+            checkpoint_fn(Bodies(p_c, v_c, mass), taken, t_host)
+        if progress_every > 0 and progress_fn is not None and taken % progress_every < k:
+            if state.src.is_cuda:
+                torch.cuda.synchronize(state.src.device)
+            progress_fn(taken, "drift-guard: per-step resorts" if guarded else "")
+        if t_host < t_end_cmp:
             state = resort(state, robust_slots)
     _raise_overflow(int(ovf))
     p_out, v_out = emit(state)
     if p_out.is_cuda:
         torch.cuda.synchronize(p_out.device)
-    return p_out, v_out
+    return p_out, v_out, taken
 
 
 def state_from_numpy(*, pg, vel, valid, gcount, orig, nid, it, bsq, border, acc,

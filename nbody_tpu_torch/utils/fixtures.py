@@ -75,6 +75,27 @@ def with_escapers(arr: np.ndarray) -> np.ndarray:
     return out
 
 
+def stratified_cloud(n: int) -> np.ndarray:
+    """(N, 7) hot Plummer core in a cold halo, the block-tier input of
+    ``tools/profile_block.py:43-58`` (``--stratified``): a tenth of the
+    bodies in a Plummer sphere of half the mass shrunk x0.05 (speeds
+    rescaled by sqrt(1 / 0.05) to stay virial), the rest in a halo out to
+    r = 10 with speeds N(0, 0.05) and half the mass; seed 3 throughout.
+    Per-group acceleration scales then spread over Morton groups instead
+    of collapsing, so the tiers split."""
+    rng = np.random.default_rng(3)
+    nc = n // 10
+    core = plummer_cloud(nc, seed=3, total_mass=0.5, G=1.0)
+    core[:, 0:3] *= 0.05
+    core[:, 3:6] *= np.sqrt(1.0 / 0.05)
+    u = rng.normal(size=(n - nc, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    r = 10.0 * rng.uniform(0.2, 1.0, n - nc)[:, None] ** (1 / 3)
+    halo = np.concatenate([u * r, rng.normal(0, 0.05, (n - nc, 3)),
+                           np.full((n - nc, 1), 0.5 / (n - nc))], axis=1)
+    return np.concatenate([core, halo], axis=0)
+
+
 def write_fixture(path: str, arr: np.ndarray) -> None:
     """Write bodies in the reference input format: 7 comma-separated floats
     per line, no header (serial/exhaustive.c:130-132), each as ``repr`` of

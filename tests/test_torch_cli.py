@@ -610,3 +610,126 @@ def test_cli_debug_nans_stops(tmp_path, capsys, flags):
     err = capsys.readouterr().err
     assert "--debug-nans: non-finite" in err and "stopping the run" in err
     assert main(argv) == 0
+
+
+# ---- checkpoints, adaptive dt, merging and block tiers ----------------------
+
+
+def test_cli_lacks_only_the_multi_chip_flags():
+    """Against the JAX parser, the port's lacks exactly the five multi-chip
+    flags (--shard, --mesh-shape, --jstream, --bucket-frac, --halo-cap)."""
+    from nbody_tpu.cli.main import build_parser as jax_parser
+    from nbody_tpu_torch.cli.main import build_parser
+
+    def flags(p):
+        return {s for a in p._actions for s in a.option_strings}
+    assert flags(jax_parser()) - flags(build_parser()) == {
+        "--shard", "--mesh-shape", "--jstream", "--bucket-frac", "--halo-cap"}
+
+
+def _outcome(fn, argv, capsys):
+    """(exit status, message) of one in-process CLI call: a return code
+    with stderr's error line, SystemExit's code (a message is status 1),
+    or an exception raised out of the CLI (status 1 as a process)."""
+    try:
+        rc = fn(argv)
+        said = capsys.readouterr().err
+        return rc, said.strip().splitlines()[-1] if said.strip() else ""
+    except SystemExit as e:
+        capsys.readouterr()
+        return (1, str(e.code)) if isinstance(e.code, str) else (e.code, "")
+    except ValueError as e:
+        capsys.readouterr()
+        return 1, f"error: {e}"
+
+
+FUSED = ["--algo", "barnes-hut", "--bh-traversal", "fused", "--no-capacity-check"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--block-tiers", "2"],
+    [*FUSED, "--resort-every", "2", "--merge-radius", "0.1", "--block-tiers", "2"],
+    [*FUSED, "--resort-every", "2", "--merge-radius", "0.1", "--adaptive-eta", "0.01"],
+    [*FUSED, "--resort-every", "2", "--adaptive-eta", "0.01", "--block-tiers", "2"],
+    [*FUSED, "--resort-every", "2", "--block-tiers", "2", "--softening2", "0"],
+    [*FUSED, "--resort-every", "2", "--adaptive-eta", "0.01", "--softening2", "0"],
+    ["--adaptive-eta", "0.01", "--integrator", "yoshida4"],
+    ["--adaptive-eta", "0.01", "--merge-radius", "0.1"],
+    ["--adaptive-eta", "0.01", "--softening2", "0"],
+    ["--merge-radius", "0.1", "--integrator", "yoshida4"],
+    ["--resume"],
+], ids=["tiers-one-shot", "merge-tiers", "merge-adaptive", "adaptive-tiers",
+        "tiers-no-softening", "persistent-adaptive-no-softening", "adaptive-yoshida",
+        "adaptive-merge", "adaptive-no-softening", "merge-yoshida", "resume-no-file"])
+def test_cli_refusals_match_jax(tmp_path, capsys, flags):
+    """Each refusal of the ten flags' combinations (cli/main.py:958-977,
+    1061-1065, 1146-1170, the persistent path's ValueError exit 2, a
+    missing checkpoint) exits with JAX's status and message; where JAX
+    lets the adaptive criterion's ValueError out of main (status 1 as a
+    process), the port prints it and returns 1."""
+    src = str(tmp_path / "nope.csv") if flags == ["--resume"] else TEN
+    argv = [src, "0", "0.2", "0.1", str(tmp_path / "o.csv"), *flags]
+    want = _outcome(jax_main, argv, capsys)
+    got = _outcome(main, [*argv, "--device", "cpu"], capsys)
+    assert want[0] != 0 and got == want
+
+
+def test_cli_merge_on_the_persistent_layout(tmp_path, capsys):
+    """tests/test_collisions.py:155-186: --merge-radius with --resort-every
+    merges, reports, and writes the running masses in the frames' mass
+    column: the initial frame all live, the last with the absorbed ghosts;
+    the one-shot run reports the same count."""
+    counts = {}
+    for name, extra in (("persistent", PERSISTENT + ["--resort-every", "2"]),
+                        ("one-shot", ["--device", "cpu"])):
+        out = tmp_path / f"{name}.csv"
+        assert main([TEN, "0", "0.002", "0.001", str(out), "--merge-radius", "5.0",
+                     *extra]) == 0
+        k = counts[name] = int(capsys.readouterr().out.split("Merged bodies:")[1].split()[0])
+        rows, n = read_trajectory(out)
+        assert k > 0 and (rows[-n:, 4] == 0).sum() == k and (rows[:n, 4] > 0).all()
+    assert counts["persistent"] == counts["one-shot"]
+
+
+def test_cli_block_tiers_prefix_equals_masked(tmp_path, capsys):
+    """tests/test_bh_block.py:281-303 on the port's CLI: --block-tiers 2
+    on the persistent layout runs, and --block-prefix writes the same
+    bytes."""
+    src = os.path.join(DATA_DIR, "100_bodies_g1.csv")
+    outs = []
+    for extra in ([], ["--block-prefix"]):
+        outs.append(tmp_path / f"o{len(outs)}.csv")
+        assert main([src, "0", "0.3", "0.1", str(outs[-1]), *PERSISTENT, "--bh-group-size",
+                     "64", "--resort-every", "3", "--block-tiers", "2", "--softening2", "0.01",
+                     "--G", "1"]) == 0
+    assert open(outs[0]).read() == open(outs[1]).read()
+    assert "/persistent, dtype: f32" in capsys.readouterr().out
+
+
+def test_cli_adaptive_on_the_persistent_layout(tmp_path, capsys):
+    """--adaptive-eta with --resort-every takes the persistent adaptive run
+    and prints its steps; frames hold the initial one and one a real
+    step."""
+    out = tmp_path / "o.csv"
+    assert main([_cloud_csv(tmp_path), "0", "0.003", "0.001", str(out), *PERSISTENT,
+                 "--resort-every", "2", "--adaptive-eta", "0.05"]) == 0
+    text = capsys.readouterr().out
+    taken = int(text.split("Adaptive steps taken:")[1].split()[0])
+    rows, n = read_trajectory(out)
+    assert taken >= 3 and rows.shape[0] == (taken + 1) * n
+
+
+def test_cli_adaptive_checkpoint_holds_the_run_time(tmp_path, capsys):
+    """A checkpoint of the persistent adaptive run holds the time the run
+    reached (f32 t_end at the last step), not t0 + steps · dt_max as JAX's
+    CLI writes, a later time when the steps were shorter than dt_max."""
+    import json
+
+    out, ck = tmp_path / "o.csv", tmp_path / "c.csv"
+    assert main([_cloud_csv(tmp_path), "0", "0.003", "0.003", str(out), *PERSISTENT,
+                 "--resort-every", "1", "--adaptive-eta", "0.001", "--no-output",
+                 "--checkpoint-every", "1", "--checkpoint", str(ck)]) == 0
+    taken = int(capsys.readouterr().out.split("Adaptive steps taken:")[1].split()[0])
+    meta = json.loads((tmp_path / "c.csv.meta.json").read_text())
+    assert taken > 1 and meta["step"] == taken
+    assert meta["time"] == float(np.float32(0.003)) < taken * 0.003

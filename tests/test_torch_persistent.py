@@ -331,3 +331,115 @@ def test_frames_and_overflow():
     with pytest.raises(CapacityError, match="--bh-frontier-cap 2048"):
         tp.simulate_persistent(pos, vel, mass, 1, 1e-3, frontier_cap=1, leaf_cap=1, ld=4,
                                theta=0.05, **_KW)
+
+
+# ---- the compositions: adaptive dt, merging, checkpoints --------------------
+
+
+def test_adaptive_persistent_matches_one_shot_adaptive():
+    """test_bh_persistent.py:162-199: simulate_persistent_adaptive against
+    the one-shot simulate_adaptive over the fused force (K6's plain version,
+    a sort every step) at the same depth and group size: equal steps taken,
+    positions within 1e-4 of their scale, velocities within 2e-3."""
+    from functools import partial
+
+    from nbody_tpu_torch.core.types import Bodies
+    from nbody_tpu_torch.integrate.adaptive import simulate_adaptive
+    from nbody_tpu_torch.ops.bh_fused import auto_ld, barneshut_fused
+
+    n = 400
+    pos, vel, mass = _t(*_cloud(n, seed=5))
+    kw = dict(eta=0.05, softening_sq=EPS2, dt_max=5e-3)
+    force = partial(barneshut_fused, G=G, softening_sq=EPS2, theta=THETA, ld=auto_ld(n),
+                    group_size=B)
+    want, taken_ref = simulate_adaptive(Bodies(pos, vel, mass), 0.0, 1.2e-2, force,
+                                        chunk_steps=3, **kw)
+    p_got, v_got, taken = tp.simulate_persistent_adaptive(
+        pos, vel, mass, 0.0, 1.2e-2, G=G, theta=THETA, group_size=B, resort_every=3, **kw)
+    assert taken == taken_ref >= 3
+    scale = want.pos.abs().max().item()
+    assert (p_got - want.pos).abs().max().item() < 1e-4 * scale
+    assert (v_got - want.vel).abs().max().item() < 2e-3
+
+
+def test_adaptive_persistent_exact_landing_frames_and_checkpoints():
+    """test_bh_persistent.py:202-221: 3 steps of dt_max land on t_end, frames
+    are the initial one and one row a real step, the last equal to the
+    result; checkpoints fire on real step counts with the run's time;
+    softening 0 is refused."""
+    pos, vel, mass = _t(*_cloud(300, seed=6))
+    frames, ckpts = [], []
+    p, v, taken = tp.simulate_persistent_adaptive(
+        pos, vel, mass, 0.0, 1e-2, G=G, softening_sq=EPS2, theta=THETA, eta=0.5,
+        dt_max=4e-3, group_size=B, resort_every=4, frame_writer=frames.append,
+        checkpoint_every=2,
+        checkpoint_fn=lambda b, s, t: ckpts.append((s, t, b.pos.clone())))
+    assert taken == 3 and sum(f.shape[0] for f in frames) == taken + 1
+    assert np.array_equal(frames[-1][-1], p.numpy())
+    assert [(s, t) for s, t, _ in ckpts] == [(3, float(np.float32(1e-2)))]
+    assert torch.equal(ckpts[0][2], p)
+    with pytest.raises(ValueError, match="softening_sq > 0"):
+        tp.simulate_persistent_adaptive(pos, vel, mass, 0.0, 1e-2, softening_sq=0.0,
+                                        dt_max=4e-3, group_size=B)
+
+
+def _merge_cloud(n, seed=9, pairs=3, gap=5e-4):
+    """test_bh_persistent.py:224-238: a random cloud with `pairs` contact
+    pairs at distance `gap` (bodies 0 .. 2·pairs - 1)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-2, 2, (n, 3))
+    for k in range(pairs):
+        pos[2 * k + 1] = pos[2 * k] + [gap, 0, 0]
+    return (pos.astype(np.float32), rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32),
+            rng.uniform(0.04, 1.0, n).astype(np.float32))
+
+
+def test_persistent_merging_matches_one_shot():
+    """test_bh_persistent.py:241-271: merging on the persistent layout
+    against the one-shot simulate_merging over fp64-direct forces: the
+    same merges (masses equal to the bit), positions within 1e-3,
+    velocities within 2e-3; checkpoints carry the running masses."""
+    from nbody_tpu_torch.core.types import Bodies
+    from nbody_tpu_torch.ops.collisions import simulate_merging
+    from nbody_tpu_torch.ops.exhaustive import direct_accelerations
+
+    pos, vel, mass = _t(*_merge_cloud(400))
+    reports, ckpts = [], []
+    p_a, v_a, m_a = tp.simulate_persistent(
+        pos, vel, mass, 4, 1e-3, resort_every=2, merge_radius=0.01, merge_every=2,
+        merge_report=reports.append, checkpoint_every=2,
+        checkpoint_fn=lambda b, s: ckpts.append((s, b.mass.clone())), **_KW)
+
+    def exact(p, m):
+        return direct_accelerations(p.double(), m.double(), G=G,
+                                    softening_sq=EPS2).to(p.dtype)
+
+    ref, _, nm = simulate_merging(Bodies(pos, vel, mass), 4, 1e-3, exact, radius=0.01,
+                                  merge_every=2)
+    assert reports == [nm] == [3]
+    assert torch.equal(m_a, ref.mass)
+    assert (p_a - ref.pos).abs().max().item() < 1e-3
+    assert (v_a - ref.vel).abs().max().item() < 2e-3
+    assert [s for s, _ in ckpts] == [2, 4] and torch.equal(ckpts[-1][1], m_a)
+
+
+@pytest.mark.parametrize("robust_slots", [0, 64])
+def test_persistent_merging_conserves(robust_slots):
+    """test_bh_persistent.py:274-310: three ghosts, mass conserved within
+    1e-6, momentum within 5e-3 through the rebuilds, plain and robust (the
+    rebuild picks the outliers again from the merged masses); the running
+    masses reach mass_update."""
+    pos, vel, mass = _merge_cloud(400, seed=11 if robust_slots == 0 else 13)
+    if robust_slots:
+        pos[-1], pos[-2] = [40.0, 0, 0], [0, -35.0, 0]
+    pushed = []
+    p, v, m = tp.simulate_persistent(*_t(pos, vel, mass), 6, 1e-3, resort_every=3,
+                                     merge_radius=0.01, merge_every=2,
+                                     robust_slots=robust_slots, mass_update=pushed.append,
+                                     **_KW)
+    m64 = m.double().numpy()
+    assert np.sum(m64 == 0.0) == 3 and len(pushed) >= 1
+    np.testing.assert_allclose(m64.sum(), mass.astype(np.float64).sum(), rtol=1e-6)
+    p0 = (mass.astype(np.float64)[:, None] * vel).sum(0)
+    p1 = (m64[:, None] * v.double().numpy()).sum(0)
+    assert np.abs(p1 - p0).max() < 5e-3
