@@ -1,0 +1,6 @@
+"""``device_idle_share`` of a Barnes-Hut cell, under a name of its own: the
+Barnes-Hut jobs wait on the host, whose stalls spread their runs far wider
+than the all-pairs cells', so the end-to-end rate takes a bound of its
+own, and what moves it names it."""
+
+from nbbench.metrics.device_idle_share import read  # noqa: F401
