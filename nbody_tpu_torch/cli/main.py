@@ -47,7 +47,9 @@ Routing:
 * ``--timers`` prints the per-phase breakdown of one Barnes-Hut
   evaluation before the run (``diag/bh_phases.py``, cli/main.py:777-797),
   fused or flat; ``--trace DIR`` writes a ``torch.profiler`` trace of the
-  run; ``--devices`` prints the card and the run goes on; ``--debug-nans``
+  run, with the port's spans and host syncs (``diag/timing.py``) in it,
+  and prints their table (count, host ms, device ms) to stderr at the
+  end; ``--devices`` prints the card and the run goes on; ``--debug-nans``
   stops the run at a non-finite position or force (exit 1);
   ``--progress K`` prints a heartbeat every K steps.  ``--block-i`` and
   ``--block-j`` are the Pallas all-pairs tile sizes: K1 picks its own tile
@@ -224,7 +226,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--trace", default=None, metavar="DIR",
-        help="write a torch.profiler trace (Chrome format) of the run to DIR",
+        help="write a torch.profiler trace (Chrome format) of the run to DIR, and "
+        "print the table of its spans to stderr",
     )
     p.add_argument(
         "--debug-nans", action="store_true",
@@ -748,7 +751,7 @@ def main(argv=None) -> int:
                   f"({100.0 * done / max(1, n_steps):.1f}%), {sps:.3g} s/step, "
                   f"ETA {sps * (n_steps - done):.0f} s{extra}", file=sys.stderr, flush=True)
 
-    from nbody_tpu_torch.diag.timing import pairs_per_sec, trace
+    from nbody_tpu_torch.diag.timing import pairs_per_sec, report, trace
 
     merge_kw = {}
     if args.merge_radius > 0:
@@ -801,6 +804,8 @@ def main(argv=None) -> int:
     finally:
         if ckpt_mgr is not None:
             ckpt_mgr.close()
+    if args.trace:
+        print(f"Spans of the run (--trace):\n{report()}", file=sys.stderr)
 
     print(f"Completed. Output file: {args.output}")
     print(f"Elapsed wall time: {elapsed:f} s")

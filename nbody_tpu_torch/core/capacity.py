@@ -26,6 +26,7 @@ import os
 
 import torch
 
+from nbody_tpu_torch.diag.timing import host_sync
 from nbody_tpu_torch.ops.barneshut import CapacityError
 
 # Fraction of the budget the predictive check may plan for — the
@@ -45,7 +46,8 @@ def free_bytes(device=None) -> int | None:
     device = torch.device(device) if device is not None else None
     if device is None or device.type != "cuda":
         return None
-    return int(torch.cuda.mem_get_info(device)[0])
+    with host_sync("capacity.free_bytes"):
+        return int(torch.cuda.mem_get_info(device)[0])
 
 
 def budget_bytes(device=None, frac: float = BUDGET_FRAC) -> int | None:

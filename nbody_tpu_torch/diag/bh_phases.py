@@ -21,21 +21,10 @@ Used by ``nbody_tpu_torch --timers`` (one report before the run).
 from __future__ import annotations
 
 import gc
-import time
 
 import torch
 
-
-def _mark(device: torch.device):
-    if device.type == "cuda":
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return event
-    return time.perf_counter()
-
-
-def _seconds(a, b) -> float:
-    return b - a if isinstance(a, float) else a.elapsed_time(b) * 1e-3
+from nbody_tpu_torch.diag.timing import mark, seconds
 
 
 def _marked(fns, device: torch.device) -> list:
@@ -43,13 +32,13 @@ def _marked(fns, device: torch.device) -> list:
     from an idle device to the last one's end."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    marks = [_mark(device)]
+    marks = [mark(device)]
     for fn in fns:
         fn()
-        marks.append(_mark(device))
+        marks.append(mark(device))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return [_seconds(a, b) for a, b in zip(marks, marks[1:])]
+    return [seconds(a, b) for a, b in zip(marks, marks[1:])]
 
 
 def _split(stages, whole, device: torch.device, reps: int) -> dict:

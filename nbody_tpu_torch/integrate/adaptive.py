@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from nbody_tpu_torch.core.types import Bodies
-from nbody_tpu_torch.integrate.leapfrog import ForceFn, _fence
+from nbody_tpu_torch.diag.timing import spanned
+from nbody_tpu_torch.integrate.leapfrog import ForceFn, _fence, evaluate
 
 
 def _np_dtype(dtype: torch.dtype):
@@ -108,7 +109,7 @@ def adaptive_steps(
     stacked — plus the (T, N, 3) post-drift history with `with_history`."""
     pos, vel, mass = bodies
     dtype, dev = pos.dtype, pos.device
-    acc = force_fn(pos, mass) if acc0 is None else acc0
+    acc = evaluate(force_fn, pos, mass) if acc0 is None else acc0
     two_eta_eps = torch.tensor(2.0 * eta * eps, dtype=dtype, device=dev)
     t_end_t = torch.tensor(t_end, dtype=dtype, device=dev)
     t = torch.as_tensor(t, dtype=dtype).to(dev)
@@ -123,7 +124,7 @@ def adaptive_steps(
             half = dt * 0.5
             vel = vel + acc * half
             pos = pos + vel * dt
-            acc = force_fn(pos, mass)
+            acc = evaluate(force_fn, pos, mass)
             vel = vel + acc * half
             t = torch.where(dt >= rem, t_end_t, t + dt)
             ts.append(t)
@@ -160,6 +161,7 @@ def stagnated(t: float, t_end: float, dt_max: float) -> RuntimeError:
         "or rescale time")
 
 
+@spanned("integrate.run")
 def simulate_adaptive(
     bodies: Bodies,
     t_start: float,

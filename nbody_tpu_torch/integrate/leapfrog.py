@@ -25,16 +25,23 @@ import numpy as np
 import torch
 
 from nbody_tpu_torch.core.types import Bodies
+from nbody_tpu_torch.diag.timing import host_sync, span, spanned
 from nbody_tpu_torch.ops.collisions import simulate_merging
 
 ForceFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (pos, mass) -> acc
+
+
+def evaluate(force_fn: ForceFn, pos, mass):
+    """One force evaluation, the span ``force.eval``."""
+    with span("force.eval"):
+        return force_fn(pos, mass)
 
 
 def _one_step(pos, vel, acc, mass, dt, force_fn):
     half = dt * 0.5
     vel = vel + acc * half
     pos = pos + vel * dt
-    acc = force_fn(pos, mass)
+    acc = evaluate(force_fn, pos, mass)
     vel = vel + acc * half
     return pos, vel, acc
 
@@ -53,7 +60,7 @@ def _one_step_yoshida4(pos, vel, acc, mass, dt, force_fn):
         sub = dt * w
         vel = vel + acc * (sub * 0.5)
         pos = pos + vel * sub
-        acc = force_fn(pos, mass)
+        acc = evaluate(force_fn, pos, mass)
         vel = vel + acc * (sub * 0.5)
     return pos, vel, acc
 
@@ -81,10 +88,11 @@ def leapfrog_steps(
     """
     stepper = _STEPPERS[integrator]
     pos, vel, mass = bodies
-    acc = force_fn(pos, mass) if acc0 is None else acc0
+    acc = evaluate(force_fn, pos, mass) if acc0 is None else acc0
     hist = []
     for _ in range(n_steps):
-        pos, vel, acc = stepper(pos, vel, acc, mass, dt, force_fn)
+        with span("integrate.step"):
+            pos, vel, acc = stepper(pos, vel, acc, mass, dt, force_fn)
         if with_history:
             hist.append(pos)
     out = Bodies(pos, vel, mass)
@@ -96,9 +104,11 @@ def leapfrog_steps(
 def _fence(t: torch.Tensor) -> None:
     """Wait for the device, so callers can time around `simulate`."""
     if t.is_cuda:
-        torch.cuda.synchronize(t.device)
+        with host_sync("simulate.fence"):
+            torch.cuda.synchronize(t.device)
 
 
+@spanned("integrate.run")
 def simulate(
     bodies: Bodies,
     n_steps: int,

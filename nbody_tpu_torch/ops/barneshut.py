@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from nbody_tpu_torch.core import constants
+from nbody_tpu_torch.diag.timing import host_sync, spanned
 from nbody_tpu_torch.ops.bh_traverse import TraverseStats, traverse
 from nbody_tpu_torch.ops.bh_traverse_flat import traverse_flat
 from nbody_tpu_torch.ops.bh_tree import build_tree
@@ -319,6 +320,7 @@ def barneshut_accelerations(
     return acc
 
 
+@spanned("bh.probe")
 def check_capacities(pos, mass, *, strict_resolution: bool = True, **kw) -> BHStats:
     """One force evaluation that fails fast: CapacityError if a static
     capacity overflowed (the reference's node-pool exhaustion abort,
@@ -327,8 +329,12 @@ def check_capacities(pos, mass, *, strict_resolution: bool = True, **kw) -> BHSt
     COM-merged (the reference resolves clusters exactly)."""
     _, stats = barneshut_accelerations(pos, mass, return_stats=True, **kw)
     t = stats.traverse
-    need_list, need_f, need_r = (int(t.max_list_needed), int(t.max_frontier_needed),
-                                 int(t.max_ranges_needed))
+    with host_sync("probe.stats"):
+        need_list = int(t.max_list_needed)
+    with host_sync("probe.stats"):
+        need_f = int(t.max_frontier_needed)
+    with host_sync("probe.stats"):
+        need_r = int(t.max_ranges_needed)
     fixes = []
     if need_list > stats.list_capacity:
         fixes.append(f"need list={need_list} (have {stats.list_capacity}): pass "
@@ -349,7 +355,8 @@ def check_capacities(pos, mass, *, strict_resolution: bool = True, **kw) -> BHSt
                          f"range_size={need_r} (no CLI flag)")
     if fixes:
         raise CapacityError("Barnes-Hut capacity overflow: " + "; ".join(fixes))
-    term = int(t.terminal_com_bodies)
+    with host_sync("probe.stats"):
+        term = int(t.terminal_com_bodies)
     if strict_resolution and term > 0:
         raise ResolutionError(
             f"Barnes-Hut terminal-resolution residual: up to {term} bodies per "

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from nbody_tpu_torch.core import capacity, constants
+from nbody_tpu_torch.diag.timing import host_sync, span, spanned
 from nbody_tpu_torch.ops.barneshut import (
     CapacityError,
     compact_groups,
@@ -254,16 +255,20 @@ def fused_group_forces(
     kw = dict(theta=theta, eps2=eps2, leaf_cap=leaf_cap, ld=ld,
               group_size=group_size, frontier_cap=frontier_cap, debug_mode=debug_mode)
     if src.device.type == "cpu":
-        return fused_group_forces_reference(tree, gstart, gcount, src, bsq, **kw)
+        with span("bh.k6.full"):
+            return fused_group_forces_reference(tree, gstart, gcount, src, bsq, **kw)
     order = None
     if debug_mode == "full":
         kw["debug_mode"] = "pops"
-        _, est = kernel_forces(torch.float32, tree, gstart, gcount, src, bsq, **kw)
+        with span("bh.k6.price"):
+            _, est = kernel_forces(torch.float32, tree, gstart, gcount, src, bsq, **kw)
         fused_group_forces.launches += 1
         kw["debug_mode"] = "full"
-        order = heavy_first(est, gcount)
-    out, stats = kernel_forces(torch.float32, tree, gstart, gcount, src, bsq, **kw,
-                               order=order)
+        with span("bh.k6.order"):
+            order = heavy_first(est, gcount)
+    with span("bh.k6.full"):
+        out, stats = kernel_forces(torch.float32, tree, gstart, gcount, src, bsq, **kw,
+                                   order=order)
     fused_group_forces.launches += 1
     fused_group_forces.evaluations += 1
     return out, stats
@@ -342,9 +347,11 @@ def df_launch_pieces(tree: GridTree, gstart, gcount, src, bsq, **kw):
     pieces heaviest first from them.  `kw` are ``kernel_forces``'s
     keywords; no host sync."""
     kw = {**kw, "debug_mode": "pops"}
-    _, stats = kernel_forces(torch.float64, tree, gstart, gcount, src, bsq, **kw,
-                             pieces=df_pricing_pieces(gcount))
-    return stats, df_pieces(gcount, kw["group_size"], stats)
+    with span("bh.k6.price"):
+        _, stats = kernel_forces(torch.float64, tree, gstart, gcount, src, bsq, **kw,
+                                 pieces=df_pricing_pieces(gcount))
+    with span("bh.k6.order"):
+        return stats, df_pieces(gcount, kw["group_size"], stats)
 
 
 def fused_group_forces_reference(
@@ -503,13 +510,17 @@ def prepare_fused(
     in f64 (the df mode, ``nbody_tpu/ops/bh_fused_df.py:121-178``); bsq is
     f32 in both, as the MAC is.  Checks the predicted device residency
     against the budget (doubled in f64, as ``bh_fused_df.py:146-149``).
-    No host sync.  The three stages are ``sort_bodies``, ``build_grid`` and
-    ``group_inputs``."""
+    No host sync but the budget's query of the free memory.  The three
+    stages are ``sort_bodies``, ``build_grid`` and ``group_inputs``."""
     ld = ld or auto_ld(pos.shape[0])
-    perm, pos_s, gm_s, keys_s, border = sort_bodies(pos, mass, G=G, border=border)
-    tree = build_grid(pos_s, gm_s, keys_s, MORTON_DEPTH, ld)
-    gstart, gcount, src, bsq, trimmed = group_inputs(
-        pos_s, gm_s, keys_s, border, ld=ld, group_size=group_size, keep_groups=keep_groups)
+    with span("bh.sort"):
+        perm, pos_s, gm_s, keys_s, border = sort_bodies(pos, mass, G=G, border=border)
+    with span("bh.grid"):
+        tree = build_grid(pos_s, gm_s, keys_s, MORTON_DEPTH, ld)
+    with span("bh.groups"):
+        gstart, gcount, src, bsq, trimmed = group_inputs(
+            pos_s, gm_s, keys_s, border, ld=ld, group_size=group_size,
+            keep_groups=keep_groups)
     return FusedInputs(perm, tree, gstart, gcount, src, bsq, ld, group_size, trimmed)
 
 
@@ -589,6 +600,7 @@ def barneshut_fused(
     return acc
 
 
+@spanned("bh.scatter")
 def scatter_back(acc_s: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """Sorted-order accelerations back to the input order: one indexed copy
     (perm is a bijection, so the writes are disjoint)."""
@@ -611,6 +623,7 @@ def summarize_stats(stats: torch.Tensor, trimmed: torch.Tensor) -> dict:
     }
 
 
+@spanned("bh.probe")
 def check_fused(pos, mass, robust: bool = False, **kw):
     """Fail-fast probe for the fused path: one force evaluation, raising
     CapacityError if the frontier overflowed or occupied groups were
@@ -620,8 +633,10 @@ def check_fused(pos, mass, robust: bool = False, **kw):
     the cube it will use.  Returns the stats dict."""
     fn = barneshut_fused_robust if robust else barneshut_fused
     _, stats = fn(pos, mass, return_stats=True, **kw)
-    fovf = int(stats["frontier_overflow"])
-    trimmed = int(stats["trimmed_groups"])
+    with host_sync("probe.stats"):
+        fovf = int(stats["frontier_overflow"])
+    with host_sync("probe.stats"):
+        trimmed = int(stats["trimmed_groups"])
     fixes = []
     if fovf > 0:
         need = _round_cap(max(fovf + 1, FRONTIER_CAP))

@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from nbody_tpu_torch.core import constants
+from nbody_tpu_torch.diag.timing import span
 from nbody_tpu_torch.ops.bh_fused import (
     FRONTIER_CAP,
     MAX_LD,
@@ -82,13 +83,15 @@ def fused_group_forces_df(
     kw = dict(theta=theta, eps2=eps2, leaf_cap=leaf_cap, ld=ld,
               group_size=group_size, frontier_cap=frontier_cap, debug_mode=debug_mode)
     if src.device.type == "cpu":
-        return fused_group_forces_df_reference(tree, gstart, gcount, src, bsq, **kw)
+        with span("bh.k6.full"):
+            return fused_group_forces_df_reference(tree, gstart, gcount, src, bsq, **kw)
     pieces = None
     if debug_mode == "full":
         _, pieces = df_launch_pieces(tree, gstart, gcount, src, bsq, **kw)
         fused_group_forces_df.launches += 1
-    out, stats = kernel_forces(torch.float64, tree, gstart, gcount, src, bsq, **kw,
-                               pieces=pieces)
+    with span("bh.k6.full"):
+        out, stats = kernel_forces(torch.float64, tree, gstart, gcount, src, bsq, **kw,
+                                   pieces=pieces)
     fused_group_forces_df.launches += 1
     fused_group_forces_df.evaluations += 1
     return out, stats

@@ -48,6 +48,7 @@ import torch
 
 from nbody_tpu_torch.core import constants
 from nbody_tpu_torch.core.types import Bodies
+from nbody_tpu_torch.diag.timing import host_sync, span, spanned
 from nbody_tpu_torch.integrate.adaptive import (
     check_adaptive,
     host_time,
@@ -210,6 +211,7 @@ def _real_slots(gcount: torch.Tensor, b: int, n: int) -> torch.Tensor:
     return g * b + torch.arange(n, device=gcount.device) - first[g]
 
 
+@spanned("bh.init_state")
 def init_state(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor, *,
                G: float = constants.BIG_G, group_size: int = 1024,
                robust_slots: int = 0, ld: int | None = None) -> GroupState:
@@ -223,6 +225,7 @@ def init_state(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor, *,
                    robust_slots=robust_slots, ld=ld)
 
 
+@spanned("bh.resort")
 def resort(state: GroupState, robust_slots: int = 0) -> GroupState:
     """The periodic resort: the real slots, in slot order, sorted and
     grouped again at the state's depth.  Robust mode's outliers get their
@@ -258,6 +261,7 @@ def _cell_sums(vals: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(vmax), sums, float("nan")).float().t()
 
 
+@spanned("bh.rebuild")
 def _ft_from_state(state: GroupState) -> GridTree:
     """The grid for the state's current positions: the float half rebuilt,
     the int half the state's own.  The real slots, in slot order, hold each
@@ -281,6 +285,7 @@ def _ft_from_state(state: GroupState) -> GridTree:
     )
 
 
+@spanned("force.eval")
 def state_forces(state: GroupState, *, theta: float = constants.THETA,
                  softening_sq: float = constants.SOFTENING_SQ, leaf_cap: int = 64,
                  frontier_cap: int = FRONTIER_CAP, group_forces=fused_group_forces,
@@ -359,20 +364,23 @@ def kdk_steps(state: GroupState, n_steps: int, dt: float, *, with_history: bool 
     hist = []
     dest = state.orig[state.real].long() if with_history else None
     for _ in range(n_steps):
-        vel += state.acc * half
-        src[:, :3] += vel * dt
-        if debug_nans:
-            _check_finite("position", src[state.real, :3])
-        acc, stats = state_forces(state, **force_kw)
-        if debug_nans:
-            _check_finite("force", acc[state.real])
-        ovf = torch.maximum(ovf, stats[:, S_OVF].max())
-        vel += acc * half
-        state = state._replace(acc=acc)
-        if with_history:
-            frame = torch.empty((state.n, 3), dtype=src.dtype, device=dev)
-            frame[dest] = src[state.real, :3]
-            hist.append(frame)
+        with span("integrate.step"):
+            with span("bh.kick_drift"):
+                vel += state.acc * half
+                src[:, :3] += vel * dt
+            if debug_nans:
+                _check_finite("position", src[state.real, :3])
+            acc, stats = state_forces(state, **force_kw)
+            if debug_nans:
+                _check_finite("force", acc[state.real])
+            ovf = torch.maximum(ovf, stats[:, S_OVF].max())
+            with span("bh.kick_drift"):
+                vel += acc * half
+            state = state._replace(acc=acc)
+            if with_history:
+                frame = torch.empty((state.n, 3), dtype=src.dtype, device=dev)
+                frame[dest] = src[state.real, :3]
+                hist.append(frame)
     return state, ovf, (torch.stack(hist) if with_history and hist else None)
 
 
@@ -602,6 +610,7 @@ def kdk_block_prefix_steps(state: GroupState, tiers: torch.Tensor, order, n_macr
                         with_history=with_history, ovf=ovf, debug_nans=debug_nans)
 
 
+@spanned("integrate.run")
 def simulate_persistent(
     pos: torch.Tensor,
     vel: torch.Tensor,
@@ -702,8 +711,9 @@ def simulate_persistent(
     while done < n_steps:
         t = min(resort_every, n_steps - done)
         # one host read a chunk: the fastest real body, the overflow so far
-        vmax, ovf_seen, border = torch.stack(
-            [state.vel[state.real].abs().max(), ovf.float(), state.border]).tolist()
+        with host_sync("persistent.guard"):
+            vmax, ovf_seen, border = torch.stack(
+                [state.vel[state.real].abs().max(), ovf.float(), state.border]).tolist()
         _raise_overflow(int(ovf_seen))
         guarded = False
         if max_drift_frac > 0 and t > 1 and dt != 0:
@@ -745,16 +755,20 @@ def simulate_persistent(
             checkpoint_fn(Bodies(p_c, v_c, mass_cur), done)
         if progress_every > 0 and progress_fn is not None and done % progress_every == 0:
             if state.src.is_cuda:
-                torch.cuda.synchronize(state.src.device)
+                with host_sync("persistent.fence"):
+                    torch.cuda.synchronize(state.src.device)
             progress_fn(done, "drift-guard: per-step resorts" if guarded else "")
         if done < n_steps and not rebuilt:
             state = resort(state, robust_slots)
             if block:
                 tier_plan = plan(state)
-    _raise_overflow(int(ovf))
+    with host_sync("persistent.overflow"):
+        ovf = int(ovf)
+    _raise_overflow(ovf)
     p_out, v_out = emit(state)
     if p_out.is_cuda:
-        torch.cuda.synchronize(p_out.device)
+        with host_sync("persistent.fence"):
+            torch.cuda.synchronize(p_out.device)
     if merging:
         if merge_report is not None:
             merge_report(merged_total)
@@ -762,6 +776,7 @@ def simulate_persistent(
     return p_out, v_out
 
 
+@spanned("integrate.run")
 def simulate_persistent_adaptive(
     pos: torch.Tensor,
     vel: torch.Tensor,
@@ -825,8 +840,9 @@ def simulate_persistent_adaptive(
             raise stagnated(t_host, t_end, dt_max)
         t_prev = t_host
         k = resort_every
-        vmax, ovf_seen, border = torch.stack(
-            [state.vel[state.real].abs().max(), ovf.float(), state.border]).tolist()
+        with host_sync("persistent.guard"):
+            vmax, ovf_seen, border = torch.stack(
+                [state.vel[state.real].abs().max(), ovf.float(), state.border]).tolist()
         _raise_overflow(int(ovf_seen))
         guarded = False
         if max_drift_frac > 0 and k > 1:
@@ -847,14 +863,18 @@ def simulate_persistent_adaptive(
             checkpoint_fn(Bodies(p_c, v_c, mass), taken, t_host)
         if progress_every > 0 and progress_fn is not None and taken % progress_every < k:
             if state.src.is_cuda:
-                torch.cuda.synchronize(state.src.device)
+                with host_sync("persistent.fence"):
+                    torch.cuda.synchronize(state.src.device)
             progress_fn(taken, "drift-guard: per-step resorts" if guarded else "")
         if t_host < t_end_cmp:
             state = resort(state, robust_slots)
-    _raise_overflow(int(ovf))
+    with host_sync("persistent.overflow"):
+        ovf = int(ovf)
+    _raise_overflow(ovf)
     p_out, v_out = emit(state)
     if p_out.is_cuda:
-        torch.cuda.synchronize(p_out.device)
+        with host_sync("persistent.fence"):
+            torch.cuda.synchronize(p_out.device)
     return p_out, v_out, taken
 
 

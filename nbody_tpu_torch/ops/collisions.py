@@ -122,9 +122,11 @@ def simulate_merging(bodies: Bodies, n_steps: int, dt: float, force_fn, *, radiu
     something refreshes the force the next kick uses: one host read of the
     pass's count.  `acc0` and `k0` carry the force and the merge phase
     across chunked calls."""
+    from nbody_tpu_torch.integrate.leapfrog import evaluate  # which imports this module
+
     pos, vel, mass = bodies
     half = dt * 0.5
-    acc = force_fn(pos, mass) if acc0 is None else acc0
+    acc = evaluate(force_fn, pos, mass) if acc0 is None else acc0
     merged = 0
     hist = []
     for k in range(k0, k0 + n_steps):
@@ -132,14 +134,14 @@ def simulate_merging(bodies: Bodies, n_steps: int, dt: float, force_fn, *, radiu
         pos = pos + vel * dt
         if with_history:
             hist.append(pos)
-        acc = force_fn(pos, mass)
+        acc = evaluate(force_fn, pos, mass)
         vel = vel + acc * half
         if (k + 1) % merge_every == 0:
             p2, v2, m2, nm = merge_pass(pos, vel, mass, radius)
             nm = int(nm)
             if nm > 0:
                 pos, vel, mass = p2, v2, m2
-                acc = force_fn(pos, mass)
+                acc = evaluate(force_fn, pos, mass)
                 merged += nm
     out = Bodies(pos, vel, mass)
     if with_history:

@@ -1,6 +1,6 @@
 """The port's timers (nbody_tpu_torch/diag/timing.py, diag/bh_phases.py) on
-the CPU: twins of tests/test_tools.py's Stopwatch and pairs_per_sec checks,
-and both phase breakdowns at a small n."""
+the CPU: the twin of tests/test_tools.py's pairs_per_sec check, the
+profiler trace, and both phase breakdowns at a small n."""
 
 import os
 
@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from nbody_tpu_torch.diag import bh_phases
-from nbody_tpu_torch.diag.timing import Stopwatch, pairs_per_sec, trace
+from nbody_tpu_torch.diag import bh_phases, timing
+from nbody_tpu_torch.diag.timing import pairs_per_sec, trace
 from nbody_tpu_torch.utils.fixtures import random_cloud
 
 
@@ -24,18 +24,12 @@ def _one_torch_thread():
 
 
 def test_stopwatch_and_pairs_per_sec():
-    """tests/test_tools.py:82-86, plus the fence on a result and the
-    accumulation over calls."""
-    sw = Stopwatch()
-    with sw.phase("work"):
-        sum(range(1000))
-    with sw.phase("work", result=torch.ones(3)):
-        pass
-    with sw.phase("other") as box:
-        box["out"] = (torch.zeros(2),)
-    assert sw.counts == {"work": 2, "other": 1}
-    assert "work" in sw.report() and "x2" in sw.report()
+    """tests/test_tools.py:86's pairs_per_sec check.  The port's fenced
+    Stopwatch gave way to the span recorder (tests/test_torch_spans.py),
+    which synchronizes nothing while it records."""
+    assert not hasattr(timing, "Stopwatch")
     assert pairs_per_sec(100, 9, 2.0) == 100 * 100 * 10 / 2.0
+    assert pairs_per_sec(1, 0, 0.5) == 2.0
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
