@@ -1031,13 +1031,13 @@ def fp64_phases(torch, dev, card: str, sass: dict, arr, arr1m, csv1m: str, tmp: 
     k6, k6df_launches, k4_bh, k5_bh, k3_bh = (c.launches for c in counters)
     k6df_evals = bh_fused_df.fused_group_forces_df.evaluations
     print(f"  launches: K6 df {k6df_launches} in {k6df_evals} evaluations (want "
-          f"{BH_STEPS + 2} evaluations: probe + {BH_STEPS + 1}, two launches each: the "
-          f"pricing pass and the full kernel), fp64 potential {k5_bh} (want 2), K6 f32 "
+          f"{BH_STEPS + 1}, two launches each: the pricing pass and the full kernel, and "
+          f"the probe's pricing launch), fp64 potential {k5_bh} (want 2), K6 f32 "
           f"{k6}, fp64 all-pairs {k4_bh}, f32 potential {k3_bh} (want 0); whole CLI call "
           f"{wall_bh:.4f} s")
     check("Algorithm: barnes-hut, backend: cuda/fused, dtype: f64" in text_bh,
           "--algo auto --dtype f64 took K6's df mode")
-    check(k6df_evals == BH_STEPS + 2 and k6df_launches == 2 * k6df_evals and k5_bh == 2,
+    check(k6df_evals == BH_STEPS + 1 and k6df_launches == 2 * k6df_evals + 1 and k5_bh == 2,
           "K6 df / K5 launches")
     check(k6 == 0 and k4_bh == 0 and k3_bh == 0, "no other kernel on the path")
     load_frames(out_bh, BH_N, frames=2)
@@ -1488,15 +1488,15 @@ def robust_phases(torch, dev, card: str, sass: dict, arr, k1_100k, tmp: str,
                                            "--write-every", "5", "--algo", "auto"])
     k6_l, k6df_l, k1_l, k4_l, k2_l, k3_l, k5_l = launches
     k6_e = bh_fused.fused_group_forces.evaluations
-    print(f"  launches: K6 {k6_l} in {k6_e} evaluations, K1 {k1_l} (want {BH_STEPS + 2} "
-          f"evaluations: probe + {BH_STEPS + 1}, K6 two launches each), potential {k3_l} "
+    print(f"  launches: K6 {k6_l} in {k6_e} evaluations, K1 {k1_l} (want {BH_STEPS + 1} "
+          f"evaluations, K6 two launches each and one for the probe), potential {k3_l} "
           f"(want 2), K6 df {k6df_l}, K4 {k4_l}, K2 {k2_l}, K5 {k5_l} (want 0); whole CLI "
           f"call {wall:.4f} s")
     check("enabling --bh-robust on" in err and "data-adaptive grid depth picked" in err,
           "the robust hybrid and the depth pricer engaged")
     check("Algorithm: barnes-hut, backend: cuda/fused/robust, dtype: f32" in text,
           "the banner names the robust hybrid")
-    check(k6_e == k1_l == BH_STEPS + 2 and k6_l == 2 * k6_e and k3_l == 2,
+    check(k6_e == k1_l == BH_STEPS + 1 and k6_l == 2 * k6_e + 1 and k3_l == 2,
           "K6 / K1 / K3 launches")
     check(k6df_l == k4_l == k2_l == k5_l == 0, "no other kernel")
     frames_r = load_frames(out_r, BH_N, frames=2)
@@ -1524,11 +1524,12 @@ def robust_phases(torch, dev, card: str, sass: dict, arr, k1_100k, tmp: str,
     k6_l, k6df_l, k1_l, k4_l, k2_l, k3_l, k5_l = launches
     k6df_e = bh_fused_df.fused_group_forces_df.evaluations
     print(f"  launches: K6 df {k6df_l} in {k6df_e} evaluations, K4 {k4_l} (want "
-          f"{BH_STEPS + 2} evaluations and K4 launches, K6 df two launches each), fp64 "
+          f"{BH_STEPS + 1} evaluations and K4 launches, K6 df two launches each and one for "
+          f"the probe), fp64 "
           f"potential {k5_l} (want 2), K6 {k6_l}, K1 {k1_l}, K2 {k2_l}, K3 {k3_l} (want 0); "
           f"whole CLI call {wall:.4f} s")
     check("backend: cuda/fused/robust, dtype: f64" in text, "the f64 robust banner")
-    check(k6df_e == k4_l == BH_STEPS + 2 and k6df_l == 2 * k6df_e and k5_l == 2,
+    check(k6df_e == k4_l == BH_STEPS + 1 and k6df_l == 2 * k6df_e + 1 and k5_l == 2,
           "K6 df / K4 / K5 launches")
     k6df_r64, k6df_e64 = k6df_l, k6df_e
     check(k6_l == k1_l == k2_l == k3_l == 0, "no f32 kernel on the f64 path")
@@ -1802,12 +1803,13 @@ def persistent_phases(torch, dev, card: str, b1m, csv1m: str, tmp: str, frames_b
     text, wall, (k6_l, k1_l, k3_l), k6_e = main_path(
         [csv1m, *BH_WINDOW, out_p, "--energy", "--write-every", "5", "--algo", "auto",
          "--resort-every", str(RESORT_EVERY)])
-    print(f"  launches: K6 {k6_l} in {k6_e} evaluations (want {BH_STEPS + 2}: the one-shot "
-          f"probe, the first evaluation and {BH_STEPS} steps, two launches each), K1 {k1_l} "
+    print(f"  launches: K6 {k6_l} in {k6_e} evaluations (want {BH_STEPS + 1}: the first "
+          f"evaluation and {BH_STEPS} steps, two launches each, and the one-shot probe's "
+          f"pricing launch), K1 {k1_l} "
           f"(want 0), potential {k3_l} (want 2); whole CLI call {wall:.4f} s")
     check("backend: cuda/fused/persistent, dtype: f32" in text,
           "--resort-every took the persistent layout")
-    check(k6_e == BH_STEPS + 2 and k6_l == 2 * k6_e and k1_l == 0 and k3_l == 2,
+    check(k6_e == BH_STEPS + 1 and k6_l == 2 * k6_e + 1 and k1_l == 0 and k3_l == 2,
           "persistent K6 / K1 / K3 launches")
     persistent_launches = k6_l
     frames_p = load_frames(out_p, BH_N, frames=2)
@@ -1906,12 +1908,12 @@ def persistent_phases(torch, dev, card: str, b1m, csv1m: str, tmp: str, frames_b
          "--resort-every", str(RESORT_EVERY)])
     steps = int(re.search(r"time steps: (\d+)", text).group(1))
     print(f"  robust persistent main path over {steps} steps: K6 {k6_l} in {k6_e} evaluations, "
-          f"K1 {k1_l} (want {steps + 2} each: the one-shot probe, the first evaluation and "
-          f"{steps} steps); simulate {cli_number(text, 'Elapsed wall time:'):.4f} s, whole "
+          f"K1 {k1_l} (want {steps + 1} each: the first evaluation and {steps} steps; K6 "
+          f"one more launch, the one-shot probe's pricing); simulate {cli_number(text, 'Elapsed wall time:'):.4f} s, whole "
           f"CLI call {wall:.4f} s [{card}]")
     check("backend: cuda/fused/robust/persistent, dtype: f32" in text,
           "the robust persistent layout ran")
-    check(k6_e == k1_l == steps + 2 and k6_l == 2 * k6_e, "robust persistent launches")
+    check(k6_e == k1_l == steps + 1 and k6_l == 2 * k6_e + 1, "robust persistent launches")
     robust_launches = (k6_l, k1_l)
     no_output_turns(csv_r, tmp, card, f"{BH_N} Plummer with escapers (robust)")
     ns_node = table_node_fit(torch, bp, br.pos, br.vel, br.mass, (5, 6, 7, 8), k_out,
@@ -2125,11 +2127,11 @@ def option_phases(torch, dev, card: str, b, b1m, csv1m: str, tmp: str, frames_bh
     k6_e = res["persistent"][3]
     print(f"  {BH_N} fused, eta {eta1m:.6e}: steps taken persistent {taken['persistent']}, "
           f"one-shot {taken['one-shot']}; K6 {res['persistent'][2]} launches in {k6_e} "
-          f"evaluations (want {taken['persistent'] + 2}: probe, prime, a step); drift "
+          f"evaluations (want {taken['persistent'] + 1}: prime, a step); drift "
           f"{drift['persistent']:.6e} vs {drift['one-shot']:.6e}; simulate "
           f"{res['persistent'][4]:.4f} s -> {res['persistent'][4] / taken['persistent']:.6f} "
           f"s/step (one-shot {res['one-shot'][4] / taken['one-shot']:.6f}) [{card}]")
-    check(taken["persistent"] == taken["one-shot"] > BH_STEPS and k6_e == taken["persistent"] + 2
+    check(taken["persistent"] == taken["one-shot"] > BH_STEPS and k6_e == taken["persistent"] + 1
           and drifts_agree(drift["persistent"], drift["one-shot"]),
           f"persistent adaptive against the one-shot adaptive run (drift bound {DRIFT_REL:g} "
           f"of it + {DRIFT_ABS:g})")
@@ -2252,7 +2254,7 @@ def option_phases(torch, dev, card: str, b, b1m, csv1m: str, tmp: str, frames_bh
         ck_s = os.path.join(tmp, f"block_{label}.ck")
         text, _, k6_l, k6_e, wall = counted([*bflags, "--checkpoint", ck_s, *extra])
         check("/persistent" in text, "block tiers took the persistent layout")
-        per_macro[label] = (k6_l - 4) / 8  # less the probe's and the prime's
+        per_macro[label] = (k6_l - 3) / 8  # less the probe's and the prime's
         print(f"  {label}: K6 {k6_l} launches in {k6_e} evaluations, {per_macro[label]:.2f} "
               f"launches a macro step (probe and prime apart); simulate {wall:.4f} s [{card}]")
     same = _same_file(os.path.join(tmp, "block_masked.ck"), os.path.join(tmp, "block_prefix.ck"))
@@ -2601,12 +2603,12 @@ def main() -> int:
         k3_bh = cuda_potential_energy.launches
         k1_bh = cuda_rect_accelerations.launches
         print(f"  launches: fused Barnes-Hut {k6_launches} in {k6_evals} evaluations (want "
-              f"{BH_STEPS + 2} evaluations: probe + {BH_STEPS + 1}, two launches each), "
+              f"{BH_STEPS + 1}, two launches each, and the probe's pricing launch), "
               f"potential {k3_bh} (want 2), all-pairs {k1_bh} (want 0); whole CLI call "
               f"{wall_bh:.4f} s")
         check("Algorithm: barnes-hut, backend: cuda/fused" in text_bh,
               "--algo auto took the fused Barnes-Hut kernel")
-        check(k6_evals == BH_STEPS + 2 and k6_launches == 2 * k6_evals,
+        check(k6_evals == BH_STEPS + 1 and k6_launches == 2 * k6_evals + 1,
               "fused Barnes-Hut evaluations and launches")
         check(k3_bh == 2 and k1_bh == 0, "potential / all-pairs launches")
         frames_bh = load_frames(out_bh, BH_N, frames=2)

@@ -67,9 +67,10 @@ Routing:
   ``--block-prefix`` the block time-step tiers of the persistent layout.
   The combinations JAX refuses exit as JAX's do (cli/main.py:958-977,
   1061-1065, 1146-1170).
-* Barnes-Hut runs a startup capacity probe (one extra force evaluation
-  through the run's own traversal and evaluator: ``check_fused``, or
-  ``check_capacities``) unless ``--no-capacity-check``; an overflow exits
+* Barnes-Hut runs a startup capacity probe unless ``--no-capacity-check``:
+  on the fused traversal ``check_fused``, the run's own layout and its
+  evaluator's pricing pass (no forces); on the list traversal
+  ``check_capacities``, one extra force evaluation; an overflow exits
   3 with the setting that fits; a terminal-resolution residual of the
   list path prints a warning and the run goes on (cli/main.py:771-775).
 * ``--energy`` with the ``cuda`` backend at n >= 50,000 takes PE from the
@@ -205,8 +206,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--no-capacity-check",
         action="store_true",
-        help="skip the Barnes-Hut startup capacity probe (one extra force "
-        "evaluation)",
+        help="skip the Barnes-Hut startup capacity probe (fused: the layout "
+        "and K6's pricing pass; list: one extra force evaluation)",
     )
     p.add_argument(
         "--resort-every", type=int, default=0, metavar="K",
@@ -628,8 +629,9 @@ def main(argv=None) -> int:
             backend_label = (f"{backend}/fused" + ("/robust" if robust else "")
                              + ("/persistent" if persistent else ""))
         if not args.no_capacity_check:
-            # startup capacity probe, one force evaluation through the run's
-            # own traversal and evaluator (cli/main.py:728-775)
+            # startup capacity probe through the run's own traversal and
+            # evaluator (cli/main.py:728-775): fused, its layout and pricing
+            # pass; listed, a force evaluation
             from nbody_tpu_torch.ops.barneshut import ResolutionError, check_capacities
             from nbody_tpu_torch.ops.bh_fused import check_fused
 

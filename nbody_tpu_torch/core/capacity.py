@@ -11,8 +11,9 @@ here:
    so an over-capacity configuration fails with GiB numbers and a knob.
 2. **Clamp**: ``auto_keep`` shrinks the group-slot margin toward its
    occupancy floor when the budget is tight.
-3. **Measure + prescribe**: ``check_fused`` turns the kernel's measured
-   requirements into the flag value that fits.
+3. **Measure + prescribe**: ``check_fused`` turns the requirements that
+   K6's pricing pass measures (no force evaluation) into the flag value
+   that fits.
 
 The budget is BUDGET_FRAC of the free bytes ``torch.cuda.mem_get_info``
 reports (``NBODY_HBM_BYTES`` overrides the free bytes); off the card it is

@@ -31,7 +31,10 @@ Both wrappers price the groups with the "pops" cut first and launch the
 heaviest first: two kernel launches an evaluation.  The f32 kernel runs a
 block per group slot, in ``heavy_first`` order; the df kernel a block per
 piece of a group (``df_pieces``: runs of whole warps, at most DF_THREADS
-bodies), the pieces heaviest first (``df_launch_pieces``).
+bodies), the pieces heaviest first (``df_launch_pieces``).  Each evaluator
+carries its pricing pass alone as ``.price`` (``price_groups``,
+``bh_fused_df.price_groups_df``, ``price_groups_reference``): the stats of
+"full" and no forces, all that the start-up probe ``check_fused`` reads.
 
 Stats lanes per group (int32): pops (frontier cells classified),
 staged sources (far children + near bodies: actual sources, where the
@@ -106,6 +109,12 @@ def _theta_sq(theta: float) -> float:
     """θ² as the value the f32 MAC multiplies by: JAX squares in Python and
     its f32 multiply rounds that to f32."""
     return float(np.float32(float(theta) * float(theta)))
+
+
+def check_ld(ld: int) -> None:
+    """Raises unless the kernel takes a grid of depth `ld`."""
+    if not 1 <= ld <= MAX_LD:
+        raise ValueError(f"ld must be in [1, {MAX_LD}], got {ld}")
 
 
 def check_debug_mode(debug_mode: str) -> int:
@@ -249,8 +258,7 @@ def fused_group_forces(
     bodies.  Bodies of no group (trimmed groups) get zero acceleration.
     `debug_mode` is a stage cut of ``CUTS`` (zero forces short of
     "full")."""
-    if not 1 <= ld <= MAX_LD:
-        raise ValueError(f"ld must be in [1, {MAX_LD}], got {ld}")
+    check_ld(ld)
     check_debug_mode(debug_mode)
     kw = dict(theta=theta, eps2=eps2, leaf_cap=leaf_cap, ld=ld,
               group_size=group_size, frontier_cap=frontier_cap, debug_mode=debug_mode)
@@ -259,11 +267,7 @@ def fused_group_forces(
             return fused_group_forces_reference(tree, gstart, gcount, src, bsq, **kw)
     order = None
     if debug_mode == "full":
-        kw["debug_mode"] = "pops"
-        with span("bh.k6.price"):
-            _, est = kernel_forces(torch.float32, tree, gstart, gcount, src, bsq, **kw)
-        fused_group_forces.launches += 1
-        kw["debug_mode"] = "full"
+        est = price_groups(tree, gstart, gcount, src, bsq, **kw)
         with span("bh.k6.order"):
             order = heavy_first(est, gcount)
     with span("bh.k6.full"):
@@ -274,10 +278,28 @@ def fused_group_forces(
     return out, stats
 
 
+def price_groups(tree: GridTree, gstart, gcount, src, bsq, **kw) -> torch.Tensor:
+    """K6's pricing pass: the stats (G, N_STATS) of a "full" evaluation
+    from one launch of the "pops" cut in slot order, and no forces; on a
+    CPU tensor, the plain version's "pops" cut.  `kw` are
+    ``fused_group_forces``'s keywords (its `debug_mode` is ignored).  The
+    launch counts in ``fused_group_forces.launches``, not in its
+    evaluations.  No host sync."""
+    check_ld(kw["ld"])
+    if src.device.type == "cpu":
+        return price_groups_reference(tree, gstart, gcount, src, bsq, **kw)
+    with span("bh.k6.price"):
+        _, stats = kernel_forces(torch.float32, tree, gstart, gcount, src, bsq,
+                                 **{**kw, "debug_mode": "pops"})
+    fused_group_forces.launches += 1
+    return stats
+
+
 # At "full" an evaluation is two launches of K6: the "pops" cut that prices
 # the groups, then the full kernel in heavy-first order.
 fused_group_forces.launches = 0
 fused_group_forces.evaluations = 0
+fused_group_forces.price = price_groups
 
 
 def heavy_first(stats: torch.Tensor, gcount: torch.Tensor) -> torch.Tensor:
@@ -340,16 +362,24 @@ def df_pricing_pieces(gcount: torch.Tensor) -> torch.Tensor:
     return torch.stack([slot, torch.zeros_like(gc), first], 1).to(torch.int32).contiguous()
 
 
-def df_launch_pieces(tree: GridTree, gstart, gcount, src, bsq, **kw):
-    """(stats, pieces) of K6 df's production launch on these inputs: one
-    launch of the "pops" cut over each group's first piece prices the
-    groups (its stats are "full"'s), and ``df_pieces`` orders the base
-    pieces heaviest first from them.  `kw` are ``kernel_forces``'s
-    keywords; no host sync."""
-    kw = {**kw, "debug_mode": "pops"}
+def df_price(tree: GridTree, gstart, gcount, src, bsq, **kw) -> torch.Tensor:
+    """K6 df's pricing launch: the "pops" cut over each group's first
+    piece (the box and the traversal are the whole group's, so its stats
+    are "full"'s).  `kw` are ``kernel_forces``'s keywords (its
+    `debug_mode` is ignored); no host sync."""
     with span("bh.k6.price"):
-        _, stats = kernel_forces(torch.float64, tree, gstart, gcount, src, bsq, **kw,
+        _, stats = kernel_forces(torch.float64, tree, gstart, gcount, src, bsq,
+                                 **{**kw, "debug_mode": "pops"},
                                  pieces=df_pricing_pieces(gcount))
+    return stats
+
+
+def df_launch_pieces(tree: GridTree, gstart, gcount, src, bsq, **kw):
+    """(stats, pieces) of K6 df's production launch on these inputs: the
+    pricing launch (``df_price``) prices the groups, and ``df_pieces``
+    orders the base pieces heaviest first from its stats.  `kw` are
+    ``kernel_forces``'s keywords; no host sync."""
+    stats = df_price(tree, gstart, gcount, src, bsq, **kw)
     with span("bh.k6.order"):
         return stats, df_pieces(gcount, kw["group_size"], stats)
 
@@ -463,6 +493,17 @@ def fused_group_forces_reference(
     ])
     out[(gs[:, None] + slots)[valid]] = acc[valid]
     return out, stats.to(torch.int32)
+
+
+def price_groups_reference(tree: GridTree, gstart, gcount, src, bsq, **kw) -> torch.Tensor:
+    """The plain version's pricing pass: its "pops" cut, the stats of
+    "full" and no forces.  `kw` are its keywords (`debug_mode` ignored)."""
+    with span("bh.k6.price"):
+        return fused_group_forces_reference(tree, gstart, gcount, src, bsq,
+                                            **{**kw, "debug_mode": "pops"})[1]
+
+
+fused_group_forces_reference.price = price_groups_reference
 
 
 def _eval_block(targets: torch.Tensor, sources: torch.Tensor, eps2: float) -> torch.Tensor:
@@ -624,19 +665,48 @@ def summarize_stats(stats: torch.Tensor, trimmed: torch.Tensor) -> dict:
 
 
 @spanned("bh.probe")
-def check_fused(pos, mass, robust: bool = False, **kw):
-    """Fail-fast probe for the fused path: one force evaluation, raising
-    CapacityError if the frontier overflowed or occupied groups were
-    trimmed — the only two capacities the path has.  The message
-    prescribes the flag value that fits.  `robust` probes through
-    ``barneshut_fused_robust``, so an outlier-heavy run is checked against
-    the cube it will use.  Returns the stats dict."""
-    fn = barneshut_fused_robust if robust else barneshut_fused
-    _, stats = fn(pos, mass, return_stats=True, **kw)
+def check_fused(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    robust: bool = False,
+    *,
+    G: float = constants.BIG_G,
+    softening_sq: float = constants.SOFTENING_SQ,
+    theta: float = constants.THETA,
+    ld: int = 0,
+    leaf_cap: int = 64,
+    group_size: int = 1024,
+    keep_groups: int = 0,
+    frontier_cap: int = 0,
+    outlier_slots: int = 0,
+    group_forces=fused_group_forces,
+    rect_forces=None,
+):
+    """Fail-fast probe for the fused path: the run's own one-shot layout
+    (``prepare_fused``; with `robust`, on ``robust_tree``'s box, so an
+    outlier-heavy run is checked against the cube it will use) and the
+    pricing pass of the run's evaluator `group_forces` (its ``.price``: the
+    stats of a full evaluation, no forces).  Raises CapacityError if the
+    frontier overflowed or occupied groups were trimmed — the only two
+    capacities the path has, read in one host sync; the message prescribes
+    the flag value that fits.  The options are ``barneshut_fused``'s (and
+    ``barneshut_fused_robust``'s: `rect_forces`, the outliers' rectangle,
+    has no capacity and is not run).  Returns the stats dict of
+    ``barneshut_fused(..., return_stats=True)``."""
+    del rect_forces
+    border = None
+    if robust:
+        t = robust_tree(pos, mass, outlier_slots, ld)
+        pos, mass, border, ld = t.rel, t.mass, t.border, t.ld
+    fi = prepare_fused(pos, mass, G=G, ld=ld, group_size=group_size,
+                       keep_groups=keep_groups, border=border)
+    stats = summarize_stats(group_forces.price(
+        fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq, theta=theta, eps2=softening_sq,
+        leaf_cap=leaf_cap, ld=fi.ld, group_size=fi.group_size,
+        frontier_cap=frontier_cap or FRONTIER_CAP), fi.trimmed)
     with host_sync("probe.stats"):
-        fovf = int(stats["frontier_overflow"])
-    with host_sync("probe.stats"):
-        trimmed = int(stats["trimmed_groups"])
+        fovf, trimmed = torch.stack([stats["frontier_overflow"],
+                                     stats["trimmed_groups"]]).tolist()
     fixes = []
     if fovf > 0:
         need = _round_cap(max(fovf + 1, FRONTIER_CAP))
@@ -645,9 +715,8 @@ def check_fused(pos, mass, robust: bool = False, **kw):
             f"--bh-frontier-cap {need}"
         )
     if trimmed > 0:
-        b = kw.get("group_size", 1024)
-        keep = kw.get("keep_groups", 0) or capacity.auto_keep(
-            pos.shape[0], b, 10**9, capacity.budget_bytes(pos.device)
+        keep = keep_groups or capacity.auto_keep(
+            pos.shape[0], group_size, 10**9, capacity.budget_bytes(pos.device)
         )
         fixes.append(
             f"{trimmed} occupied groups trimmed: pass "
@@ -682,6 +751,29 @@ def robust_box(pos: torch.Tensor, outlier_slots: int = 0):
     d = (pos32 - center).abs().amax(dim=1)
     vals, idx = torch.topk(d, k + 1)
     return center, 2.0 * vals[k] * 1.0001, idx[:k]
+
+
+class RobustTree(NamedTuple):
+    """The robust hybrid's tree input (``nbody_tpu/ops/bh_fused.py:
+    1500-1512``)."""
+
+    targets: torch.Tensor  # (n, 3) the bodies, f32 (or f64 in the df mode)
+    rel: torch.Tensor  # (n, 3) targets less the box's centre
+    mass: torch.Tensor  # (n,) the masses, the outliers' zeroed
+    border: torch.Tensor  # 0-dim, the box's side
+    out_idx: torch.Tensor  # (K,) the outliers
+    ld: int  # the grid's depth
+
+
+def robust_tree(pos: torch.Tensor, mass: torch.Tensor, outlier_slots: int = 0,
+                ld: int = 0) -> RobustTree:
+    """``robust_box``, the bodies shifted into it and the outliers
+    zero-massed; the depth is `ld`, or min(8, auto_ld + 2)."""
+    center, border, out_idx = robust_box(pos, outlier_slots)
+    targets = pos if pos.dtype == torch.float64 else pos.to(torch.float32)
+    return RobustTree(targets, targets - center.to(targets.dtype),
+                      mass.index_fill(0, out_idx, 0.0), border, out_idx,
+                      ld or min(MAX_LD, auto_ld(pos.shape[0]) + 2))
 
 
 def outlier_rect(targets, src, mass_src, *, G: float, softening_sq: float, rect_forces):
@@ -725,17 +817,12 @@ def barneshut_fused_robust(
     (``bh_fused_df.barneshut_fused_robust_df``), or
     ``rect_accelerations_reference`` (``--backend torch``).  The other
     options are ``barneshut_fused``'s."""
-    df = pos.dtype == torch.float64
-    if not kw.get("ld"):
-        kw["ld"] = min(MAX_LD, auto_ld(pos.shape[0]) + 2)
-    center, border, out_idx = robust_box(pos, outlier_slots)
-    targets = pos if df else pos.to(torch.float32)
-    rel = targets - center.to(targets.dtype)
-    mass_bh = mass.index_fill(0, out_idx, 0.0)
-    res = barneshut_fused(rel, mass_bh, G=G, softening_sq=softening_sq, border=border,
-                          return_stats=return_stats, **kw)
+    t = robust_tree(pos, mass, outlier_slots, kw.pop("ld", 0))
+    res = barneshut_fused(t.rel, t.mass, G=G, softening_sq=softening_sq, ld=t.ld,
+                          border=t.border, return_stats=return_stats, **kw)
     acc = res[0] if return_stats else res
-    side = outlier_rect(targets, targets[out_idx], mass[out_idx].to(targets.dtype), G=G,
+    side = outlier_rect(t.targets, t.targets[t.out_idx],
+                        mass[t.out_idx].to(t.targets.dtype), G=G,
                         softening_sq=softening_sq, rect_forces=rect_forces)
     acc = acc + side.to(acc.dtype)
     return (acc, res[1]) if return_stats else acc

@@ -29,7 +29,9 @@ fp64 units, so K6's df mode is native fp64.
   then the full kernel runs the groups' pieces heaviest first
   (``bh_fused.df_launch_pieces``).
   ``fused_group_forces_df.launches`` counts kernel launches,
-  ``fused_group_forces_df.evaluations`` the evaluations.
+  ``fused_group_forces_df.evaluations`` the evaluations;
+  ``fused_group_forces_df.price`` (``price_groups_df``) is the pricing
+  launch alone, the start-up probe's.
 * ``fused_group_forces_df_reference`` — the plain version: K6's plain
   version, which takes the df mode from f64 sources (f32 MAC, fp64
   evaluation, the same stats).
@@ -43,13 +45,15 @@ from nbody_tpu_torch.core import constants
 from nbody_tpu_torch.diag.timing import span
 from nbody_tpu_torch.ops.bh_fused import (
     FRONTIER_CAP,
-    MAX_LD,
     barneshut_fused,
     barneshut_fused_robust,
     check_debug_mode,
+    check_ld,
     df_launch_pieces,
+    df_price,
     fused_group_forces_reference,
     kernel_forces,
+    price_groups_reference,
 )
 from nbody_tpu_torch.ops.bh_grid import GridTree
 from nbody_tpu_torch.ops.cuda_fp64 import cuda_rect_accelerations_f64
@@ -77,8 +81,7 @@ def fused_group_forces_df(
     f64 sources `src` (n, 4) [x y z G·m]; bsq stays f32 (the MAC is f32).
     `debug_mode` is a stage cut of ``bh_fused.CUTS`` (short of "full" one
     launch over the base pieces in slot order)."""
-    if not 1 <= ld <= MAX_LD:
-        raise ValueError(f"ld must be in [1, {MAX_LD}], got {ld}")
+    check_ld(ld)
     check_debug_mode(debug_mode)
     kw = dict(theta=theta, eps2=eps2, leaf_cap=leaf_cap, ld=ld,
               group_size=group_size, frontier_cap=frontier_cap, debug_mode=debug_mode)
@@ -97,10 +100,26 @@ def fused_group_forces_df(
     return out, stats
 
 
+def price_groups_df(tree: GridTree, gstart, gcount, src, bsq, **kw) -> torch.Tensor:
+    """K6 df's pricing pass: the stats (G, N_STATS) of a "full" evaluation
+    from its pricing launch (``bh_fused.df_price``), and no forces; on a
+    CPU tensor, the plain version's "pops" cut.  `kw` are
+    ``fused_group_forces_df``'s keywords (its `debug_mode` is ignored).
+    The launch counts in ``fused_group_forces_df.launches``, not in its
+    evaluations.  No host sync."""
+    check_ld(kw["ld"])
+    if src.device.type == "cpu":
+        return price_groups_reference(tree, gstart, gcount, src, bsq, **kw)
+    stats = df_price(tree, gstart, gcount, src, bsq, **kw)
+    fused_group_forces_df.launches += 1
+    return stats
+
+
 # At "full" an evaluation is two launches of K6 df: the "pops" cut that
 # prices the groups, then the full kernel over the pieces, heaviest first.
 fused_group_forces_df.launches = 0
 fused_group_forces_df.evaluations = 0
+fused_group_forces_df.price = price_groups_df
 
 
 def barneshut_fused_df(

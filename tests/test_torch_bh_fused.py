@@ -334,6 +334,75 @@ def test_check_fused_trimmed_groups_prescribes_keep():
     assert int(tf.check_fused(pos, mass, keep_groups=keep, **kw)["trimmed_groups"]) == 0
 
 
+PROBE_CASES = {"fits": dict(ld=4, leaf_cap=8),
+               "overflow": dict(ld=4, leaf_cap=1, frontier_cap=128),
+               "trimmed": dict(keep_groups=4)}
+
+
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+@pytest.mark.parametrize("robust", [False, True], ids=["plain", "robust"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "df"])
+def test_check_fused_reads_a_full_evaluations_stats(case, robust, dtype):
+    """The probe's stats, from the evaluator's pricing pass alone, are a
+    full evaluation's on the same bodies: key by key where they fit, and
+    where the frontier overflows or groups are trimmed, the numbers its
+    prescription names."""
+    from nbody_tpu_torch.ops import bh_fused_df
+    from nbody_tpu_torch.ops.cuda_exhaustive import rect_accelerations_reference
+
+    pos, mass = (a.to(dtype) for a in _overflow_bodies())
+    kw = dict(G=G, softening_sq=EPS2, theta=THETA, group_size=64, **PROBE_CASES[case],
+              group_forces=(tf.fused_group_forces if dtype == torch.float32
+                            else bh_fused_df.fused_group_forces_df))
+    if robust:
+        kw.update(outlier_slots=16, rect_forces=rect_accelerations_reference)
+    full = (tf.barneshut_fused_robust if robust else tf.barneshut_fused)
+    _, want = full(pos, mass, return_stats=True, **kw)
+    fovf, trimmed = int(want["frontier_overflow"]), int(want["trimmed_groups"])
+    assert (fovf > 0, trimmed > 0) == (case == "overflow", case == "trimmed")
+    if case == "fits":
+        got = tf.check_fused(pos, mass, robust=robust, **kw)
+        assert got.keys() == want.keys()
+        assert all(int(got[k]) == int(want[k]) for k in want)
+        return
+    with pytest.raises(CapacityError) as e:
+        tf.check_fused(pos, mass, robust=robust, **kw)
+    assert (f">= {fovf} octets" if fovf else f"{trimmed} occupied groups") in str(e.value)
+
+
+@pytest.mark.parametrize("robust", [False, True], ids=["plain", "robust"])
+def test_check_fused_prices_and_evaluates_nothing(monkeypatch, robust):
+    """The probe calls the plain version at the "pops" cut only, runs no
+    outlier rectangle, and under ``bh.probe`` records ``bh.k6.price`` and
+    neither ``bh.k6.full`` nor ``bh.scatter``."""
+    import collections
+
+    from nbody_tpu_torch.diag import timing
+
+    plain, cuts = tf.fused_group_forces_reference, []
+
+    def spy(*args, **kw):
+        cuts.append(kw["debug_mode"])
+        return plain(*args, **kw)
+
+    def no_rect(*args, **kw):
+        raise AssertionError("the probe ran the outliers' rectangle")
+
+    monkeypatch.setattr(tf, "fused_group_forces_reference", spy)
+    pos, mass = _overflow_bodies()
+    timing.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        tf.check_fused(pos[:600], mass[:600], robust=robust, group_size=64,
+                       rect_forces=no_rect)
+    spans = timing.RECORDER.spans()
+    timing.clear()
+    assert cuts == ["pops"]
+    (root,) = [s for s in spans if s[1] == "bh.probe"]
+    assert collections.Counter(s[1] for s in spans if s is not root) == {
+        "bh.sort": 1, "bh.grid": 1, "bh.groups": 1, "bh.k6.price": 1,
+        "host_sync.probe.stats": 1}
+
+
 def test_capacity_budget(monkeypatch):
     monkeypatch.delenv("NBODY_HBM_BYTES", raising=False)
     assert capacity.budget_bytes(torch.device("cpu")) is None

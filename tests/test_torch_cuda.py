@@ -216,6 +216,76 @@ def test_bh_fused_frontier_overflow_on_the_card(dev):
                              frontier_cap=128)
 
 
+def _bh1m_input(dev, seed=2**31 + 7):
+    """(pos, vel, mass) of one input of the benchmark's bh-1m cells: the
+    reference's uniform cloud of 1M bodies, drawn on the card."""
+    from nbbench.gen import uniform_pool
+
+    b = uniform_pool(10**6, 1, seed, torch.float32, dev)[0]
+    return b[:, :3].contiguous(), b[:, 3:6].contiguous(), b[:, 6].contiguous()
+
+
+@pytest.mark.parametrize("case", ["uniform1m", "robust", "df"])
+def test_bh_probe_prices_a_full_evaluations_stats(dev, case):
+    """The start-up probe on the card (the bh-1m input in f32, the robust
+    fixture at ld 8, the bh-1m input in the df mode): the evaluator's
+    pricing pass gives a full evaluation's stats lane by lane, and
+    ``check_fused`` a full evaluation's stats dict, from one launch of K6
+    (or K6 df) counted in ``.launches`` and not in ``.evaluations``."""
+    robust, kw = case == "robust", {}
+    if robust:
+        pos, mass, _ = _plummer_with_escapers(1_000_000, dev)
+        kw = dict(ld=8)
+        t = bh_fused.robust_tree(pos, mass, ld=8)
+        fi = bh_fused.prepare_fused(t.rel, t.mass, ld=t.ld, border=t.border)
+    else:
+        pos, _, mass = _bh1m_input(dev)
+        if case == "df":
+            pos, mass = pos.double(), mass.double()
+            kw = dict(group_forces=bh_fused_df.fused_group_forces_df)
+        fi = bh_fused.prepare_fused(pos, mass)
+    wrapper = kw.get("group_forces", bh_fused.fused_group_forces)
+    args = (fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq)
+    gkw = dict(theta=0.5, eps2=0.01, leaf_cap=64, ld=fi.ld, group_size=fi.group_size,
+               frontier_cap=bh_fused.FRONTIER_CAP)
+    _, full = wrapper(*args, **gkw)
+    assert torch.equal(wrapper.price(*args, **gkw), full)
+    assert int(full[:, bh_fused.S_FAR].sum()) > 0
+    fn = bh_fused.barneshut_fused_robust if robust else bh_fused.barneshut_fused
+    _, want = fn(pos, mass, return_stats=True, **kw)
+    before = (wrapper.launches, wrapper.evaluations)
+    got = bh_fused.check_fused(pos, mass, robust=robust, **kw)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.evaluations) == (before[0] + 1, before[1])
+    assert got.keys() == want.keys()
+    assert {k: int(v) for k, v in got.items()} == {k: int(v) for k, v in want.items()}
+
+
+def test_bh1m_job_is_bit_equal_after_a_pricing_probe(dev):
+    """A bh1m-f32 job (the probe, then 10 KDK steps at dt 1e-4) gives the
+    same bits after the pricing probe as after a probe that evaluated the
+    forces: the probe's forces were never used, and K6 has no atomics."""
+    from functools import partial
+
+    from nbody_tpu_torch.core.types import Bodies
+    from nbody_tpu_torch.integrate.leapfrog import simulate
+
+    pos, vel, mass = _bh1m_input(dev, seed=2**31 + 11)
+    force = partial(bh_fused.barneshut_fused, G=1.0, softening_sq=0.01, theta=0.5)
+
+    def job(probe):
+        probe(pos, mass, **force.keywords)
+        out = simulate(Bodies(pos.clone(), vel.clone(), mass.clone()), 10, 1e-4, force)
+        return out.pos.cpu(), out.vel.cpu()
+
+    def full_probe(pos, mass, **kw):
+        _, stats = bh_fused.barneshut_fused(pos, mass, return_stats=True, **kw)
+        assert int(stats["frontier_overflow"]) == int(stats["trimmed_groups"]) == 0
+
+    priced, evaluated = job(bh_fused.check_fused), job(full_probe)
+    assert torch.equal(priced[0], evaluated[0]) and torch.equal(priced[1], evaluated[1])
+
+
 def test_bh_fused_kernel_refuses_what_it_cannot_take(dev):
     pos, mass = _cloud(3000, dev, seed=1)
     with pytest.raises(ValueError, match="group_size"):
@@ -341,8 +411,8 @@ def test_cli_f64_runs_through_the_fp64_kernels(dev, tmp_path, capsys, algo, n):
     assert (k1, k3, k6) == (0, 0, 0)
     if algo == "exhaustive":
         assert (k4, k5, k6df) == (3, 2, 0)
-    else:  # the capacity probe, then 3 evaluations, two K6 df launches each
-        assert (k4, k5, k6df) == (0, 2 if n >= PE_KERNEL_MIN_N else 0, 8)
+    else:  # the capacity probe's pricing launch, then 3 evaluations of two
+        assert (k4, k5, k6df) == (0, 2 if n >= PE_KERNEL_MIN_N else 0, 7)
     assert "backend: cuda" in capsys.readouterr().out
     rows, n_out = read_trajectory(str(out))
     assert n_out == n and np.isfinite(rows).all()
@@ -538,8 +608,8 @@ def test_robust_against_exact_forces(dev, dtype):
 
 def test_cli_robust_runs_through_k6_and_k1(dev, tmp_path, capsys):
     """--algo auto on an outlier-dominated 40k cloud: the robust hybrid
-    (note, banner), K6 and K1 run by the probe and 3 evaluations (K6 two
-    launches each)."""
+    (note, banner), K6's pricing launch for the probe (no K1 rectangle),
+    then 3 evaluations (K6 two launches each, K1 one)."""
     _, _, arr = _plummer_with_escapers(40_000, "cpu")
     src, out = tmp_path / "in.csv", tmp_path / "o.csv"
     write_fixture(str(src), arr)
@@ -550,8 +620,8 @@ def test_cli_robust_runs_through_k6_and_k1(dev, tmp_path, capsys):
     bh_fused.fused_group_forces.evaluations = 0
     assert main([str(src), "0", "0.002", "0.001", str(out), "--algo", "auto",
                  "--bh-ld", "6"]) == 0
-    assert [c.launches for c in counters] == [8, 4, 0]
-    assert bh_fused.fused_group_forces.evaluations == 4
+    assert [c.launches for c in counters] == [7, 3, 0]
+    assert bh_fused.fused_group_forces.evaluations == 3
     captured = capsys.readouterr()
     assert "enabling --bh-robust on" in captured.err
     assert "backend: cuda/fused/robust, dtype: f32" in captured.out
@@ -594,8 +664,8 @@ def test_persistent_state_forces_match_plain(dev, robust_slots, ld):
 
 def test_cli_persistent_runs_through_k6(dev, tmp_path, capsys):
     """--resort-every 2 on a 40k cloud: the persistent banner, the probe
-    and 4 persistent evaluations (K6 two launches each) over 3 steps, and
-    the frames of --resort-every 1 within 1e-5."""
+    (K6's pricing launch) and 4 persistent evaluations (K6 two launches
+    each) over 3 steps, and the frames of --resort-every 1 within 1e-5."""
     arr = random_cloud(40_000, seed=6)
     src = tmp_path / "in.csv"
     write_fixture(str(src), arr)
@@ -605,8 +675,8 @@ def test_cli_persistent_runs_through_k6(dev, tmp_path, capsys):
         bh_fused.fused_group_forces.launches = bh_fused.fused_group_forces.evaluations = 0
         assert main([str(src), "0", "0.003", "0.001", str(out), "--algo", "auto",
                      "--resort-every", str(k), "--bh-robust", "off"]) == 0
-        assert bh_fused.fused_group_forces.evaluations == 5
-        assert bh_fused.fused_group_forces.launches == 10
+        assert bh_fused.fused_group_forces.evaluations == 4
+        assert bh_fused.fused_group_forces.launches == 9
         assert "backend: cuda/fused/persistent, dtype: f32" in capsys.readouterr().out
         rows, n = read_trajectory(out)
         frames[k] = rows.reshape(-1, n, 5)
