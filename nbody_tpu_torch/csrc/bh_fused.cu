@@ -61,19 +61,21 @@
 // also folded into a flag that writes the body's output only if it is a
 // NaN (never, for finite inputs), so no compiler pass can drop them.
 //
-// What bounds it on the card: the evaluation, one pair per (body, source),
-// ~20 FP32 operations and one rsqrt in f32 mode (K1's work); in df mode
-// allpairs_f64.cu's pair term (pair_f64.cuh), at half the fp32 issue rate.
-// The stage cuts show
-// it (H100 80GB HBM3, 700 W, 1M bodies): traversal, staging and near-row
-// loads together take under 1 ms of the uniform cloud's ~7 ms and of the
-// robust input's ~56 ms; the rest is pairs.  And where the groups' work is
-// uneven the card waits on the heaviest: one block per group, so a dense
-// core group (316,649 sources x 1,024 bodies on the robust input, 28 ms
-// alone on an SM) started last sets the time.  So the caller prices the
-// groups with the "pops" cut and launches them heaviest first (`order`,
-// ops/bh_fused.py::heavy_first), which took the robust input from 56 to
-// ~35 ms whatever the kernel body.
+// What bounds it on the card: the evaluation, one pair per (body, source).
+// In f32 mode that is K1's pair term and K1's instruction budget: 12 fp32
+// instructions and one MUFU.RSQ a pair, 13.8 instructions issued a pair in
+// the hot loop (one LDS.128 row serves a thread's two bodies), so the
+// card's instruction issue; in df mode allpairs_f64.cu's pair term
+// (pair_f64.cuh), at half the fp32 issue rate.  The stage cuts show it
+// (H100 80GB HBM3, 700 W, 1M bodies): traversal, staging and near-row loads
+// together take 0.13 ms of the uniform cloud's 5.30 ms in f32 and under
+// 1 ms of the robust input's ~56 ms; the rest is pairs.  And where
+// the groups' work is uneven the card waits on the heaviest: one block per
+// group, so a dense core group (316,649 sources x 1,024 bodies on the
+// robust input, 28 ms alone on an SM) started last sets the time.  So the
+// caller prices the groups with the "pops" cut and launches them heaviest
+// first (`order`, ops/bh_fused.py::heavy_first), which took the robust
+// input from 56 to ~35 ms whatever the kernel body.
 //
 // The warp design (f32):
 //   * two bodies a thread (bodies 2t and 2t + 1 of the group): a
@@ -135,6 +137,7 @@
 #include <cuda_runtime.h>
 
 #include "pair_f64.cuh"
+#include "rsqrt.cuh"
 
 namespace {
 
@@ -248,14 +251,21 @@ __device__ __forceinline__ void ring_wait(unsigned long long* bar, unsigned pari
 
 // K1's pair term in f32, |d|^2 + eps2 as a chain of three FMAs: one
 // instruction a pair fewer than the plain sum (measured on the card: ~7 %
-// off the robust input's time).
+// off the robust input's time).  The rsqrt is rsqrt.cuh's rsqrt_ftz,
+// MUFU.RSQ alone: 12 fp32 instructions a pair, K1's count.  CUDA's rsqrtf
+// would wrap it in a scaling for subnormal inputs (an FSETP and two
+// predicated FMULs), which never acts here: r2 >= eps2, so r2 is normal
+// whenever eps2 is, and both give the same bits; for eps2 below the normal
+// range a body's own entry (d = 0) makes its sum NaN with either.  The
+// weight keeps this order, gm (r^-1 r^-1 r^-1), not pair_f32.cuh's
+// (gm r^-1)(r^-1 r^-1), which rounds otherwise.
 __device__ __forceinline__ void accumulate_fma(const float4 s, float xi, float yi, float zi,
                                                float eps2, float& ax, float& ay, float& az) {
   const float dx = s.x - xi;
   const float dy = s.y - yi;
   const float dz = s.z - zi;
   const float r2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, eps2)));
-  const float inv_r = rsqrtf(r2);
+  const float inv_r = rsqrt_ftz(r2);
   const float w = s.w * (inv_r * inv_r * inv_r);
   ax = fmaf(w, dx, ax);
   ay = fmaf(w, dy, ay);

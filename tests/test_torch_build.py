@@ -70,3 +70,26 @@ def test_launcher_error_raises():
 
 def test_sm90a_target():
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
+
+
+def test_k6_f32_hot_loop_on_k1_budget():
+    """K6 f32's pair loop (bh_fused_warp_kernel<6>, the production cut)
+    issues K1's pair term: in its hot loop at most 12.5 fp32 instructions a
+    MUFU.RSQ (12 a pair and the loop's share of the rest), and no FSETP,
+    which CUDA's rsqrtf brings with its scaling for subnormal inputs.  Needs
+    the card's toolkit (nvcc and cuobjdump beside it), not the card."""
+    from nbody_tpu_torch.diag import sass
+
+    try:
+        nvcc = _cuda.find_nvcc()
+    except _cuda.CudaKernelError:
+        pytest.skip("nvcc is needed to build the kernels")
+    text = sass.cuobjdump_sass(nvcc, _cuda.library().path)
+    if text is None:
+        pytest.skip("cuobjdump is needed beside nvcc to read the SASS")
+    (instrs,) = [i for fn, i in sass.kernels(text).items()
+                 if "bh_fused_warp_kernelILi6E" in fn]
+    loop = sass.hot_loop(instrs, "MUFU.RSQ")
+    assert loop["MUFU.RSQ"] >= 2  # the loop serves a thread's two bodies
+    assert sass.per(loop, "MUFU.RSQ", sass.FP32) <= 12.5
+    assert loop["FSETP"] == 0

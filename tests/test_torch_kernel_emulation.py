@@ -662,7 +662,7 @@ def _bh_check_cuts(lib, fi, kw, bound):
     of "full"; "full" through the cut entry bit-identical to the production
     entry (a rerun of the same instantiation) and, in f32, to the
     production entry taking the slots in reverse order; within `bound`(got,
-    want) of the plain version.  Returns the stats."""
+    want) of the plain version.  Returns ("full"'s accelerations, stats)."""
     want, want_stats = bh_fused.fused_group_forces_reference(
         fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq, **kw)
     args = (lib, fi.tree, fi.gstart, fi.gcount, fi.src, fi.bsq, None)
@@ -677,12 +677,12 @@ def _bh_check_cuts(lib, fi, kw, bound):
             assert not got.any(), cut
     err, prod, prod_stats = bh_fused.launch(*args, **kw)
     assert err == 0
-    assert torch.equal(prod, got) and torch.equal(prod_stats, stats)
+    assert _same_bits(prod, got) and torch.equal(prod_stats, stats)
     if fi.src.dtype == torch.float32:  # slots taken in reverse: the same bits
         order = torch.arange(len(fi.gcount) - 1, -1, -1, dtype=torch.int32)
         err, ordered, ordered_stats = bh_fused.launch(*args, order=order, **kw)
         assert err == 0
-        assert torch.equal(ordered, got) and torch.equal(ordered_stats, stats)
+        assert _same_bits(ordered, got) and torch.equal(ordered_stats, stats)
     else:  # priced, then heaviest first, and one-warp pieces: the same bits
         err, _, est = bh_fused.launch(*args, debug_mode="pops",
                                       pieces=bh_fused.df_pricing_pieces(fi.gcount), **kw)
@@ -691,13 +691,26 @@ def _bh_check_cuts(lib, fi, kw, bound):
                        _warp_pieces(fi.gcount)):
             err, ordered, ordered_stats = bh_fused.launch(*args, pieces=pieces, **kw)
             assert err == 0
-            assert torch.equal(ordered, got) and torch.equal(ordered_stats, stats)
+            assert _same_bits(ordered, got) and torch.equal(ordered_stats, stats)
     if int(stats[:, bh_fused.S_OVF].max()) <= kw["frontier_cap"]:
         bound(got, want)  # past the cap both drop the same cells; forces are moot
-    return stats
+    return got, stats
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaNs included (torch.equal holds NaN unequal)."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
 
 
 def _f32_bound(got, want):
+    """NaN exactly where the plain version has NaN; elsewhere within K1's
+    bound of it."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    if nan.all():
+        return
+    got, want = got[~nan], want[~nan]
     scale = want.abs().max().item()
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale, rtol=2e-4)
 
@@ -706,17 +719,33 @@ def _f64_bound(got, want):
     assert (got - want).abs().max().item() <= 1e-12 * want.abs().max().item()
 
 
+# The softening's edges, on the uniform case: the smallest normal float
+# (2^-126), the smallest power of two at which a body's own entry (d = 0)
+# stays finite (2^-84: r^-3 = 2^126), and zero.
+_BH_EPS2 = {"eps2_min": 2.0 ** -126, "eps2_tiny": 2.0 ** -84, "eps2_zero": 0.0}
+
+
 @pytest.mark.parametrize("name", ["uniform", "cluster", "overflow", "one", "odd",
-                                  "full1024", "longrun"])
+                                  "full1024", "longrun", *_BH_EPS2])
 def test_bh_fused_kernel_source(emu, name):
     """K6 f32 against its plain version on the same tables and groups, at
     every stage cut: equal stats lanes (the MAC is written without contraction,
-    so the decisions match), accelerations within K1's bound."""
-    pos, mass, b, ld, leaf_cap, fcap = _bh_case(name)
+    so the decisions match), accelerations within K1's bound.  The pair
+    term's rsqrt flushes a subnormal r^2 to zero, and r^2 >= eps2: at a
+    normal eps2 it never acts, so the smallest normal eps2 and 2^-84 match
+    the plain version (torch.rsqrt, no flush) as 0.01 does.  Below
+    2^-85 a body's own entry gives r^-3 = inf and 0 * inf = NaN, with the
+    flush or without it: at 2^-126 and at 0 every body is NaN, as in the
+    plain version."""
+    pos, mass, b, ld, leaf_cap, fcap = _bh_case("uniform" if name in _BH_EPS2 else name)
     fi = bh_fused.prepare_fused(_f32(pos), _f32(mass), ld=ld, group_size=b)
-    kw = dict(theta=0.5, eps2=0.01, leaf_cap=leaf_cap, ld=ld, group_size=b,
-              frontier_cap=fcap)
-    stats = _bh_check_cuts(emu, fi, kw, _f32_bound)
+    kw = dict(theta=0.5, eps2=_BH_EPS2.get(name, 0.01), leaf_cap=leaf_cap, ld=ld,
+              group_size=b, frontier_cap=fcap)
+    got, stats = _bh_check_cuts(emu, fi, kw, _f32_bound)
+    if name in ("eps2_min", "eps2_zero"):
+        assert bool(torch.isnan(got).all())
+    else:
+        assert bool(torch.isfinite(got).all())
     gcount = fi.gcount.numpy()
     if name in ("uniform", "cluster", "overflow"):
         assert (gcount == 0).sum() > 0  # empty groups took part
@@ -809,7 +838,7 @@ def test_bh_fused_df_kernel_source(emu, name):
     assert fi.bsq.dtype == torch.float32
     kw = dict(theta=0.5, eps2=0.01, leaf_cap=leaf_cap, ld=ld, group_size=b,
               frontier_cap=fcap)
-    stats = _bh_check_cuts(emu, fi, kw, _f64_bound)
+    _, stats = _bh_check_cuts(emu, fi, kw, _f64_bound)
     if name == "uniform":
         assert int(stats[:, bh_fused.S_FAR].sum()) > 0
     if name == "overflow":
