@@ -32,10 +32,11 @@ prints no result):
    final positions and energy drift must agree;
 6. kernel times beside the plain versions (CUDA events), and pairs/s of
    both backends, each printed beside the card's name and power limit;
-   K1 at every number of source slices a block on the main path's 100k x
-   100k and on the 100,003 x 4,099 and 1M x 1,953 rectangles, each held
-   against its plain version with bit-identical reruns, beside its time
-   before the redesign, its bound and its fp32 issue floor; K3 at 100k and
+   the SM clock and power draw under K1; K1 at every number of source
+   slices a block on the main path's 100k x 100k and on the 100,003 x
+   4,099 and 1M x 1,953 rectangles, each held against its plain version
+   with bit-identical reruns, beside its time before the redesign, its
+   bound and its fp32 issue floor; K3 at 100k and
    at 1M beside its time before the redesign, its bound on the unordered
    pairs, its fp32 issue and MUFU floors and its plain version's time, and
    at 1M against its twin and the plain fp64 PE (which [18] also takes);
@@ -178,6 +179,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from functools import partial
 
@@ -214,15 +216,12 @@ CLOCK_HZ = 1.98e9  # SM clock of the issue floors: measured under K1 and K4 (PER
 FORCE_OPS, PE_OPS = 19, 11
 MUFU_LANES = 16  # MUFU.RSQ results an SM a clock (NVIDIA throughput table, cc 9.0)
 # Kernel times before their redesign, on an NVIDIA H100 80GB HBM3 at 700 W
-# (PERF.md): K4's and K6 df's (four targets a thread, pieces of groups) from
-# this script and diag/fp64_kernels.py (the rectangles, and K6 df on the
-# robust input in slot order) on the tree before it; K1's and K7 fp64's
-# (targets or slots a thread, split sources) from this script (100k, 1M)
-# and diag/pair_kernels.py (the rectangles) on the tree before theirs; K3's
-# and K5's (the upper triangle) from this script (100k) and
-# diag/pe_kernels.py (1M) on the tree before theirs; K7 f32's and K2's
-# (K1's pair loop, tensor-core B built once a tile) from this script on the
-# tree before theirs
+# (PERF.md), each measured on the tree before that redesign: K4's and K6
+# df's (four targets a thread, pieces of groups), K1's and K7 fp64's
+# (targets or slots a thread, split sources), K3's and K5's (the upper
+# triangle), K7 f32's and K2's (K1's pair loop, tensor-core B built once a
+# tile); the rectangles, K6 df in slot order and K3's and K5's 1M times by
+# the profilers of that tree, the rest by this script
 BEFORE_MS = {"K4 100k": 15.956, "K4 100003x4099": 0.6608, "K4 1000000x1953": 2.7433,
              "K6 df 100k": 2.3316, "K6 df 1M uniform": 16.1761, "K6 df robust ld 8": 129.2723,
              "K1 100000x100000": 7.0583, "K1 100003x4099": 0.2971, "K1 1000000x1953": 1.2197,
@@ -256,6 +255,27 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def clock_and_power(torch, fn, samples: int = 5) -> list[str]:
+    """nvidia-smi's SM clock and power draw, sampled every 0.25 s while
+    `fn` runs over and over."""
+    out: list[str] = []
+
+    def sample():
+        for _ in range(samples):
+            time.sleep(0.25)
+            r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                                "--format=csv,noheader"], capture_output=True, text=True,
+                               timeout=60)
+            out.append(r.stdout.strip())
+
+    th = threading.Thread(target=sample)
+    th.start()
+    while th.is_alive():
+        fn()
+        torch.cuda.synchronize()
+    return out
 
 
 def f32_close(torch, got, want, what: str) -> float:
@@ -502,10 +522,13 @@ def list_phases(torch, dev, card: str, sass: dict, arr, arr1m, csv1m: str, tmp: 
                 exact1m, frames_ex, drift_ex: float, drift_bh32: float) -> list[dict]:
     """Phases [19]-[23]: K7 and the list-based Barnes-Hut path.  Returns
     K7's entries of the JSON line."""
+    from nbody_tpu_torch.core.capacity import CapacityError
     from nbody_tpu_torch.core.types import Bodies
-    from nbody_tpu_torch.diag.energy import cuda_potential_energy
     from nbody_tpu_torch.ops import _cuda, barneshut, bh_fused, bh_fused_df, cuda_lists
-    from nbody_tpu_torch.ops.cuda_exhaustive import cuda_rect_accelerations
+    from nbody_tpu_torch.ops.cuda_exhaustive import (
+        cuda_potential_energy,
+        cuda_rect_accelerations,
+    )
     from nbody_tpu_torch.ops.cuda_fp64 import (
         cuda_accelerations_f64,
         cuda_potential_energy_f64,
@@ -539,7 +562,7 @@ def list_phases(torch, dev, card: str, sass: dict, arr, arr1m, csv1m: str, tmp: 
             gl = barneshut.group_lists(bd.pos, bd.mass, list_size=need)
         wrap = wrappers[dtype]
         got = wrap(gl.pg, gl.lists, gl.lengths, eps2=0.01)
-        want, plain_ms = timed_once(torch, lambda: barneshut.eval_lists_reference(
+        want, plain_ms = timed_once(torch, lambda: cuda_lists.eval_lists_reference(
             gl.pg, gl.lists, gl.lengths, eps2=0.01))
         what = f"n={nb}, M {gl.lists.shape[1]}"
         if dtype == f32:
@@ -591,7 +614,7 @@ def list_phases(torch, dev, card: str, sass: dict, arr, arr1m, csv1m: str, tmp: 
             try:
                 barneshut.check_capacities(bd.pos, bd.mass, traversal="padded", **kw)
                 break
-            except barneshut.CapacityError as e:
+            except CapacityError as e:
                 # a finding, not a failure: run with the sizes it names
                 print(f"  padded at n={nb}, {kw}: the probe overflows: {e}")
                 for key in ("list_size", "frontier_size", "range_size"):
@@ -840,17 +863,15 @@ def fp64_phases(torch, dev, card: str, sass: dict, arr, arr1m, csv1m: str, tmp: 
     the fp64 kernels' entries of the JSON line."""
     from nbody_tpu_torch.cli.main import build_force_fn
     from nbody_tpu_torch.core.types import Bodies, SimConfig
-    from nbody_tpu_torch.diag.energy import (
-        cuda_potential_energy,
-        energy_drift,
-        get_energy,
-        potential_energy_reference,
-    )
+    from nbody_tpu_torch.diag.energy import energy_drift, get_energy
     from nbody_tpu_torch.integrate.leapfrog import simulate
     from nbody_tpu_torch.diag import fused_stages as fs
-    from nbody_tpu_torch.diag.fp64_kernels import clock_and_power
     from nbody_tpu_torch.ops import _cuda, bh_fused, bh_fused_df
-    from nbody_tpu_torch.ops.cuda_exhaustive import cuda_rect_accelerations
+    from nbody_tpu_torch.ops.cuda_exhaustive import (
+        cuda_potential_energy,
+        cuda_rect_accelerations,
+        potential_energy_reference,
+    )
     from nbody_tpu_torch.ops.cuda_fp64 import (
         cuda_accelerations_f64,
         cuda_potential_energy_f64,
@@ -1076,7 +1097,8 @@ def fp64_phases(torch, dev, card: str, sass: dict, arr, arr1m, csv1m: str, tmp: 
     # 18. fp64 timing
     print(f"[18] fp64 timing on {card}")
     k4_ms = cuda_ms(torch, lambda: cuda_accelerations_f64(b64.pos, b64.mass), 10)
-    clocks = "; ".join(clock_and_power(lambda: cuda_accelerations_f64(b64.pos, b64.mass)))
+    clocks = "; ".join(clock_and_power(torch, lambda: cuda_accelerations_f64(b64.pos,
+                                                                         b64.mass)))
     k4_plain_ms = cuda_ms(torch, lambda: rect_accelerations_reference(b64.pos, b64.pos,
                                                                      b64.mass), 2)
     k4_rect_ms = {mn: cuda_ms(torch, lambda: cuda_rect_accelerations_f64(*r), 10)
@@ -1327,10 +1349,10 @@ def robust_phases(torch, dev, card: str, sass: dict, arr, k1_100k, tmp: str,
     entry of the JSON line and K6 df's launches and evaluations on the
     robust f64 main path ([27])."""
     from nbody_tpu_torch.core.types import Bodies
-    from nbody_tpu_torch.diag.energy import cuda_potential_energy
     from nbody_tpu_torch.ops import bh_autold, bh_fused, bh_fused_df
     from nbody_tpu_torch.ops.cuda_exhaustive import (
         cuda_accelerations,
+        cuda_potential_energy,
         cuda_rect_accelerations,
         cuda_rect_accelerations_mxu,
         rect_accelerations_mxu_reference,
@@ -1773,10 +1795,13 @@ def persistent_phases(torch, dev, card: str, b1m, csv1m: str, tmp: str, frames_b
     ([30]) and robust ([31]), and the CLI's report flags ([32]).  Returns
     the launches of the persistent main paths (K6 and K1)."""
     from nbody_tpu_torch.core.types import Bodies
-    from nbody_tpu_torch.diag.energy import cuda_potential_energy
     from nbody_tpu_torch.ops import bh_autold, bh_fused
     from nbody_tpu_torch.ops import bh_persistent as bp
-    from nbody_tpu_torch.ops.cuda_exhaustive import cuda_accelerations, cuda_rect_accelerations
+    from nbody_tpu_torch.ops.cuda_exhaustive import (
+        cuda_accelerations,
+        cuda_potential_energy,
+        cuda_rect_accelerations,
+    )
     from nbody_tpu_torch.utils.fixtures import plummer_cloud, with_escapers
 
     f32 = torch.float32
@@ -1994,13 +2019,16 @@ def option_phases(torch, dev, card: str, b, b1m, csv1m: str, tmp: str, frames_bh
     uninterrupted, plain or one-shot run.  Returns the launches and times
     of the kernels line."""
     from nbody_tpu_torch.core.types import Bodies
-    from nbody_tpu_torch.diag.energy import cuda_potential_energy
     from nbody_tpu_torch.integrate.adaptive import adaptive_steps, simulate_adaptive
     from nbody_tpu_torch.io.checkpoint import CheckpointManager, load_checkpoint, save_checkpoint
     from nbody_tpu_torch.ops import bh_fused
     from nbody_tpu_torch.ops import bh_persistent as bp
     from nbody_tpu_torch.ops.collisions import merge_pass
-    from nbody_tpu_torch.ops.cuda_exhaustive import cuda_accelerations, cuda_rect_accelerations
+    from nbody_tpu_torch.ops.cuda_exhaustive import (
+        cuda_accelerations,
+        cuda_potential_energy,
+        cuda_rect_accelerations,
+    )
     from nbody_tpu_torch.ops.exhaustive import exhaustive_accelerations
     from nbody_tpu_torch.utils.fixtures import random_cloud, stratified_cloud
 
@@ -2322,18 +2350,16 @@ def main() -> int:
     check(pkg == os.path.join(ROOT, "nbody_tpu_torch"),
           f"nbody_tpu_torch comes from this checkout (found {pkg})")
     from nbody_tpu_torch.core.types import Bodies
-    from nbody_tpu_torch.diag.energy import (
-        cuda_potential_energy,
-        get_energy,
-        potential_energy_reference,
-    )
+    from nbody_tpu_torch.diag.energy import get_energy
     from nbody_tpu_torch.io.csv import read_bodies
     from nbody_tpu_torch.utils.fixtures import random_cloud, write_fixture
     from nbody_tpu_torch.ops import _cuda, bh_fused
     from nbody_tpu_torch.ops.cuda_exhaustive import (
         cuda_accelerations,
+        cuda_potential_energy,
         cuda_rect_accelerations,
         k1_split,
+        potential_energy_reference,
         rect_accelerations_reference,
     )
 
@@ -2455,6 +2481,8 @@ def main() -> int:
         print(f"  all-pairs {n}x{n}: kernel {k1_ms:.4f} ms "
               f"({pairs / k1_ms / 1e-3:.4e} pairs/s), plain {k1_plain_ms:.4f} ms "
               f"[{card}]")
+        clocks = "; ".join(clock_and_power(torch, lambda: cuda_accelerations(b.pos, b.mass)))
+        print(f"  SM clock and power draw while K1 runs at {n}x{n}: {clocks} [{card}]")
         # K1 at every number of source slices a block, each held against the
         # plain version, on the main path's square and the ragged and robust
         # rectangles, beside its time before the redesign, its bound and its

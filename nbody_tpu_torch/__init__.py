@@ -7,8 +7,8 @@ nvcc at first use and bound with ctypes).  Each module names its JAX
 counterpart in its docstring.
 
 Ported so far: the default all-pairs CLI run (``--algo exhaustive``), with
-the force kernel (``ops/cuda_exhaustive.py``) and the potential-energy
-kernel (``diag/energy.py``); the fused Barnes-Hut run (``--algo
+the force kernel and the potential-energy kernel
+(``ops/cuda_exhaustive.py``); the fused Barnes-Hut run (``--algo
 barnes-hut``, or ``auto`` above 32,768 bodies), with the
 traverse-and-evaluate kernel (``ops/bh_fused.py``); the list-based
 Barnes-Hut run (``--bh-traversal flat|padded``, and ``auto`` with
@@ -43,7 +43,7 @@ _EXPORTS = {
     "leapfrog_steps": "nbody_tpu_torch.integrate.leapfrog",
     "simulate": "nbody_tpu_torch.integrate.leapfrog",
     "get_energy": "nbody_tpu_torch.diag.energy",
-    "cuda_potential_energy": "nbody_tpu_torch.diag.energy",
+    "cuda_potential_energy": "nbody_tpu_torch.ops.cuda_exhaustive",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -418,7 +418,7 @@ def build_force_fn(backend: str, G: float, softening_sq: float,
         from nbody_tpu_torch.ops import barneshut, cuda_lists
 
         if backend != "cuda":
-            group_forces = barneshut.eval_lists_reference
+            group_forces = cuda_lists.eval_lists_reference
         elif dtype == "f64":
             group_forces = cuda_lists.eval_lists_f64
         else:
@@ -511,14 +511,11 @@ def main(argv=None) -> int:
     import torch
 
     from nbody_tpu_torch.core.types import Bodies
-    from nbody_tpu_torch.diag.energy import (
-        cuda_potential_energy,
-        energy_drift,
-        get_energy,
-    )
+    from nbody_tpu_torch.core.capacity import CapacityError
+    from nbody_tpu_torch.diag.energy import energy_drift, get_energy
     from nbody_tpu_torch.integrate.leapfrog import simulate
     from nbody_tpu_torch.io.csv import read_bodies, write_frames
-    from nbody_tpu_torch.ops.barneshut import CapacityError
+    from nbody_tpu_torch.ops.cuda_exhaustive import cuda_potential_energy
     from nbody_tpu_torch.ops.cuda_fp64 import cuda_potential_energy_f64
 
     if args.device == "cuda" and not torch.cuda.is_available():

@@ -18,7 +18,8 @@ here:
 The budget is BUDGET_FRAC of the free bytes ``torch.cuda.mem_get_info``
 reports (``NBODY_HBM_BYTES`` overrides the free bytes); off the card it is
 None and every heuristic keeps its legacy value.  The JAX package's table
-of TPU memory sizes does not carry over.
+of TPU memory sizes does not carry over.  Every Barnes-Hut path raises
+``CapacityError``, defined here, when a run would not fit.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ import os
 import torch
 
 from nbody_tpu_torch.diag.timing import host_sync
-from nbody_tpu_torch.ops.barneshut import CapacityError
 
 # Fraction of the budget the predictive check may plan for — the
 # reference's free_mem * 3/4 margin (cuda/barnes-hut.cu:886).
@@ -36,6 +36,12 @@ BUDGET_FRAC = 0.75
 # Fraction of the budget the slack group slots may take before auto_keep
 # shrinks the margin toward its floor.
 KEEP_FRAC = 0.25
+
+
+class CapacityError(RuntimeError):
+    """Static traversal capacities exceeded — results would drop sources.
+    The analog of the reference's node-pool exhaustion abort
+    (openmp/barnes-hut.c:158-160)."""
 
 
 def free_bytes(device=None) -> int | None:

@@ -15,6 +15,10 @@ each step is a few elementwise ops around one force call.  ``simulate``
 runs the steps in chunks and hands each chunk's positions to a writer
 callback, the initial frame first; chunks end on checkpoint, progress and
 (with frames) merge boundaries, as JAX's (``leapfrog.py:154-219``).
+``simulate_merging`` (JAX keeps it in ``ops/collisions.py``) runs KDK
+with an inelastic merge pass (``ops/collisions.merge_pass``) every
+`merge_every` steps and refreshes the force after a pass that merged
+something.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 
 from nbody_tpu_torch.core.types import Bodies
 from nbody_tpu_torch.diag.timing import host_sync, span, spanned
-from nbody_tpu_torch.ops.collisions import simulate_merging
+from nbody_tpu_torch.ops.collisions import merge_pass
 
 ForceFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (pos, mass) -> acc
 
@@ -99,6 +103,42 @@ def leapfrog_steps(
     if with_history:
         return out, acc, (torch.stack(hist) if hist else pos.new_empty((0,) + pos.shape))
     return out, acc
+
+
+def simulate_merging(bodies: Bodies, n_steps: int, dt: float, force_fn, *, radius: float,
+                     merge_every: int = 1, acc0=None, k0: int = 0,
+                     with_history: bool = False):
+    """KDK leapfrog with a merge pass after every step k (counted from
+    `k0`) with (k + 1) % merge_every == 0.  Returns (Bodies, acc,
+    n_merged), plus the (T, N, 3) post-drift history with `with_history`
+    (the frame contract of ``leapfrog_steps``).  A pass that merged
+    something refreshes the force the next kick uses: one host read of the
+    pass's count.  `acc0` and `k0` carry the force and the merge phase
+    across chunked calls."""
+    pos, vel, mass = bodies
+    half = dt * 0.5
+    acc = evaluate(force_fn, pos, mass) if acc0 is None else acc0
+    merged = 0
+    hist = []
+    for k in range(k0, k0 + n_steps):
+        vel = vel + acc * half
+        pos = pos + vel * dt
+        if with_history:
+            hist.append(pos)
+        acc = evaluate(force_fn, pos, mass)
+        vel = vel + acc * half
+        if (k + 1) % merge_every == 0:
+            p2, v2, m2, nm = merge_pass(pos, vel, mass, radius)
+            nm = int(nm)
+            if nm > 0:
+                pos, vel, mass = p2, v2, m2
+                acc = evaluate(force_fn, pos, mass)
+                merged += nm
+    out = Bodies(pos, vel, mass)
+    if with_history:
+        return out, acc, merged, (torch.stack(hist) if hist
+                                  else pos.new_empty((0,) + pos.shape))
+    return out, acc, merged
 
 
 def _fence(t: torch.Tensor) -> None:

@@ -9,13 +9,11 @@ or ``ops/bh_traverse.py``) writes its interaction list of far centres of
 mass and exact near bodies, and the evaluator computes every group slot
 against its list.  The evaluator is kernel K7, ``csrc/group_lists.cu``,
 wrapped in ``ops/cuda_lists.py`` (``eval_lists`` in f32,
-``eval_lists_f64`` in fp64); its plain version is ``eval_lists_reference``
-here, the port of JAX's ``_eval_lists_jnp``.  A body's own list entry
-adds exactly zero (zero displacement), the reference's self-exclusion
-(serial/barnes-hut.c:411) without a mask.
-
-Also here, for the fused path: ``group_bodies``, ``compact_groups`` and
-the error types.
+``eval_lists_f64`` in fp64) beside its plain version
+``eval_lists_reference``, the port of JAX's ``_eval_lists_jnp``.  A
+body's own list entry adds exactly zero (zero displacement), the
+reference's self-exclusion (serial/barnes-hut.c:411) without a mask.
+The groups follow ``ops/morton.py``'s group rule.
 """
 
 from __future__ import annotations
@@ -25,90 +23,21 @@ from typing import NamedTuple
 
 import torch
 
-from nbody_tpu_torch.core import constants
+from nbody_tpu_torch.core import capacity, constants
 from nbody_tpu_torch.diag.timing import host_sync, spanned
+from nbody_tpu_torch.ops import cuda_lists
 from nbody_tpu_torch.ops.bh_traverse import TraverseStats, traverse
 from nbody_tpu_torch.ops.bh_traverse_flat import traverse_flat
 from nbody_tpu_torch.ops.bh_tree import build_tree
-from nbody_tpu_torch.ops.morton import morton_sort
+from nbody_tpu_torch.ops.morton import group_bodies, morton_sort
 
 TRAVERSALS = ("flat", "padded")
 _FAR = 1.0e18  # empty-group sentinel box: far away, so the root is accepted at once
-# (bodies x list entries) pairs the plain evaluator computes at once
-_PAIR_BLOCK = 1 << 22
-
-
-class CapacityError(RuntimeError):
-    """Static traversal capacities exceeded — results would drop sources.
-    The analog of the reference's node-pool exhaustion abort
-    (openmp/barnes-hut.c:158-160)."""
 
 
 class ResolutionError(RuntimeError):
     """A cluster denser than the terminal Morton resolution was COM-merged;
     forces for those bodies are approximate beyond the theta contract."""
-
-
-def group_capacity(n: int, group_size: int, split_level: int, depth: int = 10) -> int:
-    """Static group count G = n // B + #split-cells + 1: every split-level
-    cell adds at most one partial chunk."""
-    return n // group_size + min(8 ** min(split_level, depth), n) + 1
-
-
-def group_ranges(keys_s: torch.Tensor, n: int, depth: int, group_size: int,
-                 split_level: int):
-    """Cell-aligned grouping of Morton-sorted bodies: (gstart (G,),
-    gcount (G,)) int32, G = group_capacity(...).  Chunks of at most B
-    bodies never cross a split-level cell, so a group's bounding box
-    stays inside one cell.  Groups are numbered in sorted order, so the
-    occupied ones come first and cover [0, n) contiguously.  No host
-    sync."""
-    b = group_size
-    dev = keys_s.device
-    sl = min(split_level, depth)
-    cell = keys_s >> (3 * (depth - sl))  # nondecreasing: keys are sorted
-    idx = torch.arange(n, dtype=torch.int64, device=dev)
-    # first body of each body's cell (JAX takes a running max; CUDA's
-    # cummax costs ~2.7 ms at 1M bodies, a binary search ~0.1 ms)
-    cell_start = torch.searchsorted(cell, cell)
-    new_group = (idx - cell_start) % b == 0
-    gid = torch.cumsum(new_group, dim=0) - 1
-
-    g_max = group_capacity(n, b, sl, depth)
-    gcount = torch.zeros(g_max, dtype=torch.int64, device=dev)
-    gcount.index_add_(0, gid, torch.ones(n, dtype=torch.int64, device=dev))
-    gstart = torch.where(gcount > 0, torch.cumsum(gcount, 0) - gcount, 0)
-    return gstart.to(torch.int32), gcount.to(torch.int32)
-
-
-def group_bodies(keys_s: torch.Tensor, n: int, depth: int, group_size: int,
-                 split_level: int):
-    """(gstart (G,), gcount (G,), group_idx (G, B), group_valid (G, B)),
-    as ``nbody_tpu.ops.barneshut.group_bodies``.  Pad slots repeat the
-    group's first body.  The fused path uses ``group_ranges`` alone: its
-    kernel reads each group's contiguous sorted range directly."""
-    gstart, gcount = group_ranges(keys_s, n, depth, group_size, split_level)
-    slots = torch.arange(group_size, dtype=torch.int32, device=keys_s.device)[None, :]
-    group_valid = slots < gcount[:, None]
-    group_idx = torch.where(group_valid, gstart[:, None] + slots, gstart[:, None])
-    return gstart, gcount, group_idx.clamp(0, n - 1), group_valid
-
-
-def compact_groups(gstart, gcount, group_idx, group_valid, keep: int):
-    """Pack occupied groups to the front (stable, so they keep Morton
-    order) and trim the capacity to `keep`.  Returns the packed arrays and
-    the number of OCCUPIED groups trimmed, a 0-dim tensor that must be 0
-    for correct forces.  `group_idx`/`group_valid` may be None (the fused
-    path carries no slot arrays); they are then returned as None."""
-    keep = min(keep, gstart.shape[0])
-    order = torch.argsort((gcount == 0).to(torch.int32), stable=True)
-    gc_sorted = gcount[order]
-    trimmed = (gc_sorted[keep:] > 0).sum()
-
-    def take(a):
-        return None if a is None else a[order][:keep]
-
-    return take(gstart), gc_sorted[:keep], take(group_idx), take(group_valid), trimmed
 
 
 class BHStats(NamedTuple):
@@ -123,32 +52,6 @@ class BHStats(NamedTuple):
             or int(self.traverse.max_frontier_needed) > self.frontier_capacity
             or int(self.traverse.max_ranges_needed) > self.range_capacity
         )
-
-
-def eval_lists_reference(pos_groups: torch.Tensor, lists: torch.Tensor,
-                         lengths: torch.Tensor | None = None, *,
-                         eps2: float) -> torch.Tensor:
-    """The plain version of K7: accelerations (G, B, 3) of every group slot
-    of `pos_groups` (G, B, 3) against its group's list `lists` (G, M, 4)
-    rows [x y z G·m], in pos_groups' dtype (``_eval_lists_jnp``: rsqrt in
-    f32, r2 ** -0.5 in f64).  It runs the full M, as JAX does: the padded
-    tail has G·m = 0 and adds exact zeros; `lengths` is taken for the
-    kernel's signature.  Groups go in blocks of bounded size."""
-    del lengths
-    n_groups, b, _ = pos_groups.shape
-    m = lists.shape[1]
-    dtype = pos_groups.dtype
-    lv = lists.to(dtype)
-    out = torch.empty((n_groups, b, 3), dtype=dtype, device=pos_groups.device)
-    gc = max(1, min(n_groups, _PAIR_BLOCK // max(1, b * m)))
-    for g0 in range(0, n_groups, gc):
-        p, lg = pos_groups[g0:g0 + gc], lv[g0:g0 + gc]
-        d = lg[:, None, :, :3] - p[:, :, None, :]  # (gc, B, M, 3)
-        r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2] + eps2
-        inv_r = torch.rsqrt(r2) if dtype == torch.float32 else r2 ** -0.5
-        w = lg[:, None, :, 3] * (inv_r * inv_r * inv_r)
-        out[g0:g0 + gc] = torch.einsum("gbm,gbmd->gbd", w, d)
-    return out
 
 
 def effective_depth(n: int, depth: int, leaf_cap: int, group_size: int) -> int:
@@ -204,8 +107,6 @@ def _prepare(pos: torch.Tensor, mass: torch.Tensor, depth: int, group_size: int,
 
 def default_group_forces(dtype: torch.dtype):
     """K7's wrapper for `dtype`: ``eval_lists`` (f32) or ``eval_lists_f64``."""
-    from nbody_tpu_torch.ops import cuda_lists
-
     return cuda_lists.eval_lists_f64 if dtype == torch.float64 else cuda_lists.eval_lists
 
 
@@ -299,7 +200,7 @@ def barneshut_accelerations(
     signature), in pos's dtype.  `traversal` is "flat" or "padded";
     `frontier_size` and `range_size` are the padded traversal's.
     `group_forces` is the list evaluator: K7's wrapper for pos's dtype
-    when None, or ``eval_lists_reference`` (``--backend torch``).
+    when None, or ``cuda_lists.eval_lists_reference`` (``--backend torch``).
 
     Capacities are static; if a run exceeds them the stats (ask with
     return_stats=True) report the sizes needed, and check_capacities()
@@ -354,7 +255,7 @@ def check_capacities(pos, mass, *, strict_resolution: bool = True, **kw) -> BHSt
             fixes.append(f"need ranges={need_r} (have {stats.range_capacity}): pass "
                          f"range_size={need_r} (no CLI flag)")
     if fixes:
-        raise CapacityError("Barnes-Hut capacity overflow: " + "; ".join(fixes))
+        raise capacity.CapacityError("Barnes-Hut capacity overflow: " + "; ".join(fixes))
     with host_sync("probe.stats"):
         term = int(t.terminal_com_bodies)
     if strict_resolution and term > 0:

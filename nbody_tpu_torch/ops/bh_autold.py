@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import hashlib
 import json
-import math
 import os
 
 import numpy as np
@@ -121,6 +120,8 @@ def estimate_bh_costs(
     extrapolated from the group sample, and the priced sum with the
     per-node table term (the rebuild if `persistent`, else the build).
     """
+    from nbody_tpu_torch.ops.morton import auto_split_level
+
     n = pos.shape[0]
     b = int(group_size)
     max_d = max(depths)
@@ -133,9 +134,9 @@ def estimate_bh_costs(
     ks = keys[order]
     ms = np.asarray(mass, np.float32)[order]
 
-    # groups as ops.barneshut.group_ranges makes them: B-body chunks that
+    # groups as ops.morton.group_ranges makes them: B-body chunks that
     # never cross split-level cell boundaries (cells hold ~2B bodies)
-    sl = max(0, round(math.log(max(n / (2.0 * b), 1.0), 8)))
+    sl = auto_split_level(n, b)
     cell_sl = ks >> (3 * (max_d - min(sl, max_d)))
     first_in_cell = np.concatenate(([True], cell_sl[1:] != cell_sl[:-1]))
     idx = np.arange(n)

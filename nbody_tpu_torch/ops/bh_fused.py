@@ -61,15 +61,15 @@ import torch
 
 from nbody_tpu_torch.core import capacity, constants
 from nbody_tpu_torch.diag.timing import host_sync, span, spanned
-from nbody_tpu_torch.ops.barneshut import (
-    CapacityError,
+from nbody_tpu_torch.ops.bh_grid import GridTree, build_grid, grid_offsets
+from nbody_tpu_torch.ops.cuda_exhaustive import check_tensor, cuda_rect_accelerations
+from nbody_tpu_torch.ops.morton import (
+    auto_split_level,
     compact_groups,
     group_capacity,
     group_ranges,
+    morton_sort,
 )
-from nbody_tpu_torch.ops.bh_grid import GridTree, build_grid, grid_offsets
-from nbody_tpu_torch.ops.cuda_exhaustive import check_tensor, cuda_rect_accelerations
-from nbody_tpu_torch.ops.morton import morton_sort
 
 FRONTIER_CAP = 2048  # cells per level per group (runtime overflow-checked)
 MAX_LD = 8  # deepest dense grid the kernel takes (robust mode's depth)
@@ -85,13 +85,6 @@ CUTS = ("none", "pops", "stage", "stagefar", "stagenear", "dma", "full")
 
 # (bodies x sources) pairs the plain version evaluates at once
 _PAIR_BLOCK = 1 << 22
-
-
-def auto_split_level(n: int, b: int) -> int:
-    """Coarse-cell level for group chunking: cells hold ~2B bodies, so
-    B-body chunks inside a cell stay mostly full.  Rounded to the nearest
-    level (rounding up can put the cell count far above n/2B)."""
-    return max(0, round(math.log(max(n / (2.0 * b), 1.0), 8)))
 
 
 def auto_ld(n: int) -> int:
@@ -723,7 +716,8 @@ def check_fused(
             f"--bh-keep-groups {keep + trimmed}"
         )
     if fixes:
-        raise CapacityError("fused Barnes-Hut capacity overflow: " + "; ".join(fixes))
+        raise capacity.CapacityError("fused Barnes-Hut capacity overflow: "
+                                     + "; ".join(fixes))
     return stats
 
 

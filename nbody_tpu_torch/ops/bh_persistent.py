@@ -46,7 +46,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from nbody_tpu_torch.core import constants
+from nbody_tpu_torch.core import capacity, constants
 from nbody_tpu_torch.core.types import Bodies
 from nbody_tpu_torch.diag.timing import host_sync, span, spanned
 from nbody_tpu_torch.integrate.adaptive import (
@@ -56,7 +56,6 @@ from nbody_tpu_torch.integrate.adaptive import (
     stagnated,
     step_size,
 )
-from nbody_tpu_torch.ops.barneshut import CapacityError, group_ranges
 from nbody_tpu_torch.ops.bh_fused import (
     FRONTIER_CAP,
     MAX_LD,
@@ -65,14 +64,19 @@ from nbody_tpu_torch.ops.bh_fused import (
     _median,
     _round_cap,
     auto_ld,
-    auto_split_level,
     fused_group_forces,
     outlier_rect,
 )
 from nbody_tpu_torch.ops.bh_grid import GridTree, grid_from_terminal, grid_offsets
 from nbody_tpu_torch.ops.collisions import merge_pass
 from nbody_tpu_torch.ops.cuda_exhaustive import cuda_rect_accelerations
-from nbody_tpu_torch.ops.morton import bounding_border, morton_encode
+from nbody_tpu_torch.ops.morton import (
+    auto_split_level,
+    bounding_border,
+    group_capacity,
+    group_ranges,
+    morton_encode,
+)
 
 _INT_MAX = 2**31 - 1
 
@@ -113,13 +117,12 @@ class GroupState(NamedTuple):
 
 
 def _layout(n: int, group_size: int, ld: int | None = None):
-    """(B, ld, split level, G): G = n // B + min(8^sl, n) + 1, the exact
-    bound of ``group_ranges``: every split-level cell adds at most one
-    partial group."""
+    """(B, ld, split level, G): G is ``group_capacity``, the exact bound of
+    ``group_ranges``."""
     b = group_size
     ld = ld or auto_ld(n)
     sl = auto_split_level(n, b)
-    return b, ld, sl, n // b + min(8**sl, n) + 1
+    return b, ld, sl, group_capacity(n, b, sl, MORTON_DEPTH)
 
 
 def _resort(pos, vel, acc, gm, orig, *, group_size: int, robust_slots: int = 0,
@@ -399,7 +402,7 @@ def _raise_overflow(ovf: int) -> None:
     fits, as ``bh_fused.check_fused`` does."""
     if ovf > 0:
         need = _round_cap(max(ovf + 1, FRONTIER_CAP))
-        raise CapacityError(
+        raise capacity.CapacityError(
             "persistent fused Barnes-Hut capacity overflow: frontier overflow "
             f"(a level needed >= {ovf} octets): pass --bh-frontier-cap {need}")
 

@@ -27,8 +27,8 @@ fp64 (always, for a few f32 members), and the card's atomic order cannot
 change a bit of it.  JAX sums in the state's dtype; the two agree within
 one rounding.
 
-``simulate_merging`` runs KDK with a merge pass every `merge_every` steps
-and refreshes the force after a pass that merged something.
+The stepping loop that calls it every `merge_every` steps is
+``integrate.leapfrog.simulate_merging``.
 """
 
 from __future__ import annotations
@@ -36,8 +36,6 @@ from __future__ import annotations
 import math
 
 import torch
-
-from nbody_tpu_torch.core.types import Bodies
 
 # Bytes of temporaries per (row, body) pair of a chunk of the contact test
 # (three f32/f64 coordinate differences and r², a few bool masks), and the
@@ -110,41 +108,3 @@ def merge_pass(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor, radius:
     out_pos = torch.where(was_dead, pos, out_pos)
     out_vel = torch.where(was_dead, vel, out_vel)
     return out_pos, out_vel, new_mass, moved.sum()
-
-
-def simulate_merging(bodies: Bodies, n_steps: int, dt: float, force_fn, *, radius: float,
-                     merge_every: int = 1, acc0=None, k0: int = 0,
-                     with_history: bool = False):
-    """KDK leapfrog with a merge pass after every step k (counted from
-    `k0`) with (k + 1) % merge_every == 0.  Returns (Bodies, acc,
-    n_merged), plus the (T, N, 3) post-drift history with `with_history`
-    (the frame contract of ``leapfrog_steps``).  A pass that merged
-    something refreshes the force the next kick uses: one host read of the
-    pass's count.  `acc0` and `k0` carry the force and the merge phase
-    across chunked calls."""
-    from nbody_tpu_torch.integrate.leapfrog import evaluate  # which imports this module
-
-    pos, vel, mass = bodies
-    half = dt * 0.5
-    acc = evaluate(force_fn, pos, mass) if acc0 is None else acc0
-    merged = 0
-    hist = []
-    for k in range(k0, k0 + n_steps):
-        vel = vel + acc * half
-        pos = pos + vel * dt
-        if with_history:
-            hist.append(pos)
-        acc = evaluate(force_fn, pos, mass)
-        vel = vel + acc * half
-        if (k + 1) % merge_every == 0:
-            p2, v2, m2, nm = merge_pass(pos, vel, mass, radius)
-            nm = int(nm)
-            if nm > 0:
-                pos, vel, mass = p2, v2, m2
-                acc = evaluate(force_fn, pos, mass)
-                merged += nm
-    out = Bodies(pos, vel, mass)
-    if with_history:
-        return out, acc, merged, (torch.stack(hist) if hist
-                                  else pos.new_empty((0,) + pos.shape))
-    return out, acc, merged

@@ -11,6 +11,11 @@ Counterpart of ``nbody_tpu/ops/pallas_exhaustive.py``:
   the Pallas ``_kernel_mxu``): the same force with the j-sum as a
   tensor-core product W @ [x y z 1]; its plain version is
   ``rect_accelerations_mxu_reference``.
+* ``cuda_potential_energy`` wraps K3, ``nbody_tpu_torch/csrc/potential.cu``
+  (which replaces the Pallas ``_pe_kernel`` of ``nbody_tpu/diag/energy.py``):
+  the unsoftened f32 PE.  Its plain twin ``potential_energy_reference``
+  sums pair terms in the inputs' dtype in fp64, so it is also the plain
+  version of the fp64 PE kernel K5 (``ops/cuda_fp64.py``).
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises.  Nothing falls back.  Each kernel wrapper's ``launches``
@@ -230,3 +235,62 @@ def cuda_accelerations(
         pos, pos, mass, G=G, softening_sq=softening_sq,
         eps2_i=eps2_per_body, eps2_all=eps2_per_body, use_mxu=use_mxu,
     )
+
+
+def potential_energy_reference(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    *,
+    G: float = constants.BIG_G,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Plain twin of the PE kernels: pair terms -m_i m_j * rsqrt(r^2) (0 at
+    r^2 == 0) in the inputs' dtype (f32 for K3, fp64 for K5), accumulated
+    in fp64.  Returns a 0-d fp64 tensor."""
+    total = torch.zeros((), dtype=torch.float64, device=pos.device)
+    for s in range(0, pos.shape[0], chunk):
+        d = pos[None, :, :] - pos[s:s + chunk, None, :]
+        r2 = (d * d).sum(-1)
+        inv_r = torch.where(r2 > 0, torch.rsqrt(r2), 0.0)
+        terms = -(mass[s:s + chunk, None] * mass[None, :]) * inv_r
+        total = total + terms.sum(dtype=torch.float64)
+    return G * total * 0.5
+
+
+def cuda_potential_energy(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    *,
+    G: float = constants.BIG_G,
+) -> torch.Tensor:
+    """Unsoftened PE of f32 pos (N, 3) / mass (N,), as a 0-d fp64 tensor.
+    CPU tensors go to `potential_energy_reference`; CUDA tensors launch the
+    kernel or raise."""
+    device = pos.device
+    n = pos.shape[0]
+    check_tensor("pos", pos, (-1, 3), device)
+    check_tensor("mass", mass, (n,), device)
+    if device.type == "cpu":
+        return potential_energy_reference(pos, mass, G=G)
+    if device.type != "cuda":
+        raise ValueError(f"no potential-energy kernel for device {device}")
+
+    from nbody_tpu_torch.ops import _cuda
+
+    kernels = _cuda.library()
+    with torch.cuda.device(device):
+        # one partial a block of the launch, whose grid is sized to this card
+        # (a negative count is a CUDA error, which the launch returns too)
+        count = kernels.lib.nbody_potential_partials(n)
+        partials = torch.empty((max(count, 0),), dtype=torch.float64, device=device)
+        out = torch.empty((1,), dtype=torch.float64, device=device)
+        err = kernels.lib.nbody_potential_f32(
+            pos.data_ptr(), mass.data_ptr(), n, partials.data_ptr(),
+            out.data_ptr(), _cuda.stream_handle(device),
+        )
+    kernels.check(err, "potential-energy kernel")
+    cuda_potential_energy.launches += 1
+    return G * out[0] * 0.5  # G and the 1/2 (nbody_tpu/diag/energy.py:94)
+
+
+cuda_potential_energy.launches = 0

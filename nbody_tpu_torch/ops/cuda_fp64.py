@@ -24,10 +24,10 @@ from __future__ import annotations
 import torch
 
 from nbody_tpu_torch.core import constants
-from nbody_tpu_torch.diag.energy import potential_energy_reference
 from nbody_tpu_torch.ops.cuda_exhaustive import (
     check_tensor,
     fewest_split,
+    potential_energy_reference,
     rect_accelerations_reference,
 )
 

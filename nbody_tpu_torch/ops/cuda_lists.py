@@ -4,9 +4,10 @@ CUDA kernel K7 — counterpart of ``nbody_tpu/ops/barneshut.py``'s
 
 ``eval_lists`` (f32) and ``eval_lists_f64`` (native fp64) wrap the two
 entry points of ``nbody_tpu_torch/csrc/group_lists.cu``.  A CPU tensor
-goes to the plain version, ``barneshut.eval_lists_reference``; a CUDA
-tensor launches the kernel or raises.  Nothing falls back.  Each wrapper's
-``.launches`` counts its kernel's launches.
+goes to the plain version, ``eval_lists_reference`` (the port of JAX's
+``_eval_lists_jnp``); a CUDA tensor launches the kernel or raises.
+Nothing falls back.  Each wrapper's ``.launches`` counts its kernel's
+launches.
 
 JAX's Pallas path casts to f32 whatever the run's dtype
 (``barneshut.py:87-90``); the fp64 entry point serves ``--dtype f64`` and
@@ -17,8 +18,36 @@ from __future__ import annotations
 
 import torch
 
-from nbody_tpu_torch.ops.barneshut import eval_lists_reference
 from nbody_tpu_torch.ops.cuda_exhaustive import check_tensor, fewest_split
+
+# (bodies x list entries) pairs the plain evaluator computes at once
+_PAIR_BLOCK = 1 << 22
+
+
+def eval_lists_reference(pos_groups: torch.Tensor, lists: torch.Tensor,
+                         lengths: torch.Tensor | None = None, *,
+                         eps2: float) -> torch.Tensor:
+    """The plain version of K7: accelerations (G, B, 3) of every group slot
+    of `pos_groups` (G, B, 3) against its group's list `lists` (G, M, 4)
+    rows [x y z G·m], in pos_groups' dtype (``_eval_lists_jnp``: rsqrt in
+    f32, r2 ** -0.5 in f64).  It runs the full M, as JAX does: the padded
+    tail has G·m = 0 and adds exact zeros; `lengths` is taken for the
+    kernel's signature.  Groups go in blocks of bounded size."""
+    del lengths
+    n_groups, b, _ = pos_groups.shape
+    m = lists.shape[1]
+    dtype = pos_groups.dtype
+    lv = lists.to(dtype)
+    out = torch.empty((n_groups, b, 3), dtype=dtype, device=pos_groups.device)
+    gc = max(1, min(n_groups, _PAIR_BLOCK // max(1, b * m)))
+    for g0 in range(0, n_groups, gc):
+        p, lg = pos_groups[g0:g0 + gc], lv[g0:g0 + gc]
+        d = lg[:, None, :, :3] - p[:, :, None, :]  # (gc, B, M, 3)
+        r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2] + eps2
+        inv_r = torch.rsqrt(r2) if dtype == torch.float32 else r2 ** -0.5
+        w = lg[:, None, :, 3] * (inv_r * inv_r * inv_r)
+        out[g0:g0 + gc] = torch.einsum("gbm,gbmd->gbd", w, d)
+    return out
 
 
 def _check(pos_groups, lists, lengths, dtype: torch.dtype):

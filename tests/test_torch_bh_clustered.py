@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from nbody_tpu_torch.ops.barneshut import barneshut_accelerations, eval_lists_reference
+from nbody_tpu_torch.ops.barneshut import barneshut_accelerations
+from nbody_tpu_torch.ops.cuda_lists import eval_lists_reference
 from test_bh_clustered import _exact, two_cluster_cloud
 
 

@@ -18,7 +18,7 @@ from nbody_tpu.ops import bh_grid as jg
 from nbody_tpu.ops import morton as jm
 from nbody_tpu_torch.core import capacity
 from nbody_tpu_torch.ops import bh_fused as tf
-from nbody_tpu_torch.ops.barneshut import CapacityError
+from nbody_tpu_torch.core.capacity import CapacityError
 from nbody_tpu_torch.utils.fixtures import plummer_cloud
 from tests.oracle import accel_exhaustive_f64
 
@@ -294,11 +294,10 @@ def test_fused_stages_profiler_needs_a_card(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("tool,argv", [("fused_stages", ["1000", "--df"]),
-                                       ("fp64_kernels", [])])
+@pytest.mark.parametrize("tool,argv", [("fused_stages", ["1000", "--df"])])
 def test_df_profilers_need_a_card(monkeypatch, capsys, tool, argv):
-    """The df mode's profilers time the card and nothing else: with no
-    card they exit 1 and say why."""
+    """The df mode's profiler times the card and nothing else: with no
+    card it exits 1 and says why."""
     import importlib
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1,6 +1,6 @@
-"""Dense-grid build (nbody_tpu_torch/ops/bh_grid.py), Morton groups
-(nbody_tpu_torch/ops/barneshut.py) and the fused path's sizing heuristics
-against the JAX package on the same Morton-sorted bodies."""
+"""Dense-grid build (nbody_tpu_torch/ops/bh_grid.py), the Morton group
+rule (nbody_tpu_torch/ops/morton.py) and the fused path's sizing
+heuristics against the JAX package on the same Morton-sorted bodies."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,8 +10,8 @@ import torch
 from nbody_tpu.ops import barneshut as jb
 from nbody_tpu.ops import bh_fused as jf
 from nbody_tpu.ops import bh_grid as jg
-from nbody_tpu_torch.ops import barneshut as tb
 from nbody_tpu_torch.ops import bh_fused as tf
+from nbody_tpu_torch.ops import bh_persistent as tp
 from nbody_tpu_torch.ops import bh_grid as tg
 from nbody_tpu_torch.ops import morton as tm
 
@@ -61,23 +61,25 @@ def test_grid_offsets_match_jax():
 ])
 def test_groups_match_jax(n, b, sl, keep):
     """group_bodies and compact_groups, exactly; `keep` > 0 trims occupied
-    groups, which compact_groups must count."""
+    groups, which compact_groups must count.  The persistent layout sizes
+    its groups by the same rule."""
     _, _, keys_s = _sorted_bodies(n, seed=n)
     jgroups = jb.group_bodies(jnp.asarray(keys_s), n, DEPTH, b, sl)
-    tgroups = tb.group_bodies(torch.as_tensor(keys_s), n, DEPTH, b, sl)
+    tgroups = tm.group_bodies(torch.as_tensor(keys_s), n, DEPTH, b, sl)
     for g, w in zip(tgroups, jgroups):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     keep = keep or tgroups[0].shape[0]
     jc = jb.compact_groups(*jgroups, keep)
-    tc = tb.compact_groups(*tgroups, keep)
+    tc = tm.compact_groups(*tgroups, keep)
     for g, w in zip(tc, jc):
         np.testing.assert_array_equal(np.asarray(g.numpy()), np.asarray(w))
     # the fused path carries no slot arrays
-    ranges = tb.compact_groups(tgroups[0], tgroups[1], None, None, keep)
+    ranges = tm.compact_groups(tgroups[0], tgroups[1], None, None, keep)
     assert ranges[2] is None and ranges[3] is None
     np.testing.assert_array_equal(ranges[1].numpy(), np.asarray(jc[1]))
     if keep < tgroups[0].shape[0]:
         assert int(tc[4]) > 0
+    assert tp._layout(n, b)[3] == tm.group_capacity(n, b, tm.auto_split_level(n, b))
 
 
 @pytest.mark.parametrize("n", [1, 16, 17, 100, 1000, 32_769, 100_000,
@@ -90,7 +92,7 @@ def test_auto_ld_matches_jax(n):
                                  (100_000, 1024), (1_000_000, 1024),
                                  (10_000_000, 1024), (1_000_000, 256)])
 def test_auto_split_level_matches_jax(n, b):
-    assert tf.auto_split_level(n, b) == jf.auto_split_level(n, b)
+    assert tm.auto_split_level(n, b) == jf.auto_split_level(n, b)
 
 
 def test_auto_ld_bounds_of_the_jax_tests():

@@ -20,6 +20,7 @@ from conftest import random_cloud
 from nbody_tpu.ops import barneshut as jb
 from nbody_tpu.ops import bh_traverse as jt
 from nbody_tpu.ops import bh_traverse_flat as jtf
+from nbody_tpu_torch.core.capacity import CapacityError
 from nbody_tpu_torch.ops import barneshut as tb
 from nbody_tpu_torch.ops import cuda_lists
 from nbody_tpu_torch.ops.bh_traverse import traverse
@@ -136,7 +137,7 @@ def test_eval_lists_reference_matches_jnp(jax_run, name):
     wrapper = cuda_lists.eval_lists if name == "f32" else cuda_lists.eval_lists_f64
     got = wrapper(_t(pg), lists, _t(flat[1]), eps2=EPS2)
     assert cuda_lists.eval_lists.launches + cuda_lists.eval_lists_f64.launches == before
-    np.testing.assert_array_equal(got.numpy(), tb.eval_lists_reference(
+    np.testing.assert_array_equal(got.numpy(), cuda_lists.eval_lists_reference(
         _t(pg), lists, eps2=EPS2).numpy())  # CPU tensors: the plain version
     scale = np.abs(want).max()
     if name == "f32":
@@ -207,7 +208,7 @@ def test_capacity_overflow_detected():
     message names the list size that fits, and that size passes."""
     arr = random_cloud(1000, seed=23)
     pos, mass = _t(arr[:, :3], torch.float32), _t(arr[:, 6], torch.float32)
-    with pytest.raises(tb.CapacityError, match="capacity overflow") as e:
+    with pytest.raises(CapacityError, match="capacity overflow") as e:
         tb.check_capacities(pos, mass, depth=8, group_size=64, list_size=128)
     need = int(str(e.value).split("--bh-list-size ")[1].split()[0])
     assert need > 128

@@ -351,7 +351,7 @@ def test_backend_routing_list_path(backend, dtype, traversal):
     assert force.keywords["list_size"] == 512
     kernels = {"f32": cuda_lists.eval_lists, "f64": cuda_lists.eval_lists_f64}
     assert force.keywords["group_forces"] is (
-        kernels[dtype] if backend == "cuda" else barneshut.eval_lists_reference)
+        kernels[dtype] if backend == "cuda" else cuda_lists.eval_lists_reference)
 
 
 @pytest.mark.parametrize("traversal", ["flat", "padded", "auto"])

@@ -1,6 +1,7 @@
-"""The port's inelastic merging (nbody_tpu_torch/ops/collisions.py) held
-against the JAX package's jnp ``merge_pass`` and ``simulate_merging``, and
-twins of tests/test_collisions.py."""
+"""The port's inelastic merging (nbody_tpu_torch/ops/collisions.py, and
+its stepping loop in nbody_tpu_torch/integrate/leapfrog.py) held against
+the JAX package's jnp ``merge_pass`` and ``simulate_merging``, and twins
+of tests/test_collisions.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +12,7 @@ from nbody_tpu.core.types import Bodies as JBodies
 from nbody_tpu.ops import collisions as jc
 from nbody_tpu.ops.exhaustive import exhaustive_accelerations as jax_exhaustive
 from nbody_tpu_torch.core.types import Bodies
-from nbody_tpu_torch.integrate.leapfrog import leapfrog_steps, simulate
+from nbody_tpu_torch.integrate.leapfrog import leapfrog_steps, simulate, simulate_merging
 from nbody_tpu_torch.ops import collisions as tc
 from nbody_tpu_torch.ops.exhaustive import exhaustive_accelerations
 
@@ -142,7 +143,7 @@ def test_simulate_merging_matches_jax_head_on():
     tforce, jforce = _force_pair()
     jout, _, jn = jc.simulate_merging(JBodies(*map(jnp.asarray, (pos, vel, mass))), 200,
                                       0.01, jforce, radius=0.2, merge_every=1)
-    out, _, nm, hist = tc.simulate_merging(Bodies(*_t(pos, vel, mass)), 200, 0.01, tforce,
+    out, _, nm, hist = simulate_merging(Bodies(*_t(pos, vel, mass)), 200, 0.01, tforce,
                                            radius=0.2, merge_every=1, with_history=True)
     assert nm == int(jn) == 1 and hist.shape == (200, 2, 3)
     assert np.array_equal(out.mass.numpy(), np.asarray(jout.mass))
@@ -159,7 +160,7 @@ def test_no_merge_is_plain_leapfrog_bit_for_bit():
                    rng.uniform(0.1, 1, 64).astype(np.float32)))
     tforce, _ = _force_pair()
     want, _ = leapfrog_steps(b, 20, 1e-3, tforce)
-    got, _, nm = tc.simulate_merging(b, 20, 1e-3, tforce, radius=1e-9, merge_every=4)
+    got, _, nm = simulate_merging(b, 20, 1e-3, tforce, radius=1e-9, merge_every=4)
     assert nm == 0 and torch.equal(want.pos, got.pos) and torch.equal(want.vel, got.vel)
 
 

@@ -11,18 +11,17 @@ import pytest
 import torch
 
 from nbody_tpu_torch.cli.main import PE_KERNEL_MIN_N, main
-from nbody_tpu_torch.diag.energy import (
-    cuda_potential_energy,
-    get_energy,
-    potential_energy_reference,
-)
+from nbody_tpu_torch.core.capacity import CapacityError
+from nbody_tpu_torch.diag.energy import get_energy
 from nbody_tpu_torch.io.csv import read_trajectory
 from nbody_tpu_torch.ops import _cuda, barneshut, bh_fused, bh_fused_df, cuda_lists
 from nbody_tpu_torch.ops.cuda_exhaustive import (
     cuda_accelerations,
+    cuda_potential_energy,
     cuda_rect_accelerations,
     cuda_rect_accelerations_mxu,
     k1_split,
+    potential_energy_reference,
     rect_accelerations_mxu_reference,
     rect_accelerations_reference,
 )
@@ -211,7 +210,7 @@ def test_bh_fused_against_exact_forces(dev):
 
 def test_bh_fused_frontier_overflow_on_the_card(dev):
     pos, mass = _cloud(2000, dev, seed=21)
-    with pytest.raises(bh_fused.CapacityError, match="--bh-frontier-cap"):
+    with pytest.raises(CapacityError, match="--bh-frontier-cap"):
         bh_fused.check_fused(pos, mass, group_size=64, ld=4, leaf_cap=1,
                              frontier_cap=128)
 
@@ -431,7 +430,7 @@ def test_group_lists_kernel_matches_plain(dev, dtype):
     got = wrapper(gl.pg, gl.lists, gl.lengths, eps2=0.01)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
-    want = barneshut.eval_lists_reference(gl.pg, gl.lists, gl.lengths, eps2=0.01)
+    want = cuda_lists.eval_lists_reference(gl.pg, gl.lists, gl.lengths, eps2=0.01)
     if dtype == torch.float32:
         _assert_f32_close(got, want)
     else:
@@ -458,7 +457,7 @@ def test_group_lists_f64_kernel_split(dev, dtype, split):
     got = wrapper(gl.pg, gl.lists, gl.lengths, eps2=0.01, _split=split)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
-    want = barneshut.eval_lists_reference(gl.pg, gl.lists, gl.lengths, eps2=0.01)
+    want = cuda_lists.eval_lists_reference(gl.pg, gl.lists, gl.lengths, eps2=0.01)
     if dtype == torch.float32:
         _assert_f32_close(got, want)
     else:

@@ -9,10 +9,9 @@ import torch
 import oracle
 from conftest import random_cloud
 from nbody_tpu.diag import energy as jax_energy
-from nbody_tpu_torch.diag.energy import (
+from nbody_tpu_torch.diag.energy import energy_drift, get_energy
+from nbody_tpu_torch.ops.cuda_exhaustive import (
     cuda_potential_energy,
-    energy_drift,
-    get_energy,
     potential_energy_reference,
 )
 

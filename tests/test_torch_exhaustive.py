@@ -184,16 +184,6 @@ def test_kernel_twin_matches_pallas_interpret():
     assert cuda_rect_accelerations.launches == before  # no kernel on the CPU
 
 
-def test_pair_kernels_profiler_needs_a_card(monkeypatch, capsys):
-    """The K1 and K7 timer times the card and nothing else: with no card
-    it exits 1 and says why."""
-    from nbody_tpu_torch.diag import pair_kernels
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert pair_kernels.main(["--splits"]) == 1
-    assert "no CUDA device" in capsys.readouterr().err
-
-
 def test_sass_hot_loop_is_the_unrolled_body():
     """diag.sass takes cuobjdump's listing apart: the hot loop is the
     innermost loop with the most rsqrts (an unrolled body, not its

@@ -36,8 +36,7 @@ from nbody_tpu_torch.cli.main import main
 from nbody_tpu_torch.core import capacity
 from nbody_tpu_torch.core.types import Bodies
 from nbody_tpu_torch.io.csv import read_bodies, read_trajectory
-from nbody_tpu_torch.ops import bh_fused, bh_fused_df, cuda_fp64
-from nbody_tpu_torch.ops.barneshut import CapacityError, group_capacity
+from nbody_tpu_torch.ops import bh_fused, bh_fused_df, cuda_fp64, morton
 from nbody_tpu_torch.utils.fixtures import write_fixture
 
 
@@ -278,14 +277,14 @@ def test_df_capacity_estimate_is_doubled(monkeypatch):
     """f64 sources and tables carry twice the f32 bytes (bh_fused_df.py:
     146-149): a budget 1.5x the f32 estimate admits f32 and refuses f64."""
     n, b, ld, keep = 2000, 64, 3, 100
-    keep = min(keep, group_capacity(n, b, bh_fused.auto_split_level(n, b)))
+    keep = min(keep, morton.group_capacity(n, b, morton.auto_split_level(n, b)))
     est = capacity.estimate_fused_bytes(n, b, keep, ld)["total"]
     monkeypatch.setenv("NBODY_HBM_BYTES", str(int(1.5 * est / capacity.BUDGET_FRAC)))
     arr = random_cloud(n, seed=2)
     kw = dict(ld=ld, group_size=b, keep_groups=keep)
     bh_fused.prepare_fused(_t(arr[:, :3], torch.float32), _t(arr[:, 6], torch.float32),
                            **kw)
-    with pytest.raises(CapacityError, match="fused Barnes-Hut"):
+    with pytest.raises(capacity.CapacityError, match="fused Barnes-Hut"):
         bh_fused.prepare_fused(_t(arr[:, :3]), _t(arr[:, 6]), **kw)
 
 

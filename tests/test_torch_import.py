@@ -1,10 +1,13 @@
 """The PyTorch port imports without jax, triton or the JAX package,
-importing it builds no kernel, and it opens no file of the JAX package."""
+importing it builds no kernel, it opens no file of the JAX package, and
+its modules import one another in one direction."""
 
 import ast
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD = os.path.join(REPO, "nbody_tpu_torch", "_build")
@@ -46,9 +49,8 @@ def test_every_module_imports_clean_and_builds_nothing():
         "nbody_tpu_torch.ops.bh_tree, nbody_tpu_torch.ops.bh_traverse, "
         "nbody_tpu_torch.ops.bh_traverse_flat, nbody_tpu_torch.ops.cuda_lists, "
         "nbody_tpu_torch.diag.treedump, nbody_tpu_torch.ops.bh_autold, "
-        "nbody_tpu_torch.diag.fused_stages, nbody_tpu_torch.diag.fp64_kernels, "
-        "nbody_tpu_torch.diag.pair_kernels, nbody_tpu_torch.diag.pe_kernels, "
-        "nbody_tpu_torch.diag.sass, nbody_tpu_torch.ops.bh_persistent, "
+        "nbody_tpu_torch.diag.fused_stages, nbody_tpu_torch.diag.sass, "
+        "nbody_tpu_torch.ops.bh_persistent, "
         "nbody_tpu_torch.diag.timing, nbody_tpu_torch.diag.bh_phases, "
         "nbody_tpu_torch.io.checkpoint, nbody_tpu_torch.ops.collisions, "
         "nbody_tpu_torch.integrate.adaptive, "
@@ -113,3 +115,91 @@ def test_a_run_opens_no_file_of_the_jax_package(tmp_path):
         "assert any(p.endswith('fastcsv.cpp') for p in seen) or any('fastcsv-' in p for p in seen)\n"
     )
     _run(code)
+
+
+def _package_imports() -> dict:
+    """{module: the package's modules it imports}, over every module of
+    nbody_tpu_torch/ and every import in it, function-local ones too; a
+    name imported from a package counts as that module where it is one."""
+    root = os.path.join(REPO, "nbody_tpu_torch")
+    files = {}
+    for d, _, fs in os.walk(root):
+        for f in fs:
+            if f.endswith(".py"):
+                path = os.path.join(d, f)
+                name = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+                files[name.removesuffix(".__init__")] = path
+    graph = {}
+    for mod, path in files.items():
+        pkg = mod if path.endswith("__init__.py") else mod.rpartition(".")[0]
+        found = set()
+        for node in ast.walk(ast.parse(open(path).read())):
+            if isinstance(node, ast.Import):
+                found.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                base = node.module or ""
+                if node.level:
+                    parts = pkg.split(".")[:len(pkg.split(".")) - node.level + 1]
+                    base = ".".join(parts + ([base] if base else []))
+                found.update(f"{base}.{a.name}" if f"{base}.{a.name}" in files else base
+                             for a in node.names)
+        graph[mod] = {m for m in found if m in files and m != mod}
+    return graph
+
+
+def _layer(mod: str) -> str:
+    return mod.split(".")[1] if mod.count(".") else ""
+
+
+def _against(graph, layer: str, above: set, allowed: set) -> list:
+    """The edges from `layer`'s modules into the layers `above`, less the
+    `allowed` ones (module or (module, module) pairs)."""
+    return sorted((m, t) for m, ts in graph.items() if _layer(m) == layer for t in ts
+                  if _layer(t) in above and t not in allowed and (m, t) not in allowed)
+
+
+def _cycle(graph) -> list:
+    """A cycle of the graph as a list of modules, or [] if it has none."""
+    state, stack = {}, []
+
+    def visit(m):
+        state[m] = 1
+        stack.append(m)
+        for t in sorted(graph[m]):
+            if state.get(t) == 1:
+                return stack[stack.index(t):] + [t]
+            if t not in state and (found := visit(t)):
+                return found
+        state[m] = 2
+        stack.pop()
+        return []
+
+    for m in sorted(graph):
+        if m not in state and (found := visit(m)):
+            return found
+    return []
+
+
+P = "nbody_tpu_torch."
+RULES = {
+    # the lowest layer decides; it needs no force engine, integrator or report
+    "core imports only core and diag.timing": lambda g: _against(
+        g, "core", {"ops", "integrate", "cli", "diag"}, {P + "diag.timing"}),
+    # one named edge against the layering: the persistent layout's integrator
+    "ops imports no integrate, cli or diag but diag.timing": lambda g: _against(
+        g, "ops", {"integrate", "cli", "diag"},
+        {P + "diag.timing", (P + "ops.bh_persistent", P + "integrate.adaptive")}),
+    # the group rule lives in ops.morton, not in the list path
+    "the fused paths do not import the list path": lambda g: sorted(
+        P + m for m in ("ops.bh_fused", "ops.bh_fused_df", "ops.bh_persistent")
+        if P + "ops.barneshut" in g[P + m]),
+    "no import cycle": _cycle,
+}
+
+
+@pytest.mark.parametrize("rule", sorted(RULES))
+def test_package_import_layering(rule):
+    """The port's modules import one another one way: core, then ops, then
+    integrate, with diag and cli on top; each case one rule."""
+    assert RULES[rule](_package_imports()) == []
+

@@ -17,9 +17,9 @@ import torch
 from nbody_tpu.ops import bh_fused as jf
 from nbody_tpu.ops import bh_grid as jg
 from nbody_tpu.ops import bh_persistent as jp
+from nbody_tpu_torch.core.capacity import CapacityError
 from nbody_tpu_torch.ops import bh_grid as tg
 from nbody_tpu_torch.ops import bh_persistent as tp
-from nbody_tpu_torch.ops.barneshut import CapacityError
 from nbody_tpu_torch.ops.bh_fused import S_FAR, S_NEAR, S_POPS
 from tests.oracle import accel_exhaustive_f64
 
@@ -400,7 +400,7 @@ def test_persistent_merging_matches_one_shot():
     same merges (masses equal to the bit), positions within 1e-3,
     velocities within 2e-3; checkpoints carry the running masses."""
     from nbody_tpu_torch.core.types import Bodies
-    from nbody_tpu_torch.ops.collisions import simulate_merging
+    from nbody_tpu_torch.integrate.leapfrog import simulate_merging
     from nbody_tpu_torch.ops.exhaustive import direct_accelerations
 
     pos, vel, mass = _t(*_merge_cloud(400))

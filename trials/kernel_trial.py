@@ -50,16 +50,16 @@ import torch
 
 from nbody_tpu_torch.diag import fused_stages as fs
 from nbody_tpu_torch.diag import sass as sa
-from nbody_tpu_torch.diag.fp64_kernels import CSV_100K
-from nbody_tpu_torch.diag.pair_kernels import lists_1m
 from nbody_tpu_torch.io.csv import read_bodies
-from nbody_tpu_torch.ops import _cuda, barneshut
+from nbody_tpu_torch.ops import _cuda, barneshut, cuda_lists
 from nbody_tpu_torch.ops.cuda_exhaustive import (
     rect_accelerations_mxu_reference,
     rect_accelerations_reference,
 )
+from nbody_tpu_torch.utils.fixtures import random_cloud
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+CSV_100K = os.path.join(os.path.dirname(HERE), "tests", "data", "100k_bodies.csv")
 TRIAL_DIR = os.path.join(_cuda.BUILD_DIR, "trial")
 SPLITS = (1, 2, 4, 8)
 OFFSET = (8.0, -8.0, 8.0)
@@ -82,6 +82,18 @@ BUILDS = [
     ("K2 wgmma", "wgmma", "here", "allpairs_wgmma.cu", {}),
     ("TF32 probe", "probe", "here", "tf32_probe.cu", {}),
 ]
+
+
+def lists_1m(device, dtype):
+    """The flat traversal's group lists of the 1M uniform cloud in `dtype`,
+    rebuilt with the list size it needs where the default is short."""
+    c = torch.as_tensor(random_cloud(1_000_000, seed=0), dtype=dtype, device=device)
+    pos, mass = c[:, :3].contiguous(), c[:, 6].contiguous()
+    gl = barneshut.group_lists(pos, mass)
+    need = int(gl.stats[0])
+    if need > gl.lists.shape[1]:
+        gl = barneshut.group_lists(pos, mass, list_size=need)
+    return gl
 
 
 def variant(path: str, consts: dict) -> str:
@@ -212,7 +224,7 @@ def main(argv: list[str] | None = None) -> int:
         return err, out
 
     for name, gl in inputs.items():
-        want = barneshut.eval_lists_reference(gl.pg, gl.lists, gl.lengths, eps2=0.01)
+        want = cuda_lists.eval_lists_reference(gl.pg, gl.lists, gl.lengths, eps2=0.01)
         scale = want.abs().max().item()
         g, b, _ = gl.pg.shape
         print(f"K7 f32 on the {name} lists: {g} group slots, B {b}, M {gl.lists.shape[1]}",
