@@ -13,7 +13,8 @@ report gives the pair whose phases' sum over its whole call is the
 median, and that ratio.  The JAX package fences each phase on its own
 instead; on the card that charges every phase its own launches, without
 the overlap of one phase's launches with the previous phase's device
-work.
+work.  The fused set-up's phases are the stages of its ``FusedSetup``
+(on the card their CUDA graphs' replays), as in the whole call.
 
 Used by ``nbody_tpu_torch --timers`` (one report before the run).
 """
@@ -72,21 +73,23 @@ def fused_phase_times(pos, mass, *, G, softening_sq, theta, group_size=1024, lea
     heaviest-first launch; or `group_forces`, its plain version), scatter,
     and the whole call."""
     from nbody_tpu_torch.ops import bh_fused as bf
-    from nbody_tpu_torch.ops.bh_grid import build_grid
 
     group_forces = group_forces or bf.fused_group_forces
     ld = bf.auto_ld(pos.shape[0])
     x = {}
+    setup = bf.fused_setup(pos, mass, G=G, ld=ld, group_size=group_size)
 
     def sort():
-        x["perm"], x["pos"], x["gm"], x["keys"], x["border"] = bf.sort_bodies(pos, mass, G=G)
+        setup.stage(0, pos, mass)
 
     def grid():
-        x["tree"] = build_grid(x["pos"], x["gm"], x["keys"], bf.MORTON_DEPTH, ld)
+        setup.stage(1)
 
     def group():
-        x["groups"] = bf.group_inputs(x["pos"], x["gm"], x["keys"], x["border"], ld=ld,
-                                      group_size=group_size)
+        setup.stage(2)
+        fi = setup.inputs()
+        x["perm"], x["tree"] = fi.perm, fi.tree
+        x["groups"] = (fi.gstart, fi.gcount, fi.src, fi.bsq, fi.trimmed)
 
     def kernel():
         gstart, gcount, src, bsq, _ = x["groups"]

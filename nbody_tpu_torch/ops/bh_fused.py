@@ -542,20 +542,159 @@ def prepare_fused(
     """Morton sort, dense grid and Morton groups for `pos`/`mass`
     (``nbody_tpu/ops/bh_fused.py:1272-1327``), in f32, or for f64 bodies
     in f64 (the df mode, ``nbody_tpu/ops/bh_fused_df.py:121-178``); bsq is
-    f32 in both, as the MAC is.  Checks the predicted device residency
-    against the budget (doubled in f64, as ``bh_fused_df.py:146-149``).
-    No host sync but the budget's query of the free memory.  The three
-    stages are ``sort_bodies``, ``build_grid`` and ``group_inputs``."""
+    f32 in both, as the MAC is.  The three stages are ``sort_bodies``,
+    ``build_grid`` and ``group_inputs`` (``FusedSetup``), sized by
+    ``layout_sizing``, which raises CapacityError before any work when the
+    layout would not fit.
+
+    On the card the stages replay from CUDA graphs captured, and the budget
+    is read, once a layout (``fused_setup``; ``prepare_fused.captures`` and
+    ``.replays`` count both), so a layout's later set-ups do not sync.  The
+    outputs then live in the graphs' memory and the next set-up of the
+    same layout overwrites them: a caller uses them before its next set-up
+    and copies what it keeps.  Off the card the stages run eagerly, sized
+    anew at every call."""
     ld = ld or auto_ld(pos.shape[0])
-    with span("bh.sort"):
-        perm, pos_s, gm_s, keys_s, border = sort_bodies(pos, mass, G=G, border=border)
-    with span("bh.grid"):
-        tree = build_grid(pos_s, gm_s, keys_s, MORTON_DEPTH, ld)
-    with span("bh.groups"):
-        gstart, gcount, src, bsq, trimmed = group_inputs(
-            pos_s, gm_s, keys_s, border, ld=ld, group_size=group_size,
-            keep_groups=keep_groups)
-    return FusedInputs(perm, tree, gstart, gcount, src, bsq, ld, group_size, trimmed)
+    return fused_setup(pos, mass, border, G=G, ld=ld, group_size=group_size,
+                       keep_groups=keep_groups).run(pos, mass, border)
+
+
+def fused_setup(pos, mass, border=None, *, G: float, ld: int, group_size: int,
+                keep_groups: int = 0) -> "FusedSetup":
+    """The set-up of the layout of `pos`/`mass`: off the card a new
+    ``FusedSetup``; on the card the one kept for the layout (its device, n,
+    dtypes, whether `border` is given, G, `ld`, `group_size` and
+    `keep_groups`), sized and captured under ``bh.setup.capture`` when the
+    layout is first seen.  On the card counts the capture in
+    ``prepare_fused.captures``, else a replay in ``.replays``."""
+    layout = dict(G=G, ld=ld, group_size=group_size, keep_groups=keep_groups)
+    if pos.device.type != "cuda":
+        return FusedSetup(pos, mass, border, **layout)
+    # G enters the graphs as a constant of the sort's multiply
+    key = (pos.device, pos.shape[0], pos.dtype, mass.dtype,
+           None if border is None else border.dtype, *layout.values())
+    setup = _SETUPS.get(key)
+    if setup is None:
+        with span("bh.setup.capture"):
+            setup = _SETUPS[key] = FusedSetup(pos, mass, border, **layout)
+            # the capture has synchronized the device, so the oldest layout's
+            # graphs are idle and may go
+            if len(_SETUPS) > SETUP_GRAPH_LAYOUTS:
+                del _SETUPS[next(iter(_SETUPS))]
+        prepare_fused.captures += 1
+    else:
+        prepare_fused.replays += 1
+    return setup
+
+
+prepare_fused.captures = 0
+prepare_fused.replays = 0
+
+# layouts whose set-up graphs a process keeps (each holds ~128 B a body on
+# the card); a run uses one, and past these the oldest goes
+SETUP_GRAPH_LAYOUTS = 4
+_SETUPS: dict = {}
+
+
+def layout_sizing(n: int, group_size: int, ld: int, keep_groups: int, f64: bool,
+                  device: torch.device) -> tuple[int, int]:
+    """(split level, group slots) of the fused layout of `n` bodies in
+    groups of `group_size` on a grid of depth `ld`: the slots are
+    `keep_groups` or the budget's margin (``capacity.auto_keep``), with the
+    budget read from the free device memory, which the card does once a
+    layout, as the reference sizes its pool once at start-up
+    (cuda/barnes-hut.cu:886-890).  Raises CapacityError, with its GiB
+    numbers, when the predicted residency (doubled for `f64` bodies, as
+    ``bh_fused_df.py:146-149``) exceeds the budget."""
+    split_level = auto_split_level(n, group_size)
+    g_max = group_capacity(n, group_size, split_level, MORTON_DEPTH)
+    budget = capacity.budget_bytes(device)
+    keep = min(keep_groups or capacity.auto_keep(n, group_size, g_max, budget), g_max)
+    est = capacity.estimate_fused_bytes(n, group_size, keep, ld)
+    if f64:  # f64 sources and tables: twice the f32 bytes
+        est = {k: 2 * v for k, v in est.items()}
+    if budget is not None:  # ensure_fits reads a budget of None again
+        capacity.ensure_fits(est, f"fused Barnes-Hut at n={n}", budget=budget)
+    return split_level, keep
+
+
+class FusedSetup:
+    """The one-shot set-up of one layout, sized once (``layout_sizing``):
+    three stages, the sort, the grid and the groups, run in that order.  On
+    the card they are CUDA graphs, captured here on one memory pool after
+    an eager warm-up on a side stream, as ``torch.cuda.graph`` asks
+    (nothing in them syncs: ``torch.segment_reduce`` runs `unsafe`,
+    unchecked); a run copies the caller's bodies (and border) into the
+    graphs' static inputs and replays them.  Off the card the stages run
+    eagerly on the caller's tensors."""
+
+    def __init__(self, pos, mass, border, *, G, ld, group_size, keep_groups):
+        self.G, self.ld, self.group_size = G, ld, group_size
+        self.split_level, self.keep = layout_sizing(
+            pos.shape[0], group_size, ld, keep_groups, pos.dtype == torch.float64,
+            pos.device)
+        self.graphs = None
+        if pos.device.type != "cuda":
+            return
+        static = torch.contiguous_format
+        self.pos, self.mass = pos.clone(memory_format=static), mass.clone(memory_format=static)
+        self.border = None if border is None else border.clone(memory_format=static)
+        with torch.cuda.device(pos.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for stage in self._STAGES:
+                    stage(self)
+            torch.cuda.current_stream().wait_stream(side)
+            graphs = [torch.cuda.CUDAGraph() for _ in self._STAGES]
+            for i, stage in enumerate(self._STAGES):
+                with torch.cuda.graph(graphs[i], pool=graphs[0].pool() if i else None):
+                    stage(self)
+        self.graphs = graphs
+
+    def _sort(self) -> None:
+        self.sorted = sort_bodies(self.pos, self.mass, G=self.G, border=self.border)
+
+    def _grid(self) -> None:
+        self.tree = build_grid(*self.sorted[1:4], MORTON_DEPTH, self.ld)
+
+    def _groups(self) -> None:
+        self.groups = group_inputs(*self.sorted[1:], ld=self.ld, group_size=self.group_size,
+                                   split_level=self.split_level, keep=self.keep)
+
+    _STAGES = (_sort, _grid, _groups)
+
+    def stage(self, i: int, pos=None, mass=None, border=None) -> None:
+        """Run stage `i` (0 the sort, 1 the grid, 2 the groups); the sort
+        takes `pos`, `mass` (and `border`).  On the card the sort first
+        copies them into the static inputs, and each stage replays its
+        graph."""
+        if self.graphs is None:
+            if i == 0:
+                self.pos, self.mass, self.border = pos, mass, border
+            self._STAGES[i](self)
+            return
+        with torch.cuda.device(self.pos.device):
+            if i == 0:
+                self.pos.copy_(pos)
+                self.mass.copy_(mass)
+                if border is not None:
+                    self.border.copy_(border)
+            self.graphs[i].replay()
+
+    def inputs(self) -> FusedInputs:
+        """The last run's outputs (on the card in the graphs' memory)."""
+        gstart, gcount, src, bsq, trimmed = self.groups
+        return FusedInputs(self.sorted[0], self.tree, gstart, gcount, src, bsq, self.ld,
+                           self.group_size, trimmed)
+
+    def run(self, pos, mass, border=None) -> FusedInputs:
+        """The layout of `pos`/`mass` (and `border`): the three stages, each
+        in its span."""
+        for i, name in enumerate(("bh.sort", "bh.grid", "bh.groups")):
+            with span(name):
+                self.stage(i, pos, mass, border)
+        return self.inputs()
 
 
 def sort_bodies(pos: torch.Tensor, mass: torch.Tensor, *, G: float = constants.BIG_G,
@@ -571,21 +710,13 @@ def sort_bodies(pos: torch.Tensor, mass: torch.Tensor, *, G: float = constants.B
 
 
 def group_inputs(pos_s, gm_s, keys_s, border, *, ld: int, group_size: int,
-                 keep_groups: int = 0):
+                 split_level: int, keep: int):
     """(gstart, gcount, src, bsq, trimmed): the Morton groups of the sorted
-    bodies, packed and cut to the device-memory budget's slot count (or
-    `keep_groups`), K6's source rows and the MAC's f32 bsq."""
+    bodies at `split_level`, packed and cut to `keep` slots (both from
+    ``layout_sizing``), K6's source rows and the MAC's f32 bsq.  No host
+    sync."""
     n, device = pos_s.shape[0], pos_s.device
-    b = group_size
-    sl = auto_split_level(n, b)
-    gstart, gcount = group_ranges(keys_s, n, MORTON_DEPTH, b, sl)
-    g_max = group_capacity(n, b, sl, MORTON_DEPTH)
-    budget = capacity.budget_bytes(device)
-    keep = min(keep_groups or capacity.auto_keep(n, b, g_max, budget), g_max)
-    est = capacity.estimate_fused_bytes(n, b, keep, ld)
-    if pos_s.dtype == torch.float64:  # f64 sources and tables: twice the f32 bytes
-        est = {k: 2 * v for k, v in est.items()}
-    capacity.ensure_fits(est, f"fused Barnes-Hut at n={n}", budget=budget)
+    gstart, gcount = group_ranges(keys_s, n, MORTON_DEPTH, group_size, split_level)
     gstart, gcount, _, _, trimmed = compact_groups(gstart, gcount, None, None, keep)
     src = torch.cat([pos_s, gm_s[:, None]], dim=1)
     lev = torch.arange(ld + 2, dtype=torch.float32, device=device)
@@ -645,14 +776,15 @@ def scatter_back(acc_s: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
 
 def summarize_stats(stats: torch.Tensor, trimmed: torch.Tensor) -> dict:
     """The JAX package's stats dict from the per-group lanes, as 0-dim
-    int64 tensors (no host sync)."""
+    int64 tensors (no host sync).  `trimmed` is copied: on the card it
+    lives in the set-up graphs' memory, which the next set-up overwrites."""
     s = stats.long()
     return {
         "pops": s[:, S_POPS].sum(),
         "staged_sources": s[:, S_SRC].sum(),
         "near_bodies": s[:, S_NEAR].sum(),
         "frontier_overflow": s[:, S_OVF].max(),
-        "trimmed_groups": trimmed,
+        "trimmed_groups": trimmed.clone(),
         "far_children": s[:, S_FAR].sum(),
     }
 
@@ -708,9 +840,7 @@ def check_fused(
             f"--bh-frontier-cap {need}"
         )
     if trimmed > 0:
-        keep = keep_groups or capacity.auto_keep(
-            pos.shape[0], group_size, 10**9, capacity.budget_bytes(pos.device)
-        )
+        keep = fi.gstart.shape[0]  # the slots the layout was sized to
         fixes.append(
             f"{trimmed} occupied groups trimmed: pass "
             f"--bh-keep-groups {keep + trimmed}"

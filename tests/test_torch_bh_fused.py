@@ -415,3 +415,71 @@ def test_capacity_budget(monkeypatch):
     n, b = 1_000_000, 1024
     assert capacity.auto_keep(n, b, 10**9, None) == 3 * (n // b) + 256
     assert capacity.auto_keep(n, b, 10**9, 1000) == capacity.occupied_groups_floor(n, b)
+    # a layout over the budget raises at its first set-up, and again at the
+    # next: a refused layout is not kept
+    monkeypatch.setenv("NBODY_HBM_BYTES", "4096")
+    pos, mass = _overflow_bodies()
+    for _ in range(2):
+        with pytest.raises(CapacityError, match=r"GiB of device memory.*NBODY_HBM_BYTES"):
+            tf.prepare_fused(pos, mass, group_size=64)
+
+
+def _count_budget_reads(monkeypatch) -> list:
+    """Patch ``capacity.budget_bytes`` to record each read; returns the
+    record."""
+    reads, budget_bytes = [], capacity.budget_bytes
+
+    def budget(device=None, frac=capacity.BUDGET_FRAC):
+        reads.append(device)
+        return budget_bytes(device, frac)
+
+    monkeypatch.setattr(capacity, "budget_bytes", budget)
+    return reads
+
+
+def test_cpu_set_up_sizes_every_call(monkeypatch):
+    """Off the card every set-up sizes its layout anew: two set-ups of one
+    layout read the budget twice, and a budget set between them (here one
+    too small for the layout) holds at once."""
+    reads = _count_budget_reads(monkeypatch)
+    pos, mass = _overflow_bodies()
+    first = tf.prepare_fused(pos, mass, group_size=64)
+    again = tf.prepare_fused(pos, mass, group_size=64)
+    assert len(reads) == 2
+    assert torch.equal(first.gcount, again.gcount) and torch.equal(first.perm, again.perm)
+    monkeypatch.setenv("NBODY_HBM_BYTES", "4096")
+    with pytest.raises(CapacityError, match=r"GiB of device memory"):
+        tf.prepare_fused(pos, mass, group_size=64)
+
+
+def test_check_fused_prescribes_keep_from_the_slots_it_used(monkeypatch):
+    """Under a budget (NBODY_HBM_BYTES) that admits the layout, a probe
+    whose groups are trimmed reads the budget once, to size the layout, and
+    prescribes the slots that layout used plus the trimmed groups: a value
+    with which the probe passes."""
+    monkeypatch.setenv("NBODY_HBM_BYTES", str(2**30))
+    reads = _count_budget_reads(monkeypatch)
+    pos, mass = _overflow_bodies()
+    kw = dict(G=G, softening_sq=EPS2, theta=THETA, group_size=64)
+    want = tf.barneshut_fused(pos, mass, keep_groups=4, return_stats=True,
+                              group_forces=tf.fused_group_forces_reference, **kw)[1]
+    trimmed = int(want["trimmed_groups"])
+    assert trimmed > 0
+    del reads[:]
+    with pytest.raises(CapacityError, match="occupied groups trimmed") as e:
+        tf.check_fused(pos, mass, keep_groups=4, **kw)
+    assert len(reads) == 1
+    keep = int(str(e.value).split("--bh-keep-groups ")[1].split()[0])
+    assert keep == 4 + trimmed
+    assert int(tf.check_fused(pos, mass, keep_groups=keep, **kw)["trimmed_groups"]) == 0
+
+
+def test_cpu_set_up_never_captures():
+    """Off the card the set-up runs its stages eagerly: no graph is
+    captured or replayed, in the probe or in an evaluation."""
+    before = (tf.prepare_fused.captures, tf.prepare_fused.replays)
+    pos, mass = _overflow_bodies()
+    tf.check_fused(pos[:600], mass[:600], group_size=64)
+    tf.barneshut_fused(pos[:600], mass[:600], group_size=64,
+                       group_forces=tf.fused_group_forces_reference)
+    assert (tf.prepare_fused.captures, tf.prepare_fused.replays) == before

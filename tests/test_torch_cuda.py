@@ -15,6 +15,7 @@ from nbody_tpu_torch.core.capacity import CapacityError
 from nbody_tpu_torch.diag.energy import get_energy
 from nbody_tpu_torch.io.csv import read_trajectory
 from nbody_tpu_torch.ops import _cuda, barneshut, bh_fused, bh_fused_df, cuda_lists
+from nbody_tpu_torch.ops.bh_grid import build_grid
 from nbody_tpu_torch.ops.cuda_exhaustive import (
     cuda_accelerations,
     cuda_potential_energy,
@@ -283,6 +284,153 @@ def test_bh1m_job_is_bit_equal_after_a_pricing_probe(dev):
 
     priced, evaluated = job(bh_fused.check_fused), job(full_probe)
     assert torch.equal(priced[0], evaluated[0]) and torch.equal(priced[1], evaluated[1])
+
+
+def _bits(t):
+    """`t` with its floats read as integers of their width, so that equal
+    means equal to the bit."""
+    return {torch.float32: lambda: t.view(torch.int32),
+            torch.float64: lambda: t.view(torch.int64)}.get(t.dtype, lambda: t)()
+
+
+def _eager_layout(pos, mass, ld, border=None):
+    """Every output of the one-shot set-up, its three stages run eagerly on
+    the card: perm, the sorted positions, G·m, keys, the border, the six
+    grid tables, gstart, gcount, src, bsq and trimmed."""
+    split_level, keep = bh_fused.layout_sizing(pos.shape[0], 1024, ld, 0,
+                                               pos.dtype == torch.float64, pos.device)
+    sorted_ = bh_fused.sort_bodies(pos, mass, G=1.0, border=border)
+    tree = build_grid(*sorted_[1:4], bh_fused.MORTON_DEPTH, ld)
+    groups = bh_fused.group_inputs(*sorted_[1:], ld=ld, group_size=1024,
+                                   split_level=split_level, keep=keep)
+    return [*sorted_, *tree, *groups]
+
+
+def _replayed_layout(pos, mass, ld, border=None):
+    """The same outputs from ``prepare_fused`` (its set-up graphs), copied
+    out of the graphs' memory."""
+    fi = bh_fused.prepare_fused(pos, mass, G=1.0, ld=ld, border=border)
+    (setup,) = [s for s in bh_fused._SETUPS.values() if s.tree is fi.tree]
+    assert setup.graphs is not None and torch.equal(setup.sorted[0], fi.perm)
+    return [t.clone() for t in (*setup.sorted, *fi.tree, fi.gstart, fi.gcount, fi.src,
+                                fi.bsq, fi.trimmed)]
+
+
+def _assert_bit_equal(got, want):
+    assert len(got) == len(want) == 16
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        assert torch.equal(_bits(a), _bits(b)), i
+
+
+def _setup_case(case, dev):
+    """(pos, mass, ld, border) of a set-up test case: the bh-1m input, a
+    clustered Plummer sphere, the bh-1m input in f64, and the robust box of
+    a Plummer sphere with escapers at ld 8."""
+    if case == "robust":
+        pos, mass, _ = _plummer_with_escapers(1_000_000, dev)
+        t = bh_fused.robust_tree(pos, mass, ld=8)
+        return t.rel, t.mass, t.ld, t.border
+    if case == "clustered":
+        arr = plummer_cloud(300_000, seed=4)
+        pos = torch.as_tensor(arr[:, :3], dtype=torch.float32, device=dev)
+        mass = torch.as_tensor(arr[:, 6], dtype=torch.float32, device=dev)
+    else:
+        pos, _, mass = _bh1m_input(dev)
+        if case == "f64":
+            pos, mass = pos.double(), mass.double()
+    return pos, mass, bh_fused.auto_ld(pos.shape[0]), None
+
+
+@pytest.mark.parametrize("case", ["uniform1m", "clustered", "f64", "robust"])
+def test_bh_setup_replay_is_bit_equal_to_eager(dev, case):
+    """The set-up replayed from its CUDA graphs gives the eager stages'
+    outputs to the bit, at the capture and at a later replay."""
+    pos, mass, ld, border = _setup_case(case, dev)
+    want = _eager_layout(pos, mass, ld, border)
+    _assert_bit_equal(_replayed_layout(pos, mass, ld, border), want)
+    _assert_bit_equal(_replayed_layout(pos, mass, ld, border), want)
+
+
+@pytest.mark.parametrize("bordered", [False, True], ids=["cube", "border"])
+def test_bh_setup_replays_give_each_input_its_own_layout(dev, bordered):
+    """Two inputs of one layout, replayed back to back and then again: each
+    replay gives its own input's layout, none a stale one."""
+    inputs = []
+    for seed in (2**31 + 3, 2**31 + 5):
+        pos, _, mass = _bh1m_input(dev, seed)
+        inputs.append((pos, mass, 2.5 * pos.abs().max() if bordered else None))
+    ld = bh_fused.auto_ld(10**6)
+    want = [_eager_layout(p, m, ld, b) for p, m, b in inputs]
+    assert not torch.equal(want[0][0], want[1][0])
+    for i in (0, 1, 0, 1):
+        _assert_bit_equal(_replayed_layout(*inputs[i][:2], ld, inputs[i][2]), want[i])
+
+
+def test_bh_setup_replay_does_not_sync(dev, monkeypatch):
+    """After a layout's first set-up, its replay neither syncs nor asks the
+    runtime for the free memory; a layout of another n reads it again."""
+    pos, mass = _cloud(200_000, dev, seed=9)
+    ld = bh_fused.auto_ld(200_000)
+    bh_fused.prepare_fused(pos, mass, G=1.0, ld=ld)
+    want = _eager_layout(pos, mass, ld)
+
+    def no_query(*args, **kw):
+        raise AssertionError("the budget was read again")
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", no_query)
+    before = bh_fused.prepare_fused.replays
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fi = bh_fused.prepare_fused(pos, mass, G=1.0, ld=ld)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bh_fused.prepare_fused.replays == before + 1
+    assert torch.equal(fi.perm, want[0]) and torch.equal(fi.src, want[13])
+    with pytest.raises(AssertionError, match="the budget was read again"):
+        bh_fused.prepare_fused(pos[:-1], mass[:-1], G=1.0, ld=ld)
+
+
+_BH1M_JOBS = """
+import json
+from functools import partial
+import torch
+from nbbench.gen import uniform_pool
+from nbody_tpu_torch.core.types import Bodies
+from nbody_tpu_torch.integrate.leapfrog import simulate
+from nbody_tpu_torch.ops import bh_fused
+
+dev = torch.device("cuda")
+b = uniform_pool(10**6, 1, 2**31 + 13, torch.float32, dev)[0]
+pos, vel, mass = b[:, :3].contiguous(), b[:, 3:6].contiguous(), b[:, 6].contiguous()
+force = partial(bh_fused.barneshut_fused, G=1.0, softening_sq=0.01, theta=0.5)
+queries, mem_get_info = [], torch.cuda.mem_get_info
+torch.cuda.mem_get_info = lambda *a, **k: (queries.append(1), mem_get_info(*a, **k))[1]
+counts = []
+for _ in range(2):
+    bh_fused.check_fused(pos, mass, **force.keywords)
+    simulate(Bodies(pos.clone(), vel.clone(), mass.clone()), 10, 1e-4, force)
+    counts.append([bh_fused.prepare_fused.captures, bh_fused.prepare_fused.replays,
+                   len(queries)])
+print(json.dumps(counts))
+"""
+
+
+def test_bh1m_jobs_capture_once_then_replay(dev):
+    """In a fresh process, the first bh1m-f32 job (the probe, then 10 KDK
+    steps: 12 set-ups) captures the set-up once and reads the budget once;
+    the second job replays all 12 set-ups and reads nothing."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    run = subprocess.run([sys.executable, "-c", _BH1M_JOBS], capture_output=True, text=True,
+                         cwd=pathlib.Path(__file__).resolve().parents[1], timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    first, second = json.loads(run.stdout.strip().splitlines()[-1])
+    assert first == [1, 11, 1]
+    assert second == [1, 23, 1]
 
 
 def test_bh_fused_kernel_refuses_what_it_cannot_take(dev):

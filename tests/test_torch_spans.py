@@ -227,20 +227,20 @@ def test_jobs_on_the_card_count_every_site_and_time_every_span():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     pos, vel, mass = _bodies(20000, torch.device("cuda"))
-    for job in (_oneshot_job, _persistent_job):  # build and warm the kernels
+    # build and warm the kernels; the one-shot set-up's layout is sized, and
+    # its graphs captured, here, so the jobs below read no budget
+    for job in (_oneshot_job, _persistent_job):
         job(pos, vel, mass, steps=1)
     table, spans = _profiled(lambda: _oneshot_job(pos, vel, mass, steps=3))
     k6 = {"bh.k6.price": 5, "bh.k6.order": 4, "bh.k6.full": 4}  # the probe prices only
     assert _counts(table) == {
         **{s: 4 for s in ONESHOT}, **{s: 5 for s in PROBE}, **k6, "bh.probe": 1,
         "integrate.run": 1, "force.eval": 4, "integrate.step": 3,
-        "host_sync.probe.stats": 1, "host_sync.capacity.free_bytes": 5,
-        "host_sync.simulate.fence": 1}
+        "host_sync.probe.stats": 1, "host_sync.simulate.fence": 1}
     assert all(v["device_s"] is not None and v["device_s"] >= 0 for v in table.values())
     _check_nesting(spans)
     assert _under(spans, "bh.probe") == {**{s: 1 for s in PROBE},
-                                         "host_sync.probe.stats": 1,
-                                         "host_sync.capacity.free_bytes": 1}
+                                         "host_sync.probe.stats": 1}
     timing.clear()
     table, spans = _profiled(lambda: _persistent_job(pos, vel, mass, steps=5))
     counts = _counts(table)
